@@ -22,15 +22,15 @@
 // <), and a butterfly reduction breaks ties to the lower index, as
 // jnp.argmin and torch.argmin do. x is read through its row and head
 // strides as it comes ([N, H, d], unit stride in d); no head-major copy and
-// no padding of N: the last tile is masked.
+// no padding of N: the last tile is masked. The search itself lives in
+// vq_common.cuh, shared with vq_stats.cu.
 
-#include <cuda_runtime.h>
-#include <math_constants.h>
+#include "vq_common.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;          // keep in sync with ops/vq.py
-constexpr int kRowsPerBlock = 64;  // rows of one head per block
+using vq::kRowsPerBlock;
+using vq::kWarps;
 
 __global__ void __launch_bounds__(kWarps * 32)
 vq_nearest_kernel(const float* __restrict__ x, long long stride_n, long long stride_h,
@@ -42,18 +42,7 @@ vq_nearest_kernel(const float* __restrict__ x, long long stride_n, long long str
   float* xs = esq + K;      // [kWarps][d] one input row per warp
 
   const int h = blockIdx.y;
-  const float* eh = embed + (size_t)h * d * K;
-  for (int i = threadIdx.x; i < d * K; i += blockDim.x) es[i] = eh[i];
-  __syncthreads();
-  for (int k = threadIdx.x; k < K; k += blockDim.x) {
-    float s = 0.f;
-    for (int j = 0; j < d; ++j) {
-      const float e = es[j * K + k];
-      s = fmaf(e, e, s);
-    }
-    esq[k] = s;
-  }
-  __syncthreads();
+  vq::stage_codebook(embed + (size_t)h * d * K, es, esq, d, K);
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -62,40 +51,9 @@ vq_nearest_kernel(const float* __restrict__ x, long long stride_n, long long str
   const int row_end = min(row0 + kRowsPerBlock, N);
   for (int n = row0 + warp; n < row_end; n += kWarps) {
     const float* xr = x + (long long)n * stride_n + (long long)h * stride_h;
-    float part = 0.f;
-    for (int j = lane; j < d; j += 32) {
-      const float v = xr[j];
-      xw[j] = v;
-      part = fmaf(v, v, part);
-    }
-    for (int o = 16; o > 0; o >>= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
-    __syncwarp();
-    const float xsq = part;
-
-    float best = CUDART_INF_F;
-    int bi = K;
-    for (int k = lane; k < K; k += 32) {
-      float dot = 0.f;
-      for (int j = 0; j < d; ++j) dot = fmaf(xw[j], es[j * K + k], dot);
-      // (|x|^2 - 2 x.e) + |e|^2, rounded step by step (no contraction)
-      const float dist = __fadd_rn(__fsub_rn(xsq, __fmul_rn(2.f, dot)), esq[k]);
-      if (dist < best) {
-        best = dist;
-        bi = k;
-      }
-    }
-    for (int o = 16; o > 0; o >>= 1) {
-      const float ob = __shfl_xor_sync(0xffffffffu, best, o);
-      const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
-      if (ob < best || (ob == best && oi < bi)) {
-        best = ob;
-        bi = oi;
-      }
-    }
-    if (bi >= K) bi = 0;  // every distance was NaN
+    const int bi = vq::warp_nearest(xr, xw, es, esq, d, K, lane);
     if (lane == 0) idx[(size_t)n * H + h] = bi;
-    float* qr = quant + ((size_t)n * H + h) * d;
-    for (int j = lane; j < d; j += 32) qr[j] = es[j * K + bi];
+    vq::warp_store_codeword(quant + ((size_t)n * H + h) * d, es, bi, d, K, lane);
     __syncwarp();  // xw is rewritten by the warp's next row
   }
 }

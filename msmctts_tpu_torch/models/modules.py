@@ -1,5 +1,5 @@
 """WaveNet-style gated residual stack and prior predictor (counterpart of
-``msmctts_tpu/models/modules.py:67,138``), inference only.
+``msmctts_tpu/models/modules.py:67,138``).
 
 Names follow the reference (``in_layers``, ``res_skip_layers``, ``enc``,
 ``proj``). Inputs are [B, T, C] with a [B, T, 1] validity mask; the stack
@@ -12,6 +12,7 @@ import torch
 import torch.nn as nn
 
 from msmctts_tpu_torch.ops.convs import Conv1x1, WNConv1d
+from msmctts_tpu_torch.ops.dropout import Dropout
 
 
 class ResStack(nn.Module):
@@ -31,6 +32,7 @@ class ResStack(nn.Module):
             raise NotImplementedError("global conditioning (gin_channels > 0) is not ported")
         C = hidden_channels
         self.hidden_channels = C
+        self.drop = Dropout(p_dropout)
         in_layers, res_skip = [], []
         for i in range(n_layers):
             dilation = dilation_rate**i
@@ -48,7 +50,7 @@ class ResStack(nn.Module):
         last = len(self.in_layers) - 1
         for i, (conv_in, conv_rs) in enumerate(zip(self.in_layers, self.res_skip_layers)):
             x_in = conv_in(x)
-            acts = torch.tanh(x_in[:, :C]) * torch.sigmoid(x_in[:, C:])
+            acts = self.drop(torch.tanh(x_in[:, :C]) * torch.sigmoid(x_in[:, C:]))
             res_skip = conv_rs(acts)
             if i < last:
                 x = (x + res_skip[:, :C]) * mask

@@ -1,5 +1,7 @@
 """MSMC-VQ-GAN autoencoder (counterpart of
-``msmctts_tpu/models/msmc_vqgan.py:54-511``), inference only.
+``msmctts_tpu/models/msmc_vqgan.py:54-511``). ``train()`` mode is the JAX
+package's ``deterministic=False`` with a mutable codebook: dropout draws,
+the codebook EMA moves and the prior-prediction losses are returned.
 
 Names follow the reference (``in_linear``, ``encoder.encoders.i``,
 ``quantizer.quantizer.i`` / ``preprocessor.i`` / ``postprocessor.i`` /
@@ -20,6 +22,7 @@ from msmctts_tpu_torch.models.modules import PriorPredictor
 from msmctts_tpu_torch.models.quantizer import EMAQuantizer
 from msmctts_tpu_torch.models.transformer import FFTBlocks
 from msmctts_tpu_torch.ops.convs import Conv1x1
+from msmctts_tpu_torch.ops.dropout import Dropout
 from msmctts_tpu_torch.ops.masking import positions_from_lengths, sequence_mask
 from msmctts_tpu_torch.registry import get_network, register_network
 
@@ -39,6 +42,18 @@ def repeat_upsample(x, scale: int):
     if scale == 1:
         return x
     return torch.repeat_interleave(x, scale, dim=1)
+
+
+def crop_windows(x, starts, size: int):
+    """x [B, T, ...], starts [B] -> [B, size, ...], row b from ``starts[b]``.
+    A start is clamped so that the window stays inside T, as
+    ``jax.lax.dynamic_slice`` clamps it (``msmc_vqgan.py:430-434``)."""
+    T = x.shape[1]
+    if size > T:
+        raise ValueError(f"window of {size} does not fit in {T}")
+    starts = torch.clamp(starts.long(), 0, T - size)
+    index = starts[:, None] + torch.arange(size, device=x.device)[None, :]  # [B, size]
+    return x[torch.arange(x.shape[0], device=x.device)[:, None], index]
 
 
 def _ceil_div(lengths, scale: int):
@@ -71,7 +86,7 @@ class MultiStageEncoder(nn.Module):
             FFTBlocks(
                 max_seq_len=max_seq_len, n_layers=n_layers, n_head=n_head,
                 d_k=d_k, d_v=d_v, d_model=in_channels, d_inner=d_inner,
-                fft_conv1d_kernel=fft_conv1d_kernel,
+                fft_conv1d_kernel=fft_conv1d_kernel, dropout=dropout, attn_dropout=attn_dropout,
             )
             for _ in self.downsample_scales
         )
@@ -113,12 +128,14 @@ class MultiStageQuantizer(nn.Module):
         if norm:
             raise NotImplementedError("quantizer norm: True (TorchBatchNorm) is not ported")
         self.upsample_scales = list(upsample_scales)
+        self.update_codebook = update_codebook
+        self.dropout = Dropout(dropout)
         n_stage = len(self.upsample_scales)
         sizes = embedding_sizes if isinstance(embedding_sizes, (list, tuple)) else [embedding_sizes] * n_stage
         dims = embedding_dims if isinstance(embedding_dims, (list, tuple)) else [embedding_dims] * n_stage
         M = n_model_size
         self.quantizer = nn.ModuleList(
-            EMAQuantizer(dims[i], sizes[i], n_head=n_heads) for i in range(n_stage)
+            EMAQuantizer(dims[i], sizes[i], n_head=n_heads, restart_dead=restart_dead) for i in range(n_stage)
         )
         self.preprocessor = nn.ModuleList(
             nn.Sequential(Conv1x1(M if i == 0 else 2 * M, dims[i]), nn.Tanh(), Conv1x1(dims[i], dims[i]))
@@ -136,10 +153,12 @@ class MultiStageQuantizer(nn.Module):
     def forward(self, stages: List[Tuple[Optional[torch.Tensor], torch.Tensor]], from_encoder: bool = True):
         """stages: [(embedding|None, length)] — fine-to-coarse when
         ``from_encoder``, coarsest-first otherwise. Returns coarsest-first
-        per-stage lists and the residual output."""
+        per-stage lists and the residual output; in training mode also
+        ``predictor_diffs``, the masked MSE of each prior prediction."""
         if from_encoder:
             stages = stages[::-1]
         quant_outputs, quant_diffs, quant_indices, lengths_out = [], [], [], []
+        pred_states = []
         residual = None
         for i, (embedding, length) in enumerate(stages):
             T = embedding.shape[1] if embedding is not None else residual.shape[1]
@@ -149,7 +168,7 @@ class MultiStageQuantizer(nn.Module):
             pred_quant = None
             if residual is not None:
                 pred_hidden, pred_quant = self.predictor[str(i)](residual, mask)
-                residual = residual + pred_hidden
+                residual = residual + self.dropout(pred_hidden)
 
             if embedding is None:
                 q_input = pred_quant
@@ -159,24 +178,50 @@ class MultiStageQuantizer(nn.Module):
             else:
                 q_input = embedding
 
-            quant, diff, indices = self.quantizer[i](q_input)
+            quant, diff, indices = self.quantizer[i](q_input, lengths=length, update=self.update_codebook)
 
             post_in = quant if residual is None else torch.cat([residual, quant], dim=-1)
-            h = self.postprocessor[i](post_in)
+            h = self.dropout(self.postprocessor[i](post_in))
             residual = h if residual is None else residual + h
 
             quant_outputs.append(quant)
             quant_diffs.append(diff)
             quant_indices.append(indices)
+            pred_states.append(dict(predictor_outputs=pred_quant, target_outputs=quant, target_lengths=length))
             residual = repeat_upsample(residual, self.upsample_scales[i])
 
-        return dict(
+        out = dict(
             residual_output=residual,
             quantizer_outputs=quant_outputs,
             quantizer_diffs=quant_diffs,
             quantizer_indices=quant_indices,
             quantizer_lengths=lengths_out,
         )
+        if self.training:
+            out["predictor_diffs"] = self.compute_embedding_loss(pred_states)
+        return out
+
+    def compute_embedding_loss(self, pred_states, methods=("mse",), loss_weights=(1.0,)):
+        """Per-stage masked embedding losses (``msmc_vqgan.py:301-342``);
+        returns a dict with 'total_loss'. Only ``mse`` is ported."""
+        ref = pred_states[0]["target_outputs"]
+        loss_dict = {"total_loss": torch.zeros((), dtype=torch.float32, device=ref.device)}
+        for i, state in enumerate(pred_states):
+            p = state["predictor_outputs"]
+            if p is None:
+                continue
+            weights = loss_weights[i] if isinstance(loss_weights[0], (list, tuple)) else loss_weights
+            length = state["target_lengths"]
+            mask = sequence_mask(length, p.shape[1], dtype=torch.float32)
+            denom = torch.clamp(length.float().sum(), min=1.0)
+            for method, weight in zip(methods, weights):
+                if method != "mse":
+                    raise NotImplementedError(f"embedding loss '{method}' is not ported (only 'mse')")
+                loss = torch.mean(torch.square(p - state["target_outputs"].detach()), dim=-1)  # [B, T]
+                loss = torch.sum(loss * mask) / denom
+                loss_dict[f"embed_loss_{method}_{i}"] = loss
+                loss_dict["total_loss"] = loss_dict["total_loss"] + loss * weight
+        return loss_dict
 
 
 @register_network("MSMCVQGAN")
@@ -213,7 +258,6 @@ class MSMCVQGAN(nn.Module):
             FFTBlocks(d_model=n_model_size, **dict(frame_decoder_config))
             if frame_decoder_config is not None else None
         )
-        # the mel head is a training target; kept so checkpoints round-trip
         self.mel_predictor = nn.Linear(n_model_size, in_dim) if pred_mel else None
 
     @property
@@ -236,12 +280,33 @@ class MSMCVQGAN(nn.Module):
         q = self.analysis(mel, mel_length)
         return self._frame_decode(q["residual_output"], mel_length)
 
-    def forward(self, mel, mel_length):
-        """Analysis-synthesis round trip: -> {'decoder_outputs' [B, T*r, 1],
-        'encoder_indices' (coarsest-first [B, T_s, H])}."""
-        q = self.analysis(mel, mel_length)
-        feats = self._frame_decode(q["residual_output"], mel_length)
-        return {"decoder_outputs": self.decoder(feats), "encoder_indices": q["quantizer_indices"]}
+    def forward(self, mel, mel_length, warmup: bool = False, window_starts=None,
+                window_frames: Optional[int] = None):
+        """Training / end-to-end forward (``msmc_vqgan.py:395-436``); without
+        the extra arguments, in ``eval()`` mode, the analysis-synthesis round
+        trip. ``window_starts`` [B] frame offsets with ``window_frames`` crop
+        the decoder input per utterance before the waveform decoder;
+        ``warmup`` skips that decoder. Per-stage lists are coarsest-first.
+        'decoder_diffs' is None outside training mode."""
+        encoder_states = self.encoder(self.in_linear(mel), mel_length)
+        q = self.quantizer(encoder_states)
+        out = dict(
+            encoder_outputs=[s[0] for s in encoder_states][::-1],
+            encoder_lengths=[s[1] for s in encoder_states][::-1],
+            encoder_indices=q["quantizer_indices"],
+            encoder_diffs=q["quantizer_diffs"],
+            decoder_diffs=q.get("predictor_diffs"),
+        )
+        decoder_inputs = self._frame_decode(q["residual_output"], mel_length)
+        if self.mel_predictor is not None:
+            out["mel_outputs"] = self.mel_predictor(decoder_inputs)
+        if not warmup:
+            if window_starts is not None:
+                if window_frames is None:
+                    raise ValueError("window_starts needs window_frames")
+                decoder_inputs = crop_windows(decoder_inputs, window_starts, window_frames)
+            out["decoder_outputs"] = self.decoder(decoder_inputs)
+        return out
 
     def synthesis_features(self, quantizer_outputs, quantizer_lengths):
         """Predicted embeddings (coarsest-first) -> decoder input features:

@@ -1,11 +1,16 @@
-"""Multi-head VQ at inference (counterpart of
+"""Multi-head EMA vector quantization (counterpart of
 ``msmctts_tpu/models/quantizer.py``).
 
 All heads share one codebook tensor [H, d, K] (``embed``), kept whole as
-in the JAX package. Every snap goes through ``ops/vq.py`` (kernel 1 on the
-card). The EMA statistics are training state and are not computed: at
-inference the JAX package discards them (its ``codebook`` collection is not
-mutable there, ``quantizer.py:169``), so no output changes.
+in the JAX package. In ``eval()`` mode every snap goes through
+``ops/vq.vq_nearest`` (kernel 1 on the card) and nothing is updated: at
+inference the JAX package discards the statistics (its ``codebook``
+collection is not mutable there, ``quantizer.py:169``). In ``train()`` mode
+with ``update``, one ``ops/vq.vq_nearest_stats`` launch (kernel 3) gives
+the indices, the codewords of the *old* codebook and the masked counts and
+sums, and the EMA update (``quantizer.py:184-188``) then runs in plain
+tensor code on the buffers, in place, under ``no_grad``. ``train()`` mode
+is the port's counterpart of flax's mutable ``codebook`` collection.
 """
 
 from __future__ import annotations
@@ -13,7 +18,8 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from msmctts_tpu_torch.ops.vq import vq_nearest
+from msmctts_tpu_torch.ops.masking import sequence_mask
+from msmctts_tpu_torch.ops.vq import vq_nearest, vq_nearest_stats
 
 
 def nearest_codes(x, embed):
@@ -38,11 +44,17 @@ class EMAQuantizer(nn.Module):
     """H-head codebook over inputs [B, T, embed_dim] (buffers ``embed``
     [H, d, K], ``cluster_size`` [H, K], ``embed_avg`` [H, d, K])."""
 
-    def __init__(self, embed_dim: int, n_embed: int, n_head: int = 1):
+    decay = 0.99  # of the EMA of cluster sizes and codeword sums
+    eps = 1e-5  # Laplace smoothing of the cluster sizes
+
+    def __init__(self, embed_dim: int, n_embed: int, n_head: int = 1, restart_dead: float = 0.0):
         super().__init__()
         if embed_dim % n_head:
             raise ValueError(f"embed_dim {embed_dim} does not split into {n_head} heads")
+        if restart_dead > 0:
+            raise NotImplementedError("restart_dead > 0 (dead-codeword restarts) is not ported")
         self.n_head = n_head
+        self.n_embed = n_embed
         self.sub_dim = embed_dim // n_head
         embed = torch.randn(n_head, self.sub_dim, n_embed)
         self.register_buffer("embed", embed)
@@ -56,12 +68,41 @@ class EMAQuantizer(nn.Module):
         idx, quant = nearest_codes(x.reshape(B, T, self.n_head, self.sub_dim), self.embed)
         return quant.reshape(B, T, D).to(x.dtype), idx
 
-    def forward(self, x):
-        """x [B, T, D] -> (quantized (straight-through form), diff,
-        indices [B, T, H]); matches ``quantizer.py:112-220`` with no EMA
-        update (frame lengths only mask the statistics, so none are taken)."""
-        quant, indices = self.quantize(x)
+    @torch.no_grad()
+    def ema_update(self, counts, sums):
+        """EMA of cluster sizes and codeword sums, then the Laplace-smoothed
+        codebook (``quantizer.py:184-188``), written in place."""
+        K = self.n_embed
+        new_cs = self.cluster_size * self.decay + (1.0 - self.decay) * counts
+        new_ea = self.embed_avg * self.decay + (1.0 - self.decay) * sums
+        n = new_cs.sum(dim=-1, keepdim=True)  # [H, 1]
+        smoothed = (new_cs + self.eps) / (n + K * self.eps) * n  # [H, K]
+        self.cluster_size.copy_(new_cs)
+        self.embed_avg.copy_(new_ea)
+        self.embed.copy_(new_ea / smoothed[:, None, :])
+
+    def forward(self, x, lengths=None, update: bool = True, sort: bool = False):
+        """x [B, T, D] -> (quantized (straight-through), diff [B, T, D] fp32,
+        indices [B, T, H] int32); ``quantizer.py:112-220``. The codebook
+        moves iff the module is in training mode and ``update``; frames at
+        t >= lengths[b] are left out of its statistics. The codewords
+        returned are those of the codebook before the update."""
+        if sort:
+            raise NotImplementedError("sort=True (full codeword ranking) is not ported")
+        B, T, D = x.shape
+        if self.training and update:
+            if lengths is None:
+                mask = torch.ones(B * T, dtype=torch.float32, device=x.device)
+            else:
+                mask = sequence_mask(lengths, T, dtype=torch.float32).reshape(B * T)
+            xf = x.detach().float().reshape(B * T, self.n_head, self.sub_dim)
+            idx, quant, counts, sums = vq_nearest_stats(xf, self.embed, mask)
+            indices = idx.reshape(B, T, self.n_head)
+            quant = quant.reshape(B, T, D).to(x.dtype)
+            self.ema_update(counts, sums)
+        else:
+            quant, indices = self.quantize(x.detach())
+        # commitment diff in float32; gradients reach x only
         diff = torch.square(quant.float() - x.float())
-        # the straight-through form's forward value: x + (quant - x)
-        quant_st = x + (quant - x)
+        quant_st = x + (quant - x).detach()
         return quant_st, diff, indices

@@ -1,5 +1,8 @@
 """FastSpeech-style transformer blocks (counterpart of
-``msmctts_tpu/models/transformer.py``), inference only.
+``msmctts_tpu/models/transformer.py``). Dropout sits where the JAX package
+applies it (attention weights, attention output, FFN output) and draws from
+the generator the trainer binds (``ops/dropout.py``); in ``eval()`` it is
+the identity.
 
 Parameter names follow the reference torch modules (``layer_stack``,
 ``slf_attn.linear`` fused QKV, ``slf_attn.fc``, ``pos_ffn.w_1``, ...), so a
@@ -23,6 +26,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from msmctts_tpu_torch.ops.dropout import Dropout
 
 LAYERNORM_EPS = 1e-5
 NEG_INF = -1e9
@@ -52,12 +57,15 @@ def _same_padding(kernel_size: int) -> int:
 class MultiHeadAttention(nn.Module):
     """Fused-QKV self-attention with key-padding mask + residual + LN."""
 
-    def __init__(self, n_head: int, d_model: int, d_k: int, d_v: int):
+    def __init__(self, n_head: int, d_model: int, d_k: int, d_v: int,
+                 dropout: float = 0.1, attn_dropout: float = 0.1):
         super().__init__()
         self.n_head, self.d_k, self.d_v = n_head, d_k, d_v
         self.linear = nn.Linear(d_model, n_head * (2 * d_k + d_v))
         self.fc = nn.Linear(n_head * d_v, d_model)
         self.layer_norm = nn.LayerNorm(d_model, eps=LAYERNORM_EPS)
+        self.attn_dropout = Dropout(attn_dropout)
+        self.dropout = Dropout(dropout)
 
     def forward(self, x, key_pad):
         B, T, _ = x.shape
@@ -67,16 +75,17 @@ class MultiHeadAttention(nn.Module):
         v = qkv[..., 2 * self.d_k :]
         attn = torch.einsum("bqhd,bkhd->bhqk", q, k) * (1.0 / np.sqrt(self.d_k))
         attn = attn.masked_fill(key_pad[:, None, None, :], NEG_INF)
-        attn = torch.softmax(attn, dim=-1)
+        attn = self.attn_dropout(torch.softmax(attn, dim=-1))
         out = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(B, T, self.n_head * self.d_v)
-        return self.layer_norm(self.fc(out) + x)
+        return self.layer_norm(self.dropout(self.fc(out)) + x)
 
 
 class ConvFFN(nn.Module):
-    """conv1d(k) -> relu -> conv1d(k) -> residual -> LN."""
+    """conv1d(k) -> relu -> conv1d(k) -> dropout -> residual -> LN."""
 
-    def __init__(self, d_model: int, d_inner: int, kernel_size: int = 3):
+    def __init__(self, d_model: int, d_inner: int, kernel_size: int = 3, dropout: float = 0.1):
         super().__init__()
+        self.dropout = Dropout(dropout)
         pad = _same_padding(kernel_size)
         self.w_1 = nn.Conv1d(d_model, d_inner, kernel_size, padding=pad)
         self.w_2 = nn.Conv1d(d_inner, d_model, kernel_size, padding=pad)
@@ -84,14 +93,14 @@ class ConvFFN(nn.Module):
 
     def forward(self, x):
         h = self.w_2(F.relu(self.w_1(x.transpose(1, 2)))).transpose(1, 2)
-        return self.layer_norm(h + x)
+        return self.layer_norm(self.dropout(h) + x)
 
 
 class FFTBlock(nn.Module):
-    def __init__(self, d_model, d_inner, n_head, d_k, d_v, kernel_size=3):
+    def __init__(self, d_model, d_inner, n_head, d_k, d_v, kernel_size=3, dropout=0.1, attn_dropout=0.1):
         super().__init__()
-        self.slf_attn = MultiHeadAttention(n_head, d_model, d_k, d_v)
-        self.pos_ffn = ConvFFN(d_model, d_inner, kernel_size)
+        self.slf_attn = MultiHeadAttention(n_head, d_model, d_k, d_v, dropout, attn_dropout)
+        self.pos_ffn = ConvFFN(d_model, d_inner, kernel_size, dropout)
 
     def forward(self, x, key_pad, non_pad):
         x = self.slf_attn(x, key_pad) * non_pad
@@ -100,8 +109,8 @@ class FFTBlock(nn.Module):
 
 class FFTBlocks(nn.Module):
     """N FFT blocks over [B, T, d_model] with 1-based position ids
-    (0 = padding). Dropout rates and the reference's extra config keys are
-    accepted for YAML parity and unused at inference."""
+    (0 = padding). The reference's extra config keys are accepted for YAML
+    parity."""
 
     def __init__(
         self,
@@ -126,7 +135,7 @@ class FFTBlocks(nn.Module):
             persistent=False,
         )
         self.layer_stack = nn.ModuleList(
-            FFTBlock(d_model, d_inner, n_head, d_k, d_v, fft_conv1d_kernel)
+            FFTBlock(d_model, d_inner, n_head, d_k, d_v, fft_conv1d_kernel, dropout, attn_dropout)
             for _ in range(n_layers)
         )
 

@@ -7,13 +7,18 @@ is therefore per *input* channel (the JAX package's axes (0, 2) on its
 [k, in, out] layout, ``msmctts_tpu/ops/convs.py:126``). Both norms run over
 every axis but the first.
 
-Inference needs no live weight norm: each module folds
-``v / max(||v||, 1e-12) * g`` (the JAX formula, ``convs.py:30-40``) into a
-non-persistent ``weight`` buffer at construction and again after every
-``load_state_dict``. Code that writes ``weight_v``/``weight_g`` in place
-calls :func:`refold` afterwards.
+In ``train()`` mode the kernel ``v / max(||v||, 1e-12) * g`` (the JAX
+formula, ``convs.py:30-40``) is computed in the graph at every forward, so
+``weight_v`` and ``weight_g`` get gradients. In ``eval()`` mode each module
+uses a folded copy in a non-persistent ``weight`` buffer, made at
+construction, after every ``load_state_dict`` and on every switch to eval
+(so a fold made before an optimizer step is never used after it). Code that
+writes ``weight_v``/``weight_g`` in place while in eval mode calls
+:func:`refold` afterwards.
 
-The conv modules take torch's NCL layout. ``Conv1x1`` is the 1x1 conv the
+The conv modules take torch's NCL / NCHW layout. ``hifigan_init`` marks the
+convs the JAX package draws from N(0, 0.01) (``weights.init_random`` reads
+it); the others are lecun-normal there. ``Conv1x1`` is the 1x1 conv the
 reference uses on [B, C, T]; here it maps [B, T, C] directly.
 """
 
@@ -31,9 +36,19 @@ def fold_weight_norm(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 
 class _Folded(nn.Module):
-    """Keeps a folded copy of a weight-norm pair in sync with loads."""
+    """A weight-norm pair: live in training, folded for eval."""
 
-    def _init_fold(self):
+    hifigan_init = False
+
+    def _init_pair(self, shape, bias_size, bias: bool, hifigan_init: bool):
+        self.hifigan_init = hifigan_init
+        self.weight_v = nn.Parameter(torch.empty(*shape))
+        nn.init.normal_(self.weight_v, std=0.01)
+        norm_dims = tuple(range(1, len(shape)))
+        self.weight_g = nn.Parameter(
+            torch.sqrt(torch.sum(self.weight_v.detach() ** 2, dim=norm_dims, keepdim=True))
+        )
+        self.bias = nn.Parameter(torch.zeros(bias_size)) if bias else None
         self.register_buffer("weight", None, persistent=False)
         self.register_load_state_dict_post_hook(lambda module, _keys: module.fold())
         self.fold()
@@ -42,45 +57,61 @@ class _Folded(nn.Module):
     def fold(self):
         self.weight = fold_weight_norm(self.weight_v, self.weight_g)
 
+    def train(self, mode: bool = True):
+        super().train(mode)
+        if not mode:
+            self.fold()
+        return self
+
+    def kernel(self):
+        """The dense kernel of this forward: in the graph when training."""
+        if self.training:
+            return fold_weight_norm(self.weight_v, self.weight_g)
+        return self.weight
+
 
 class WNConv1d(_Folded):
     """Weight-normalized ``Conv1d`` over [B, C, T]."""
 
-    def __init__(self, in_channels, out_channels, kernel_size, padding=0, dilation=1, bias=True):
+    def __init__(self, in_channels, out_channels, kernel_size, padding=0, dilation=1, bias=True,
+                 hifigan_init=False):
         super().__init__()
         self.padding = padding
         self.dilation = dilation
-        self.weight_v = nn.Parameter(torch.empty(out_channels, in_channels, kernel_size))
-        nn.init.normal_(self.weight_v, std=0.01)
-        self.weight_g = nn.Parameter(
-            torch.sqrt(torch.sum(self.weight_v.detach() ** 2, dim=(1, 2), keepdim=True))
-        )
-        self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
-        self._init_fold()
+        self._init_pair((out_channels, in_channels, kernel_size), out_channels, bias, hifigan_init)
 
     def forward(self, x):
-        return F.conv1d(x, self.weight, self.bias, padding=self.padding, dilation=self.dilation)
+        return F.conv1d(x, self.kernel(), self.bias, padding=self.padding, dilation=self.dilation)
+
+
+class WNConv2d(_Folded):
+    """Weight-normalized ``Conv2d`` over [B, C, H, W] (the discriminators'
+    conv; ``msmctts_tpu/ops/convs.py:43-98`` with two spatial dims)."""
+
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1, padding=0, bias=True):
+        super().__init__()
+        self.stride = stride
+        self.padding = padding
+        self._init_pair((out_channels, in_channels, *kernel_size), out_channels, bias, False)
+
+    def forward(self, x):
+        return F.conv2d(x, self.kernel(), self.bias, stride=self.stride, padding=self.padding)
 
 
 class WNConvTranspose1d(_Folded):
     """Weight-normalized ``ConvTranspose1d`` over [B, C, T]; output length
     ``(L - 1) * stride - 2 * padding + kernel_size`` (``convs.py:101-146``)."""
 
-    def __init__(self, in_channels, out_channels, kernel_size, stride, padding, bias=True):
+    def __init__(self, in_channels, out_channels, kernel_size, stride, padding, bias=True,
+                 hifigan_init=False):
         super().__init__()
         self.stride = stride
         self.padding = padding
-        self.weight_v = nn.Parameter(torch.empty(in_channels, out_channels, kernel_size))
-        nn.init.normal_(self.weight_v, std=0.01)
-        self.weight_g = nn.Parameter(
-            torch.sqrt(torch.sum(self.weight_v.detach() ** 2, dim=(1, 2), keepdim=True))
-        )
-        self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
-        self._init_fold()
+        self._init_pair((in_channels, out_channels, kernel_size), out_channels, bias, hifigan_init)
 
     def forward(self, x):
         return F.conv_transpose1d(
-            x, self.weight, self.bias, stride=self.stride, padding=self.padding
+            x, self.kernel(), self.bias, stride=self.stride, padding=self.padding
         )
 
 

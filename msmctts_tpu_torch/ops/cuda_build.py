@@ -2,8 +2,8 @@
 
 Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
 plain C interface, ``build/msmctts_tpu_torch/lib<name>-<hash>.so`` beside
-the package. The hash covers the source and the flags, so an edited source
-builds anew and a stale library is never loaded. Nothing is built at
+the package. The hash covers the source, the shared headers (``csrc/*.cuh``)
+and the flags, so an edited source builds anew and a stale library is never loaded. Nothing is built at
 import: a kernel builds at its first launch, or ahead of time through
 :func:`build` (which runs one ``nvcc`` per source, all at once).
 
@@ -46,8 +46,14 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    """The library of ``csrc/<name>.cu``, keyed by a hash of that source,
+    every header under ``csrc/`` (a source may include any of them) and the
+    flags."""
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -10,6 +10,10 @@ waveform, with the frozen autoencoder loaded from
 phases: durations first, then one frame bucket for the batch, then
 expansion and synthesis.
 
+``build_task(config, mode="train")`` also builds the training-only
+networks of the recipe (the GAN discriminator) and leaves every network in
+``train()`` mode for a trainer of ``msmctts_tpu_torch/training``.
+
 Everything runs in fp32 on ``device`` (``cuda`` unless the caller asks for
 the CPU). No mesh, int8 decoder or streaming yet.
 """
@@ -31,14 +35,18 @@ from msmctts_tpu_torch.weights import (
     load_numpy_state,
     msmc_vqgan_from_jax,
     multi_stage_predictor_from_jax,
+    univnet_discriminator_from_jax,
 )
 
 _FROM_JAX = {
-    "MSMCVQGAN": lambda state, name: msmc_vqgan_from_jax(
+    "MSMCVQGAN": lambda state, name, module: msmc_vqgan_from_jax(
         {"params": state["params"][name], "codebook": state["codebook"],
          "batch_stats": state.get("model_state", {}).get("batch_stats")}
     ),
-    "MultiStagePredictor": lambda state, name: multi_stage_predictor_from_jax(state["params"][name]),
+    "MultiStagePredictor": lambda state, name, module: multi_stage_predictor_from_jax(state["params"][name]),
+    "UnivNetDiscriminator": lambda state, name, module: univnet_discriminator_from_jax(
+        state["params"][name], periods=module.mpd.periods
+    ),
 }
 
 
@@ -50,32 +58,39 @@ def _build_network(node, device):
 def _load_network(module, node_name: str, state: dict, name: str):
     if node_name not in _FROM_JAX:
         raise NotImplementedError(f"no weight mapping for network '{node_name}'")
-    load_numpy_state(module, _FROM_JAX[node_name](state, name))
+    load_numpy_state(module, _FROM_JAX[node_name](state, name, module))
 
 
 # The networks inference runs. Others in a recipe (the GAN discriminator)
-# are training state and are not built.
+# are training state and are built in train mode only.
 INFERENCE_NETWORKS = ("autoencoder", "predictor")
 
 
 class BaseTask:
-    """Holds the module for every inference ``task:`` entry with a ``_name``."""
+    """Holds the module for every ``task:`` entry with a ``_name``: in
+    ``infer`` mode the networks inference runs, in ``eval()``; in ``train``
+    mode all of them, in ``train()``."""
 
-    def __init__(self, config, device=None):
+    def __init__(self, config, device=None, mode: str = "infer"):
+        if mode not in ("infer", "train"):
+            raise ValueError(f"unknown task mode '{mode}'")
         self.config = config
+        self.mode = mode
         self.device = resolve_device(device)
         exact_fp32()
         self.networks: Dict[str, torch.nn.Module] = {}
         self.network_configs: Dict[str, dict] = {}
         for name, node in config.get("task", {}).items():
-            if name not in INFERENCE_NETWORKS or not isinstance(node, dict) or "_name" not in node:
-                continue  # training-only networks, checkpoint-only entries
-            self.networks[name] = _build_network(node, self.device)
+            if name.startswith("_") or not isinstance(node, dict) or "_name" not in node:
+                continue  # checkpoint-only entries (a frozen autoencoder)
+            if mode == "infer" and name not in INFERENCE_NETWORKS:
+                continue
+            self.networks[name] = _build_network(node, self.device).train(mode == "train")
             self.network_configs[name] = node
 
 
-def build_task(config, device=None):
-    return get_task(config.task["_name"])(config, device)
+def build_task(config, device=None, mode: str = "infer"):
+    return get_task(config.task["_name"])(config, device, mode)
 
 
 def load_frozen_autoencoder(checkpoint_path: str, config_path: Optional[str] = None, device=None):
@@ -98,8 +113,8 @@ def extract_codebooks(autoencoder) -> list:
 
 @register_task("MSMCTTS")
 class MSMCTTS(BaseTask):
-    def __init__(self, config, device=None):
-        super().__init__(config, device)
+    def __init__(self, config, device=None, mode: str = "infer"):
+        super().__init__(config, device, mode)
         ds = config.dataset
         self.samplerate = ds["samplerate"]
         self.training_mode = config.task.get("_mode", "train_autoencoder")
@@ -136,6 +151,8 @@ class MSMCTTS(BaseTask):
         if "emb" in batch:
             raise NotImplementedError("SSL-embedding autoencoders are not ported")
         ae = self.networks["autoencoder"]
+        if ae.training:
+            raise RuntimeError("analysis_synthesis needs the autoencoder in eval() mode")
         T = int(batch["mel"].shape[1])
         out = ae(self._tensor(batch["mel"], torch.float32), self._tensor(batch["mel_length"], torch.long))
         wav = out["decoder_outputs"][..., 0].cpu().numpy()

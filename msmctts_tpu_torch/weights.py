@@ -21,6 +21,8 @@ WNConv v, g                [k, in, out], [out]    weight_v [out, in, k],
                                                   weight_g [out, 1, 1]
 WNConvTranspose1d v, g     [k, in, out], [in]     weight_v [in, out, k],
                                                   weight_g [in, 1, 1]
+WNConv (2-D) v, g          [kh, kw, in, out],     weight_v [out, in, kh, kw],
+                           [out]                  weight_g [out, 1, 1, 1]
 LayerNorm scale, bias      [d]                    weight, bias [d]
 =========================  =====================  ========================
 """
@@ -72,9 +74,14 @@ def conv1x1_from_jax(p: dict, prefix: str) -> StateDict:
 
 
 def wn_conv_from_jax(p: dict, prefix: str) -> StateDict:
+    v = _np(p["v"])
+    if v.ndim == 3:  # [k, in, out] -> [out, in, k]
+        axes, g_shape = (2, 1, 0), (-1, 1, 1)
+    else:  # [kh, kw, in, out] -> [out, in, kh, kw]
+        axes, g_shape = (3, 2, 0, 1), (-1, 1, 1, 1)
     out = {
-        f"{prefix}.weight_v": _np(p["v"]).transpose(2, 1, 0).copy(),
-        f"{prefix}.weight_g": _np(p["g"]).reshape(-1, 1, 1),
+        f"{prefix}.weight_v": v.transpose(axes).copy(),
+        f"{prefix}.weight_g": _np(p["g"]).reshape(g_shape),
     }
     if "bias" in p:
         out[f"{prefix}.bias"] = _np(p["bias"])
@@ -234,6 +241,39 @@ def multi_stage_predictor_from_jax(params: dict, prefix: str = "") -> StateDict:
     return out
 
 
+def discriminator_r_from_jax(params: dict, prefix: str = "") -> StateDict:
+    """The conv of stage i sits at index 1 of its ``nn.Sequential`` for
+    stage 0 ([pad, conv]) and at 2 otherwise ([lrelu, pad, conv])."""
+    pre = _pre(prefix)
+    out: StateDict = {}
+    for name, p in params.items():
+        i = int(name.split("_")[-1])
+        out.update(wn_conv_from_jax(p, f"{pre}discriminator.{i}.{1 if i == 0 else 2}"))
+    return out
+
+
+def discriminator_p_from_jax(params: dict, prefix: str = "") -> StateDict:
+    pre = _pre(prefix)
+    out = wn_conv_from_jax(params["conv_post"], f"{pre}conv_post")
+    for name, p in params.items():
+        if name != "conv_post":
+            out.update(wn_conv_from_jax(p, f"{pre}convs.{int(name.split('_')[-1])}"))
+    return out
+
+
+def univnet_discriminator_from_jax(params: dict, prefix: str = "", periods=(2, 3, 5, 7, 11)) -> StateDict:
+    """JAX UnivNetDiscriminator params -> port state_dict. ``periods`` must
+    be the MPD config's: flax names a period discriminator ``disc_p{period}``,
+    the port indexes them by position."""
+    pre = _pre(prefix)
+    out: StateDict = {}
+    for name, p in params["mrd"].items():
+        out.update(discriminator_r_from_jax(p, f"{pre}mrd.discriminators.{int(name.split('_')[-1])}"))
+    for i, period in enumerate(periods):
+        out.update(discriminator_p_from_jax(params["mpd"][f"disc_p{period}"], f"{pre}mpd.discriminators.{i}"))
+    return out
+
+
 # ------------------------------------------------------------ port -> JAX
 
 
@@ -274,7 +314,9 @@ def conv1x1_to_jax(sd: StateDict, prefix: str) -> dict:
 
 def wn_conv_to_jax(sd: StateDict, prefix: str) -> dict:
     s = _sub(sd, prefix)
-    out = {"v": _np(s["weight_v"]).transpose(2, 1, 0).copy(), "g": _np(s["weight_g"]).reshape(-1)}
+    v = _np(s["weight_v"])
+    axes = (2, 1, 0) if v.ndim == 3 else (2, 3, 1, 0)  # conv2d [out, in, kh, kw] -> [kh, kw, in, out]
+    out = {"v": v.transpose(axes).copy(), "g": _np(s["weight_g"]).reshape(-1)}
     if "bias" in s:
         out["bias"] = _np(s["bias"])
     return out
@@ -416,6 +458,60 @@ def multi_stage_predictor_to_jax(sd: StateDict, prefix: str = "") -> dict:
     return params
 
 
+def discriminator_r_to_jax(sd: StateDict, prefix: str = "") -> dict:
+    s = _sub(sd, prefix)
+    return {
+        f"conv_{i}": wn_conv_to_jax(s, f"discriminator.{i}.{1 if i == 0 else 2}")
+        for i in _layer_indices(s, r"discriminator\.(\d+)\.")
+    }
+
+
+def discriminator_p_to_jax(sd: StateDict, prefix: str = "") -> dict:
+    s = _sub(sd, prefix)
+    params = {f"conv_{i}": wn_conv_to_jax(s, f"convs.{i}") for i in _layer_indices(s, r"convs\.(\d+)\.")}
+    params["conv_post"] = wn_conv_to_jax(s, "conv_post")
+    return params
+
+
+def univnet_discriminator_to_jax(sd: StateDict, prefix: str = "", periods=(2, 3, 5, 7, 11)) -> dict:
+    """Port UnivNetDiscriminator state_dict -> JAX params."""
+    s = _sub(sd, prefix)
+    mrd = {
+        f"disc_{i}": discriminator_r_to_jax(s, f"mrd.discriminators.{i}")
+        for i in _layer_indices(s, r"mrd\.discriminators\.(\d+)\.")
+    }
+    mpd = {f"disc_p{p}": discriminator_p_to_jax(s, f"mpd.discriminators.{i}") for i, p in enumerate(periods)}
+    return {"mrd": mrd, "mpd": mpd}
+
+
+# ------------------------------------------------------------ train state
+
+
+def train_state_from_jax(state: dict, autoencoder: nn.Module, discriminator: nn.Module):
+    """Load a JAX VQGANTrainer state tree ({'params': {'autoencoder',
+    'discriminator'}, 'codebook'}) into the port's two modules. Optimizer
+    moments do not cross: they start fresh."""
+    load_numpy_state(autoencoder, msmc_vqgan_from_jax(
+        {"params": state["params"]["autoencoder"], "codebook": state["codebook"],
+         "batch_stats": state.get("model_state", {}).get("batch_stats")}
+    ))
+    load_numpy_state(discriminator, univnet_discriminator_from_jax(
+        state["params"]["discriminator"], periods=discriminator.mpd.periods
+    ))
+
+
+def train_state_to_jax(autoencoder: nn.Module, discriminator: nn.Module) -> dict:
+    """The port's two modules -> a JAX VQGANTrainer state tree without
+    optimizer state, the ``msmctts_tpu/v1`` checkpoint layout."""
+    ae = msmc_vqgan_to_jax(state_dict_numpy(autoencoder))
+    disc = univnet_discriminator_to_jax(state_dict_numpy(discriminator), periods=discriminator.mpd.periods)
+    return {
+        "params": {"autoencoder": ae["params"], "discriminator": disc},
+        "codebook": ae["codebook"],
+        "model_state": {"batch_stats": {}},
+    }
+
+
 # ------------------------------------------------------------ module I/O
 
 
@@ -431,16 +527,24 @@ def load_numpy_state(module: nn.Module, sd: StateDict):
 
 @torch.no_grad()
 def init_random(module: nn.Module, seed: int):
-    """Seeded random init of every parameter and codebook (smoke and bench
-    runs without trained weights): weights N(0, 1/fan_in), biases 0,
-    LayerNorm scales 1, weight-norm scales = |v| (the folded kernel equals
-    v), codebooks N(0, 1)."""
+    """Seeded random init of every parameter and codebook (training from
+    scratch, smoke and bench runs without trained weights): weights
+    N(0, 1/fan_in), except N(0, 0.01) for the convs the JAX package draws so
+    (``hifigan_init``); biases 0, LayerNorm scales 1, weight-norm scales =
+    |v| (the kernel equals v), codebooks N(0, 1) with ``embed_avg`` = the
+    codebook and ``cluster_size`` 0. Unlike flax's ``init``, which runs one
+    training forward and so leaves one EMA update in the codebook, this takes
+    no batch and makes no update."""
     gen = torch.Generator().manual_seed(seed)
+    small = {
+        f"{prefix}.weight_v" for prefix, m in module.named_modules() if getattr(m, "hifigan_init", False)
+    }
     for name, p in module.named_parameters():
         if name.endswith("weight_g"):
             continue
         if p.dim() >= 2:
-            p.copy_(torch.randn(p.shape, generator=gen) * p[0].numel() ** -0.5)
+            std = 0.01 if name in small else p[0].numel() ** -0.5
+            p.copy_(torch.randn(p.shape, generator=gen) * std)
         elif name.endswith("bias"):
             p.zero_()
         else:
@@ -448,9 +552,10 @@ def init_random(module: nn.Module, seed: int):
     for name, p in module.named_parameters():
         if name.endswith("weight_g"):
             v = module.get_parameter(name[: -len("g")] + "v")
-            p.copy_(torch.sqrt(torch.sum(v * v, dim=(1, 2), keepdim=True)))
+            p.copy_(torch.sqrt(torch.sum(v * v, dim=tuple(range(1, v.dim())), keepdim=True)))
     for name, b in module.named_buffers():
         if name.endswith(".embed"):
             b.copy_(torch.randn(b.shape, generator=gen))
             module.get_buffer(name[: -len("embed")] + "embed_avg").copy_(b)
+            module.get_buffer(name[: -len("embed")] + "cluster_size").zero_()
     refold(module)

@@ -41,6 +41,20 @@ def test_forbidden_names_are_recognised():
     assert not _forbidden("msmctts_tpu_torch.ops.vq") and not _forbidden("torch")
 
 
+def test_scan_covers_the_training_slice():
+    """The scan and the subprocess import below walk the package's tree;
+    the training slice's modules must be in it."""
+    scanned = {str(p.relative_to(ROOT)) for p in _port_files()}
+    for rel in (
+        "msmctts_tpu_torch/train.py", "msmctts_tpu_torch/ops/stft.py", "msmctts_tpu_torch/ops/dropout.py",
+        "msmctts_tpu_torch/data/loader.py", "msmctts_tpu_torch/data/datasets.py",
+        "msmctts_tpu_torch/training/__init__.py", "msmctts_tpu_torch/training/losses.py",
+        "msmctts_tpu_torch/training/optim.py", "msmctts_tpu_torch/training/base_trainer.py",
+        "msmctts_tpu_torch/training/vqgan_trainer.py", "chip_smoke.py",
+    ):
+        assert rel in scanned, rel
+
+
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_jax_package_import(path):
     bad = [m for m in _imported_modules(path) if _forbidden(m)]
@@ -66,10 +80,11 @@ def test_every_port_module_imports_without_the_jax_package():
     )
     assert res.returncode == 0, res.stderr
     assert res.stdout.startswith("ok")
+    assert "msmctts_tpu_torch.training.vqgan_trainer" in modules and "msmctts_tpu_torch.train" in modules
 
 
 def test_entry_points_refuse_cpu_fallback(monkeypatch, tmp_path):
-    from msmctts_tpu_torch import synthesize
+    from msmctts_tpu_torch import synthesize, train
     from msmctts_tpu_torch.config import Config
     from msmctts_tpu_torch.tasks import build_task
     from msmctts_tpu_torch.utils.checkpoint import save_checkpoint
@@ -86,6 +101,12 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_task(cfg)
     assert build_task(cfg, device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_task(cfg, mode="train")
+    cfg_path = tmp_path / "cfg.yaml"
+    cfg_path.write_text("task: {_name: MSMCTTS}\ndataset: {samplerate: 16000}\ntrainer: {_name: VQGANTrainer}\n")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["-c", str(cfg_path), "--max-steps", "1"])
 
     ckpt = str(tmp_path / "m.ckpt")
     save_checkpoint(ckpt, {"params": {}}, 0, cfg.to_dict())

@@ -65,7 +65,7 @@ def test_fft_blocks_match_flax(rng):
     with jax.default_matmul_precision("highest"):
         params = _np_tree(mod.init(jax.random.PRNGKey(0), x, pos)["params"])
         want, want_mask = mod.apply({"params": params}, x, pos)
-    port = t_transformer.FFTBlocks(**FFT_CFG)
+    port = t_transformer.FFTBlocks(**FFT_CFG).eval()
     W.load_numpy_state(port, W.fft_blocks_from_jax(params))
     with torch.inference_mode():
         got, mask = port(_t(x), _t(pos, torch.long))
@@ -80,7 +80,7 @@ def test_fully_padded_rows_match_flax(rng):
     with jax.default_matmul_precision("highest"):
         params = _np_tree(mod.init(jax.random.PRNGKey(3), x, pos)["params"])
         want, _ = mod.apply({"params": params}, x, pos)
-    port = t_transformer.FFTBlocks(**FFT_CFG)
+    port = t_transformer.FFTBlocks(**FFT_CFG).eval()
     W.load_numpy_state(port, W.fft_blocks_from_jax(params))
     with torch.inference_mode():
         got, _ = port(_t(x), _t(pos, torch.long))
@@ -106,7 +106,7 @@ def test_length_regulator_matches_flax(rng):
         params = _np_tree(mod.init(jax.random.PRNGKey(1), x, non_pad, max_out_len=32)["params"])
         params["DurationPredictor_0"]["Dense_0"]["bias"] = np.array([2.2], np.float32)
         want = mod.apply({"params": params}, x, non_pad, max_out_len=32)
-    port = t_transformer.LengthRegulator(D, 8)
+    port = t_transformer.LengthRegulator(D, 8).eval()
     W.load_numpy_state(port, W.duration_predictor_from_jax(params["DurationPredictor_0"], "duration_predictor"))
     with torch.inference_mode():
         got = port(_t(x), _t(non_pad), 32)
@@ -124,7 +124,7 @@ def test_prior_predictor_matches_flax(rng):
     with jax.default_matmul_precision("highest"):
         params = _perturb_gains(_np_tree(mod.init(jax.random.PRNGKey(2), x, mask)["params"]), rng)
         want_h, want_p = mod.apply({"params": params}, x, mask)
-    port = t_modules.PriorPredictor(C, 12, **cfg)
+    port = t_modules.PriorPredictor(C, 12, **cfg).eval()
     W.load_numpy_state(port, W.prior_predictor_from_jax(params))
     with torch.inference_mode():
         got_h, got_p = port(_t(x), _t(mask))
@@ -139,7 +139,7 @@ def test_hifigan_generator_matches_flax(rng):
     with jax.default_matmul_precision("highest"):
         params = _perturb_gains(_np_tree(mod.init(jax.random.PRNGKey(4), x)["params"]), rng)
         want = mod.apply({"params": params}, x)
-    port = t_hifigan.HifiGANGenerator(num_mels=16, **dec)
+    port = t_hifigan.HifiGANGenerator(num_mels=16, **dec).eval()
     W.load_numpy_state(port, W.hifigan_generator_from_jax(params))
     with torch.inference_mode():
         got = port(_t(x))
@@ -155,7 +155,7 @@ def test_resblock2_matches_flax(rng):
     with jax.default_matmul_precision("highest"):
         params = _perturb_gains(_np_tree(mod.init(jax.random.PRNGKey(7), x)["params"]), rng)
         want = mod.apply({"params": params}, x)
-    port = t_hifigan.ResBlock2(C, k, dils)
+    port = t_hifigan.ResBlock2(C, k, dils).eval()
     sd = {}
     for i in range(len(dils)):
         sd.update(W.wn_conv_from_jax(params[f"conv_{i}"], f"convs.{i}"))
@@ -188,7 +188,7 @@ def _quantizer_setup(rng):
     with jax.default_matmul_precision("highest"):
         variables = _np_tree(mod.init(jax.random.PRNGKey(5), stages))
     _perturb_gains(variables["params"], rng)
-    port = t_msmc.MultiStageQuantizer(**kw)
+    port = t_msmc.MultiStageQuantizer(**kw).eval()
     W.load_numpy_state(port, W.multi_stage_quantizer_from_jax(variables["params"], variables["codebook"]))
     return mod, variables, port, stages
 
@@ -219,7 +219,7 @@ def _predictor_setup(rng):
     with jax.default_matmul_precision("highest"):
         params = _np_tree(mod.init(jax.random.PRNGKey(6), text, text_length, dur=dur, max_frames=64)["params"])
     params = MultiStagePredictor.bias_durations(params, 2.6)
-    port = t_predictor.MultiStagePredictor(**kw)
+    port = t_predictor.MultiStagePredictor(**kw).eval()
     W.load_numpy_state(port, W.multi_stage_predictor_from_jax(params))
     return mod, params, port, text, text_length, dur
 
@@ -266,7 +266,7 @@ def test_weight_round_trip_autoencoder():
 
 def test_weight_round_trip_predictor():
     kw = {k: v for k, v in AM.items() if not k.startswith("_")}
-    port = t_predictor.MultiStagePredictor(**kw)
+    port = t_predictor.MultiStagePredictor(**kw).eval()
     W.init_random(port, seed=1)
     _round_trip(W.state_dict_numpy(port), W.multi_stage_predictor_to_jax, W.multi_stage_predictor_from_jax)
 
@@ -274,7 +274,7 @@ def test_weight_round_trip_predictor():
 def test_weight_round_trip_single_stream_predictor():
     kw = {k: v for k, v in AM.items() if not k.startswith("_")}
     kw["n_symbols"] = 20
-    port = t_predictor.MultiStagePredictor(**kw)
+    port = t_predictor.MultiStagePredictor(**kw).eval()
     W.init_random(port, seed=2)
     sd = W.state_dict_numpy(port)
     assert "word_emb.weight" in sd
