@@ -5,7 +5,7 @@
 
 Phases, each of which raises on failure:
   1. environment: the card's name and power limit; TF32 off;
-  2. build the three CUDA kernels from msmctts_tpu_torch/csrc (one nvcc
+  2. build the three CUDA kernel sources of msmctts_tpu_torch/csrc (one nvcc
      each, in parallel);
   3. each kernel against its plain PyTorch version on the card at the
      shapes its path gives it (CSMSC; serving at batch 4, frame bucket 512;
@@ -20,19 +20,36 @@ Phases, each of which raises on failure:
      subprocess, a small request against the CPU, then ``predict`` on a
      batch of 4 requests with launch counts and per-batch times;
   6. training at the full width of the CSMSC autoencoder recipe: 2 warmup
-     and 3 GAN steps of ``VQGANTrainer`` at batch 16 on seeded synthetic
+     and 2 GAN steps of ``VQGANTrainer`` at batch 16 on seeded synthetic
      mel/wav (trained autoencoder, seeded discriminator), with launch
-     counts, per-step times, peak memory and a profile of one warm GAN
-     step; then the trained module, back in eval mode, against the CPU;
+     counts, per-step times and peak memory; then the trained module, back
+     in eval mode, against the CPU;
   7. one warmup and one GAN step from equal state on the card and on the
      CPU (2 short utterances, dropout 0, given window starts);
-  8. one JSON line describing each kernel;
-  9. last line: {"ok": true, "device": {...}}.
+  8. the two sharded VQ functions on 2 ranks (processes) that share the
+     card over gloo, at the train step's shapes, with a ragged split, a
+     rank whose rows are all masked and a rank without rows: the kernel
+     path against its plain version and against one rank on all rows;
+     per-rank kernel time and the all-reduce's time;
+  9. NCCL at world size 1: init, one raw all-reduce, the two functions and
+     one train step through the group;
+ 10. data-parallel training: the steps of phase 6 on 2 ranks sharing the
+     card (global batch 16, 8 rows each, dropout on) against phase 6's one
+     rank; state bit-equal across ranks; launches and collectives per step;
+ 11. data-parallel inference: phase 5's batch of 4 through ``use_mesh`` on
+     2 ranks against one rank;
+ 12. one JSON line describing each kernel;
+ 13. last line: {"ok": true, "device": {...}}.
+
+NCCL refuses two ranks on one device, so the two-rank phases use gloo, which
+moves CUDA tensors through host memory; the log names the backend. Their
+step times are those of two processes time-slicing one
+card: no scaling figure. A rank that fails, dies or hangs fails the run.
 
 It exits non-zero, printing no result, without a CUDA device or without
 the rest of the repository. ``--out`` also profiles one warm ``predict``
-(device time by kernel, busy share) and writes every measurement to a JSON
-file.
+and one warm GAN step (device time by kernel, busy share) and writes every
+measurement to a JSON file.
 """
 
 import argparse
@@ -74,6 +91,10 @@ AS_TOL = 5e-4  # wav, card vs CPU, as the CPU parity tests hold the port to JAX
 # one train step, card vs CPU from equal state: losses relative, codebook absolute
 # (cuDNN and the CPU's convs sum in other orders, through some 60 layers and a backward)
 STEP_TOL = {"loss_rtol": 2e-3, "codebook_atol": 1e-4}
+WORLD = 2  # ranks of the data-parallel phases; they share the one card
+BACKEND = "gloo"  # of those phases: NCCL refuses two ranks on one device
+NVLINK_BYTES = 450e9  # per direction between two cards of one host (published)
+RANKS_TIMEOUT_S = 300.0
 
 
 def log(*args):
@@ -309,6 +330,8 @@ def _reset_counts():
     vq.KERNEL.launches = 0
     vq.STATS_KERNEL.launches = 0
     resblock.KERNEL.launches = 0
+    for k in vq.SHARDED_LAUNCHES:
+        vq.SHARDED_LAUNCHES[k] = 0
 
 
 def _counts():
@@ -316,6 +339,12 @@ def _counts():
 
     return {"vq_nearest": vq.KERNEL.launches, "vq_nearest_stats": vq.STATS_KERNEL.launches,
             "fused_resblock_layer": resblock.KERNEL.launches}
+
+
+def _sharded_counts():
+    from msmctts_tpu_torch.ops import vq
+
+    return dict(vq.SHARDED_LAUNCHES)
 
 
 def _check_wavs(wavs, lengths, ratio, what):
@@ -474,7 +503,8 @@ def phase_text_to_wav(card, seed=1234):
         "first_ms": first_ms, "warm_ms": warm_ms, "warm_runs_ms": warm, "audio_s": audio_s,
         "cpu_wav_err": err, "am_params": n_params,
     }
-    return result, lambda: task.predict(batch)
+    reference = {"am_path": am_path, "batch": batch, "out": out}
+    return result, lambda: task.predict(batch), reference
 
 
 def _train_batch(rng, lengths, T, n_mel=80, frameshift=300):
@@ -486,7 +516,7 @@ def _train_batch(rng, lengths, T, n_mel=80, frameshift=300):
     return {"mel": mel, "mel_length": lengths, "wav": wav}
 
 
-def _build_trainer(device, warmup_steps, dropout=None, seed=1234):
+def _build_trainer(device, warmup_steps, dropout=None, seed=1234, group=None):
     """The CSMSC autoencoder recipe through the normal construction, with
     the trained autoencoder of the fixture and a seeded discriminator."""
     from msmctts_tpu_torch.config import Config, component_kwargs
@@ -505,7 +535,7 @@ def _build_trainer(device, warmup_steps, dropout=None, seed=1234):
         ae["quantizer_config"]["dropout"] = dropout
         ae["quantizer_config"]["prior_config"]["p_dropout"] = dropout
     task = build_task(cfg, device=device, mode="train")
-    trainer = get_trainer(cfg.trainer["_name"])(cfg, task, **component_kwargs(cfg.trainer))
+    trainer = get_trainer(cfg.trainer["_name"])(cfg, task, group=group, **component_kwargs(cfg.trainer))
     trainer.init_state()
     trainer.load_state_tree(load_checkpoint(FIXTURE)["state"])  # autoencoder only: the fixture has no discriminator
     return trainer
@@ -515,7 +545,19 @@ def _moved(module, before):
     return sum(int(not torch.equal(p, b)) for p, b in zip(module.parameters(), before))
 
 
-def phase_training(card):
+def _training_batch():
+    """The global batch of phases 6 and 10 (numpy, seeded)."""
+    rng = np.random.default_rng(1234)
+    lengths = rng.integers(200, TRAIN_FRAMES + 1, size=TRAIN_B)
+    lengths[0] = TRAIN_FRAMES
+    return _train_batch(rng, lengths, TRAIN_FRAMES), lengths, rng
+
+
+def _codebook_state(ae):
+    return [tuple(t.detach().cpu().clone() for t in (q.embed, q.cluster_size, q.embed_avg)) for q in ae.quantizer.quantizer]
+
+
+def phase_training(card, with_profile=False):
     from msmctts_tpu_torch.config import Config
     from msmctts_tpu_torch.data.loader import to_device
     from msmctts_tpu_torch.tasks import build_task
@@ -525,10 +567,8 @@ def phase_training(card):
     trainer = _build_trainer("cuda", warmup_steps=2)
     ae, disc = trainer.ae, trainer.disc
     n_ae, n_d = (sum(p.numel() for p in m.parameters()) for m in (ae, disc))
-    rng = np.random.default_rng(1234)
-    lengths = rng.integers(200, TRAIN_FRAMES + 1, size=TRAIN_B)
-    lengths[0] = TRAIN_FRAMES
-    batch = to_device(_train_batch(rng, lengths, TRAIN_FRAMES), "cuda")
+    batch_np, lengths, rng = _training_batch()
+    batch = to_device(batch_np, "cuda")
     log(f"[6] CSMSC autoencoder {n_ae / 1e6:.1f}M parameters, discriminator {n_d / 1e6:.1f}M; batch {TRAIN_B}, "
         f"{TRAIN_FRAMES} frames, lengths {lengths.min()}-{lengths.max()}, windows of {trainer.sample_lengths} samples")
 
@@ -536,7 +576,9 @@ def phase_training(card):
     torch.cuda.reset_peak_memory_stats()
     steps, total_counts = [], {}
     codebook0 = [(q.embed.clone(), q.cluster_size.clone()) for q in ae.quantizer.quantizer]
-    for it in range(1, 6):
+    indices, codebooks = [], []
+    hooks = [q.register_forward_hook(lambda m, a, o: indices.append(o[2].cpu())) for q in ae.quantizer.quantizer]
+    for it in range(1, 5):
         phase = "warmup" if it <= trainer.warmup_steps else "gan"
         ae_before = [p.detach().clone() for p in ae.parameters()]
         d_before = [p.detach().clone() for p in disc.parameters()]
@@ -562,6 +604,11 @@ def phase_training(card):
                       "ae_tensors_moved": ae_moved, "d_tensors_moved": d_moved})
         shown = {k: round(host[k], 4) for k in ("g_loss", "vq_loss", "frame_loss", "d_loss", "stft_loss", "fm_loss") if k in host}
         log(f"[6] step {it} ({phase}): {ms:.1f} ms, launches {counts}, moved ae {ae_moved} d {d_moved}, {shown}")
+        codebooks.append(_codebook_state(ae))
+    for h in hooks:
+        h.remove()
+    # what the two-rank run of phase 10 is held against: two stage passes per step
+    reference = {"metrics": [st["metrics"] for st in steps], "indices": indices, "codebooks": codebooks}
     for (e0, c0), q in zip(codebook0, ae.quantizer.quantizer):
         if torch.equal(e0, q.embed) or torch.equal(c0, q.cluster_size):
             raise AssertionError("the codebook EMA did not move")
@@ -576,7 +623,7 @@ def phase_training(card):
         return (time.perf_counter() - t0) * 1e3
 
     warm_warmup = [timed(1) for _ in range(5)]
-    warm_gan = [timed(6 + i) for i in range(5)]
+    warm_gan = [timed(5 + i) for i in range(5)]
     result = {
         "steps": steps, "launches": total_counts, "peak_memory_gib": peak_gb,
         "warmup_first_ms": steps[0]["ms"], "warmup_warm_ms": statistics.median(warm_warmup), "warmup_runs_ms": warm_warmup,
@@ -586,7 +633,37 @@ def phase_training(card):
     log(f"[6] per step on {card}: warmup first {result['warmup_first_ms']:.1f} ms, warm median {result['warmup_warm_ms']:.1f} ms; "
         f"GAN first {result['gan_first_ms']:.1f} ms, warm median {result['gan_warm_ms']:.1f} ms "
         f"(runs {[round(w, 1) for w in warm_gan]}); peak memory {peak_gb:.2f} GiB")
-    result["profile"] = profile_call(lambda: trainer.train_step(batch, 20), "[6]", "GAN step")
+    # what drawing the dropout masks of a global batch of WORLD times its rows costs a
+    # rank: this process on 1 / WORLD of the batch, drawing for itself and for WORLD
+    # ranks in turns (no collective either way)
+    from msmctts_tpu_torch.ops.dropout import bind_generator
+
+    def timed_on(rows, it):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(rows, it)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    rows = {k: v[: TRAIN_B // WORLD] for k, v in batch.items()}
+    draws = {}
+    for turn in range(4):
+        world = WORLD if turn % 2 else 1
+        for module in (ae, disc):
+            bind_generator(module, trainer.generator, shard=(0, world))
+        times = draws.setdefault(world, {"warmup": [], "gan": []})
+        timed_on(rows, 1), timed_on(rows, 30)  # settle after the switch
+        times["warmup"] += [timed_on(rows, 1) for _ in range(4)]
+        times["gan"] += [timed_on(rows, 30 + i) for i in range(4)]
+    for module in (ae, disc):
+        bind_generator(module, trainer.generator, shard=(0, 1))
+    result["dropout_draws"] = {
+        f"{phase}_ms_drawing_for_{w}": statistics.median(draws[w][phase]) for w in draws for phase in ("warmup", "gan")
+    }
+    log(f"[6] a step on {TRAIN_B // WORLD} rows, dropout masks drawn for 1 and for {WORLD} ranks' rows "
+        f"(median of 8, in turns): {json.dumps({k: round(v, 1) for k, v in result['dropout_draws'].items()})}")
+    if with_profile:
+        result["profile"] = profile_call(lambda: trainer.train_step(batch, 20), "[6]", "GAN step")
 
     # back to eval: re-folded weights, the fused resblock kernel, against the CPU
     ae.eval()
@@ -605,7 +682,7 @@ def phase_training(card):
     if err > AS_TOL:
         raise AssertionError(f"eval after training disagrees with the CPU by {err} (stale folded weights?)")
     result["eval_cpu_wav_err"] = err
-    return result
+    return result, reference
 
 
 def phase_step_card_vs_cpu():
@@ -650,6 +727,375 @@ def phase_step_card_vs_cpu():
         raise AssertionError(f"train step disagrees with the CPU: indices equal {same}, {worst}")
     return {**worst, "indices_equal": same, "card": {k: out["cuda"][k] for k in ("warmup", "gan")},
             "cpu": {k: out["cpu"][k] for k in ("warmup", "gan")}}
+
+
+# ------------------------------------------------- data-parallel phases
+# What a rank runs is a module-level function: the ranks are spawned
+# processes that import this file to find it.
+
+
+def _run_ranks(fn, world, backend, *args):
+    from msmctts_tpu_torch.parallel.launch import run_ranks
+
+    torch.cuda.empty_cache()  # the ranks share this process's card
+    return run_ranks(fn, world, backend, ["cuda:0"] * world, *args, timeout_s=RANKS_TIMEOUT_S)
+
+
+def _host_ms(fn, runs=20, warmup=3):
+    """Per-call host-clock time of ``fn()``, each window ending in a device
+    synchronize (a gloo collective runs on the host: CUDA events miss it)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(runs):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / runs
+
+
+def _stats_bound(N, valid):
+    nbytes = (N * VQ_H * VQ_D * 2 + VQ_H * VQ_D * VQ_K + N + N * VQ_H + VQ_H * VQ_K + VQ_H * VQ_D * VQ_K) * 4
+    flops = 2 * N * VQ_H * VQ_D * VQ_K + 3 * N * VQ_H * VQ_K + valid * VQ_H * (2 * VQ_D + 1)
+    return bound(nbytes, flops)
+
+
+def _snap_bound(N):
+    nbytes = (N * VQ_H * VQ_D * 2 + VQ_H * VQ_D * VQ_K + N * VQ_H) * 4
+    return bound(nbytes, 2 * N * VQ_H * VQ_D * VQ_K + 3 * N * VQ_H * VQ_K)
+
+
+def rank_sharded_kernels(group, device):
+    """Both sharded functions on this rank's rows of seeded global inputs
+    (every rank draws the same), against their plain versions and against
+    the one-rank kernels on all rows; then times."""
+    from msmctts_tpu_torch.ops import vq
+    from msmctts_tpu_torch.parallel import mesh
+    from msmctts_tpu_torch.utils.device import exact_fp32
+
+    exact_fp32()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    rank, world = group.rank, group.world
+    n0, n1 = TRAIN_B * TRAIN_FRAMES // 4, TRAIN_B * TRAIN_FRAMES
+    even = lambda N: [N * r // world for r in range(world + 1)]
+    cases = [("stage0", n0, even(n0), False), ("stage1", n1, even(n1), False),
+             ("ragged", n1 - 1, [0, n1 // 2, n1 - 1], False), ("rank1-masked", n1, even(n1), True),
+             ("rank1-empty", n0, [0, n0, n0], False)]
+    rows = []
+    for label, N, splits, mask_rank1 in cases:
+        x, e = _vq_case(gen, N)
+        mask = (torch.rand(N, device="cuda", generator=gen) < 0.8).float()
+        if mask_rank1:
+            mask[splits[1] : splits[2]] = 0.0
+        lo, hi = splits[rank], splits[rank + 1]
+        xl, ml = x[lo:hi], mask[lo:hi].contiguous()
+        mesh.reset_collective_counts()
+        _reset_counts()
+        idx, quant, counts, sums = vq.vq_nearest_stats_sharded(xl, e, ml, group)
+        collectives, launches = mesh.collective_counts(), dict(vq.SHARDED_LAUNCHES)
+        again = vq.vq_nearest_stats_sharded(xl, e, ml, group)
+        p_idx, p_quant, p_counts, p_sums = vq.vq_nearest_stats_sharded_plain(xl, e, ml, group)
+        o_idx, o_quant, o_counts, o_sums = vq.vq_nearest_stats(x, e, mask)  # one rank, all rows
+        torch.cuda.synchronize()
+        what = f"vq_nearest_stats_sharded {label} rank {rank}"
+        if collectives["all_reduce"] != {"calls": 1, "bytes": (VQ_H * VQ_K + VQ_H * VQ_D * VQ_K) * 4}:
+            raise AssertionError(f"{what}: collectives {collectives}, expected one all-reduce of the flat buffer")
+        if launches["vq_nearest_stats_sharded"] != (1 if hi > lo else 0):
+            raise AssertionError(f"{what}: {launches} launches for {hi - lo} rows")
+        if not all(torch.equal(a, b) for a, b in zip((idx, quant, counts, sums), again)):
+            raise AssertionError(f"{what}: two runs on the same input differ")
+        if not (torch.equal(idx, p_idx) and torch.equal(quant, p_quant) and torch.equal(counts, p_counts)):
+            raise AssertionError(f"{what}: idx/quant/counts differ from the plain version")
+        if not (torch.equal(idx, o_idx[lo:hi]) and torch.equal(quant, o_quant[lo:hi]) and torch.equal(counts, o_counts)):
+            raise AssertionError(f"{what}: idx/quant/counts differ from the one-rank kernel")
+        if float(counts.sum()) != float(mask.sum()) * VQ_H:
+            raise AssertionError(f"{what}: global counts do not sum to the valid rows")
+        err_plain, err_one = float((sums - p_sums).abs().max()), float((sums - o_sums).abs().max())
+        if not (torch.allclose(sums, p_sums, **VQS_TOL) and torch.allclose(sums, o_sums, **VQS_TOL)):
+            raise AssertionError(f"{what}: sums differ by {err_plain} (plain) / {err_one} (one rank)")
+
+        mesh.reset_collective_counts()
+        _reset_counts()
+        s_idx, s_quant = vq.vq_nearest_sharded(xl, e)
+        snap_launches = vq.SHARDED_LAUNCHES["vq_nearest_sharded"]
+        sp_idx, sp_quant = vq.vq_nearest_sharded_plain(xl, e)
+        g_idx, g_quant = vq.vq_nearest(x, e)
+        torch.cuda.synchronize()
+        if any(v["calls"] for v in mesh.collective_counts().values()):
+            raise AssertionError(f"vq_nearest_sharded {label}: it communicated: {mesh.collective_counts()}")
+        if snap_launches != (1 if hi > lo else 0):
+            raise AssertionError(f"vq_nearest_sharded {label} rank {rank}: {snap_launches} launches for {hi - lo} rows")
+        if not (torch.equal(s_idx, g_idx[lo:hi]) and torch.equal(s_quant, g_quant[lo:hi])
+                and torch.equal(s_idx, sp_idx) and torch.equal(s_quant, sp_quant) and torch.equal(s_idx, idx)):
+            raise AssertionError(f"vq_nearest_sharded {label} rank {rank}: differs from the one-rank snap or the plain version")
+        rows.append({"label": label, "N": N, "rows": hi - lo, "valid": int(ml.sum()), "walkers": vq.stats_walkers(hi - lo),
+                     "sums_err_vs_plain": err_plain, "sums_err_vs_one_rank": err_one,
+                     "counts": counts.cpu(), "sums": sums.cpu()})
+
+    # times at the per-rank rows of one train step (global batch 16) and of one
+    # predict (global batch 4, frame bucket 512); one rank at a time has the card
+    timing = {}
+    flat = torch.zeros(VQ_H * VQ_K + VQ_H * VQ_D * VQ_K, device="cuda")
+    stats_in = [(N // world,) + _vq_case(gen, N // world) for N in (n0, n1)]
+    stats_in = [(N, x, e, (torch.rand(N, device="cuda", generator=gen) < 0.8).float()) for N, x, e in stats_in]
+    snap_in = [(N // world,) + _vq_case(gen, N // world) for N in (B * FRAMES // 4, B * FRAMES)]
+    for turn in range(world):
+        if turn == rank:
+            timing["stats_kernel_ms"] = [time_ms(lambda: vq.vq_nearest_stats(x, e, m), runs=50) for _, x, e, m in stats_in]
+            timing["stats_plain_ms"] = [time_ms(lambda: vq.vq_nearest_stats_plain(x, e, m), runs=50) for _, x, e, m in stats_in]
+            timing["snap_kernel_ms"] = [time_ms(lambda: vq.vq_nearest_sharded(x, e), runs=50) for _, x, e in snap_in]
+            timing["snap_plain_ms"] = [time_ms(lambda: vq.vq_nearest_sharded_plain(x, e), runs=50) for _, x, e in snap_in]
+        mesh.barrier(group)
+    timing["all_reduce_ms"] = _host_ms(lambda: mesh.all_reduce_sum(flat, group))
+    mesh.barrier(group)
+    timing["stats_sharded_ms"] = [_host_ms(lambda: vq.vq_nearest_stats_sharded(x, e, m, group)) for _, x, e, m in stats_in]
+    timing["stats_sharded_plain_ms"] = [_host_ms(lambda: vq.vq_nearest_stats_sharded_plain(x, e, m, group)) for _, x, e, m in stats_in]
+    timing["stats_bound"] = [_stats_bound(N, int(m.sum())) for N, _, _, m in stats_in]
+    timing["snap_bound"] = [_snap_bound(N) for N, _, _ in snap_in]
+    timing["stats_rows"] = [N for N, *_ in stats_in]
+    timing["snap_rows"] = [N for N, *_ in snap_in]
+    timing["all_reduce_bytes"] = flat.numel() * 4
+    return {"rows": rows, "timing": timing}
+
+
+def phase_sharded_kernels(backend, card):
+    res = _run_ranks(rank_sharded_kernels, WORLD, backend)
+    worst_plain = worst_one = 0.0
+    for case in zip(*(r["rows"] for r in res)):
+        for other in case[1:]:  # the global statistics: bit-equal on every rank
+            if not (torch.equal(other["counts"], case[0]["counts"]) and torch.equal(other["sums"], case[0]["sums"])):
+                raise AssertionError(f"sharded statistics {case[0]['label']}: ranks disagree")
+        worst_plain = max(worst_plain, *(c["sums_err_vs_plain"] for c in case))
+        worst_one = max(worst_one, *(c["sums_err_vs_one_rank"] for c in case))
+        log(f"[8] {case[0]['label']} N={case[0]['N']}: rows per rank {[c['rows'] for c in case]}, valid {[c['valid'] for c in case]}, "
+            f"walkers {[c['walkers'] for c in case]}; idx/quant/counts exact, ranks bit-equal, "
+            f"sums err vs plain {max(c['sums_err_vs_plain'] for c in case):.3g}, vs one rank {max(c['sums_err_vs_one_rank'] for c in case):.3g}; "
+            "snap exact, 0 collectives")
+    t = [r["timing"] for r in res]
+    link_ms = 2 * (WORLD - 1) / WORLD * t[0]["all_reduce_bytes"] / NVLINK_BYTES * 1e3
+    out = {
+        "backend": backend, "world": WORLD, "max_err_vs_plain": worst_plain, "max_err_vs_one_rank": worst_one,
+        "stats_rows": t[0]["stats_rows"], "snap_rows": t[0]["snap_rows"],
+        # per rank, summed over the calls of one step / one predict; the slower rank
+        "stats_kernel_ms": max(sum(r["stats_kernel_ms"]) for r in t), "stats_plain_ms": max(sum(r["stats_plain_ms"]) for r in t),
+        "stats_sharded_ms": max(sum(r["stats_sharded_ms"]) for r in t),
+        "stats_sharded_plain_ms": max(sum(r["stats_sharded_plain_ms"]) for r in t),
+        "all_reduce_ms": max(r["all_reduce_ms"] for r in t), "all_reduce_bytes": t[0]["all_reduce_bytes"],
+        "all_reduce_link_bound_ms": link_ms,
+        "stats_kernel_bound_ms": sum(b[0] for b in t[0]["stats_bound"]),
+        "stats_bound_by": "bytes" if {b[1] for b in t[0]["stats_bound"]} == {"bytes"} else "operations",
+        "snap_kernel_ms": max(2 * sum(r["snap_kernel_ms"]) for r in t), "snap_plain_ms": max(2 * sum(r["snap_plain_ms"]) for r in t),
+        "snap_bound_ms": 2 * sum(b[0] for b in t[0]["snap_bound"]),
+        "snap_bound_by": "bytes" if {b[1] for b in t[0]["snap_bound"]} == {"bytes"} else "operations",
+        "per_rank": t,
+    }
+    log(f"[8] on {card}, {WORLD} ranks sharing the card, backend {backend}: vq_stats kernel at {out['stats_rows']} rows "
+        f"{out['stats_kernel_ms']:.3f} ms per step per rank (plain {out['stats_plain_ms']:.3f}, bound {out['stats_kernel_bound_ms']:.4f}); "
+        f"all-reduce of {out['all_reduce_bytes']} bytes {out['all_reduce_ms']:.3f} ms per call "
+        f"(bound over one NVLink direction {link_ms:.5f} ms, not measured: one card); the sharded function, both stages, "
+        f"{out['stats_sharded_ms']:.3f} ms (plain {out['stats_sharded_plain_ms']:.3f}); vq_nearest_sharded at {out['snap_rows']} rows "
+        f"{out['snap_kernel_ms']:.3f} ms per predict per rank (plain {out['snap_plain_ms']:.3f}, bound {out['snap_bound_ms']:.4f})")
+    return out
+
+
+def rank_nccl(group, device, batch_np):
+    """World size 1 over NCCL: the branch a multi-GPU host takes."""
+    import torch.distributed as dist
+
+    from msmctts_tpu_torch.data.loader import to_device
+    from msmctts_tpu_torch.ops import vq
+    from msmctts_tpu_torch.parallel import mesh
+    from msmctts_tpu_torch.training.base_trainer import metrics_to_host
+
+    t = torch.arange(8, device=device, dtype=torch.float32)
+    dist.all_reduce(t, group=group.pg)  # a raw collective: the wrappers skip one in a group of one
+    flag = torch.ones(1)
+    dist.all_reduce(flag, group=group.control)
+    torch.cuda.synchronize()
+    if t.tolist() != list(range(8)) or flag.item() != 1.0:
+        raise AssertionError(f"all-reduce in a group of one changed its input: {t.tolist()}, {flag.item()}")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x, e = _vq_case(gen, 1600)
+    mask = (torch.rand(1600, device="cuda", generator=gen) < 0.8).float()
+    mesh.reset_collective_counts()
+    same = all(torch.equal(a, b) for a, b in zip(vq.vq_nearest_stats_sharded(x, e, mask, group), vq.vq_nearest_stats(x, e, mask)))
+    same = same and all(torch.equal(a, b) for a, b in zip(vq.vq_nearest_sharded(x, e), vq.vq_nearest(x, e)))
+    if not same:
+        raise AssertionError("in a group of one the sharded functions must equal the one-rank functions bit for bit")
+    trainer = _build_trainer("cuda", warmup_steps=1, group=group)
+    batch = to_device({k: v[:4] for k, v in batch_np.items()}, "cuda")
+    _reset_counts()
+    metrics = metrics_to_host(trainer.train_step(batch, 1))
+    metrics.update(metrics_to_host(trainer.train_step(batch, 2)))
+    torch.cuda.synchronize()
+    counts = _counts()
+    if not all(np.isfinite(v) for v in metrics.values()) or counts["vq_nearest_stats"] != 4:
+        raise AssertionError(f"train steps under NCCL: metrics {metrics}, launches {counts}")
+    if any(v["calls"] for v in mesh.collective_counts().values()):
+        raise AssertionError(f"a group of one communicated: {mesh.collective_counts()}")
+    return {"backend": dist.get_backend(group.pg), "control": dist.get_backend(group.control), "launches": counts,
+            "g_loss": metrics["g_loss"], "d_loss": metrics["d_loss"]}
+
+
+def phase_nccl(batch_np):
+    from msmctts_tpu_torch.parallel.launch import run_ranks
+
+    torch.cuda.empty_cache()
+    res = run_ranks(rank_nccl, 1, "nccl", ["cuda:0"], batch_np, timeout_s=RANKS_TIMEOUT_S)[0]
+    log(f"[9] NCCL at world size 1: backend {res['backend']} (control {res['control']}), raw all-reduce ok, sharded functions "
+        f"bit-equal to the one-rank functions, one warmup + one GAN step through the group: launches {res['launches']}, "
+        f"g_loss {res['g_loss']:.4f}, d_loss {res['d_loss']:.4f}")
+    return res
+
+
+def rank_train(group, device, batch_np):
+    """Phase 6's steps on this rank's 8 rows of the global batch."""
+    import hashlib
+
+    from msmctts_tpu_torch.data.loader import to_device
+    from msmctts_tpu_torch.parallel import mesh
+    from msmctts_tpu_torch.training.base_trainer import metrics_to_host
+    from msmctts_tpu_torch.weights import assert_replicated
+
+    trainer = _build_trainer("cuda", warmup_steps=2, group=group)
+    ae, disc = trainer.ae, trainer.disc
+    assert_replicated([ae, disc], group)
+    batch = to_device(mesh.shard_rows(batch_np, group.rank, group.world), "cuda")
+    indices, codebooks = [], []
+    hooks = [q.register_forward_hook(lambda m, a, o: indices.append(o[2].cpu())) for q in ae.quantizer.quantizer]
+    steps = []
+    for it in range(1, 5):
+        torch.cuda.synchronize()
+        mesh.barrier(group)
+        mesh.reset_collective_counts()
+        _reset_counts()
+        t0 = time.perf_counter()
+        metrics = trainer.train_step(batch, it)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = {**_counts(), **_sharded_counts()}
+        steps.append({"iteration": it, "ms": ms, "metrics": metrics_to_host(metrics), "launches": launches,
+                      "collectives": mesh.collective_counts()})
+        codebooks.append(_codebook_state(ae))
+    for h in hooks:
+        h.remove()
+    assert_replicated([ae, disc], group)  # parameters and codebooks bit-equal across ranks
+    digest = hashlib.sha256()
+    for t in list(ae.state_dict().values()) + list(disc.state_dict().values()):
+        digest.update(t.detach().cpu().numpy().tobytes())
+    return {"steps": steps, "indices": indices, "codebooks": codebooks, "digest": digest.hexdigest()}
+
+
+def phase_dp_training(backend, batch_np, reference, card):
+    res = _run_ranks(rank_train, WORLD, backend, batch_np)
+    if len({r["digest"] for r in res}) != 1:
+        raise AssertionError("data-parallel training: the ranks' final states differ")
+    worst = {"loss_rel": 0.0, "codebook_abs": 0.0}
+    for step, want in zip(res[0]["steps"], reference["metrics"]):
+        for k, w in want.items():
+            got = step["metrics"][k]
+            rel = abs(got - w) / max(abs(w), 1e-3)
+            worst["loss_rel"] = max(worst["loss_rel"], rel)
+            if rel > STEP_TOL["loss_rtol"]:
+                raise AssertionError(f"data-parallel step {step['iteration']}, {k}: {WORLD} ranks {got} vs one rank {w}")
+    for r in res[1:]:
+        if [s["metrics"] for s in r["steps"]] != [s["metrics"] for s in res[0]["steps"]]:
+            raise AssertionError("data-parallel training: the ranks report different metrics")
+    # Assignments. Step 1 starts from equal state, so its indices must be equal.
+    # Later steps see weights that differ by the rounding of cuDNN's choices at
+    # batch 8 and at batch 16, so a near-tie may fall the other way: counted.
+    flips = [int((torch.cat([r["indices"][i] for r in res]) != want).sum()) for i, want in enumerate(reference["indices"])]
+    assignments = sum(want.numel() for want in reference["indices"])
+    same = flips[0] == 0 and flips[1] == 0
+
+    def codebook_diff(step):  # max abs difference of (embed, cluster_size, embed_avg) over the stages
+        stages = list(zip(res[0]["codebooks"][step], reference["codebooks"][step]))
+        return [max(float((a[i] - b[i]).abs().max()) for a, b in stages) for i in range(3)]
+
+    first, last = codebook_diff(0), codebook_diff(3)
+    worst["codebook_abs"] = max(first)
+    for r in res:
+        for step in r["steps"]:
+            want = {"vq_nearest": 0, "vq_nearest_stats": 2, "fused_resblock_layer": 0,
+                    "vq_nearest_stats_sharded": 2, "vq_nearest_sharded": 0}
+            if step["launches"] != want:
+                raise AssertionError(f"data-parallel step {step['iteration']}: launches {step['launches']}, expected {want}")
+    per_step = [{k: v for k, v in s["collectives"].items() if v["calls"]} for s in res[0]["steps"]]
+    log(f"[10] {WORLD} ranks x {TRAIN_B // WORLD} rows vs one rank x {TRAIN_B}, dropout on, 2 warmup + 2 GAN steps (backend {backend}): "
+        f"first-step indices equal {same}, worst metric rel diff {worst['loss_rel']:.3g}; codebook after the first step "
+        f"(embed, cluster_size, embed_avg) within {first}; parameters and codebooks bit-equal across ranks; "
+        f"2 vq_stats launches per step per rank")
+    log(f"[10] assignments that differ, per stage pass of steps 1-4: {flips} of {assignments}; codebook after the last step within {last} "
+        "(each differing assignment moves two cluster sizes by up to 0.01, and a rarely used codeword by much more)")
+    log(f"[10] collectives per step per rank: {json.dumps(per_step)}")
+    log(f"[10] step wall per rank, two processes time-slicing {card} (no scaling figure): "
+        f"{[[round(s['ms'], 1) for s in r['steps']] for r in res]} ms")
+    if not same or worst["codebook_abs"] > STEP_TOL["codebook_atol"]:
+        raise AssertionError(f"data-parallel training disagrees with one rank after the first step: indices equal {same}, {first}")
+    if sum(flips) > 1e-3 * assignments or last[1] > STEP_TOL["codebook_atol"] + 0.02 * sum(flips):
+        raise AssertionError(f"data-parallel training drifts from one rank: {flips} assignments differ, codebook within {last}")
+    launches = sum(s["launches"]["vq_nearest_stats_sharded"] for s in res[0]["steps"])
+    return {**worst, "indices_equal": same, "assignments_differing": flips, "codebook_diff_first_step": first,
+            "codebook_diff_last_step": last, "backend": backend, "collectives_per_step": per_step, "sharded_launches": launches,
+            "steps": [r["steps"] for r in res]}
+
+
+def _load_tts_task(am_path, device):
+    from msmctts_tpu_torch.config import Config
+    from msmctts_tpu_torch.tasks import build_task
+    from msmctts_tpu_torch.utils.checkpoint import load_checkpoint
+
+    ck = load_checkpoint(am_path)
+    task = build_task(Config(ck["config"]), device=device)
+    task.load_variables(ck["state"])
+    task.pre_infer()
+    return task
+
+
+def rank_predict(group, device, am_path, batch):
+    from msmctts_tpu_torch.parallel import mesh
+
+    task = _load_tts_task(am_path, "cuda").use_mesh(group)
+    task.predict(batch)  # warm-up
+    torch.cuda.synchronize()
+    mesh.barrier(group)
+    mesh.reset_collective_counts()
+    _reset_counts()
+    t0 = time.perf_counter()
+    out = task.predict(batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return {"out": out, "launches": {**_counts(), **_sharded_counts()}, "collectives": mesh.collective_counts(), "ms": ms}
+
+
+def phase_dp_inference(backend, reference):
+    res = _run_ranks(rank_predict, WORLD, backend, reference["am_path"], reference["batch"])
+    want = reference["out"]
+    worst = 0.0
+    for r in res:
+        got = r["out"]
+        same = (np.array_equal(got["duration"], want["duration"]) and np.array_equal(got["mel_length"], want["mel_length"])
+                and all(np.array_equal(a, b) for a, b in zip(got["embedding"], want["embedding"])))
+        if not same:
+            raise AssertionError("data-parallel predict: durations or codewords differ from one rank's")
+        for a, b in zip(got["wav"], want["wav"]):
+            if a.shape != b.shape:
+                raise AssertionError(f"data-parallel predict: wav of {a.shape} vs {b.shape}")
+            worst = max(worst, float(np.abs(a - b).max()))
+        expected = {"vq_nearest": 4, "vq_nearest_stats": 0, "fused_resblock_layer": 36,
+                    "vq_nearest_stats_sharded": 0, "vq_nearest_sharded": 4}
+        if r["launches"] != expected:
+            raise AssertionError(f"data-parallel predict: launches {r['launches']}, expected {expected}")
+        if r["collectives"]["all_reduce"]["calls"]:
+            raise AssertionError(f"data-parallel predict: the snaps communicated: {r['collectives']}")
+    if worst > AS_TOL:
+        raise AssertionError(f"data-parallel predict: wav differs from one rank's by {worst}")
+    log(f"[11] predict B={len(want['wav'])} over {WORLD} ranks (backend {backend}) vs one rank: durations and codewords equal, "
+        f"wav max abs diff {worst:.3g}; per rank 4 VQ + 36 MRF launches, collectives "
+        f"{ {k: v for k, v in res[0]['collectives'].items() if v['calls']} }; wall per rank {[round(r['ms'], 1) for r in res]} ms "
+        "(two processes on one card: no scaling figure)")
+    return {"wav_err": worst, "launches": res[0]["launches"], "collectives": res[0]["collectives"], "ms": [r["ms"] for r in res]}
+
 
 
 def profile_call(fn, tag, what):
@@ -703,11 +1149,18 @@ def main(argv=None):
     vqs_res = phase_vq_stats(gen)
     rb_res = phase_resblock(gen)
     as_res = phase_analysis_synthesis()
-    tts_res, predict = phase_text_to_wav(env["nvidia_smi"])
+    tts_res, predict, tts_ref = phase_text_to_wav(env["nvidia_smi"])
     profile = profile_call(predict, "[5]", "predict") if args.out else None
     del predict
-    train_res = phase_training(env["nvidia_smi"])
+    train_res, train_ref = phase_training(env["nvidia_smi"], with_profile=bool(args.out))
     step_res = phase_step_card_vs_cpu()
+    backend = BACKEND
+    log(f"[8] {WORLD} ranks share cuda:0; collectives over backend {backend}")
+    shard_res = phase_sharded_kernels(backend, env["nvidia_smi"])
+    batch_np = _training_batch()[0]
+    nccl_res = phase_nccl(batch_np)
+    dp_train = phase_dp_training(backend, batch_np, train_ref, env["nvidia_smi"])
+    dp_infer = phase_dp_inference(backend, tts_ref)
 
     kernels = [
         {
@@ -724,7 +1177,31 @@ def main(argv=None):
             "bound_ms": vqs_res["bound_ms"], "bound_by": vqs_res["bound_by"], "library_ms": None,
             "tolerance": {"idx_quant_counts": "exact", "sums": VQS_TOL},
             "shapes": f"per train step: N={TRAIN_B * TRAIN_FRAMES // 4} + N={TRAIN_B * TRAIN_FRAMES}, H=4, d=64, K=64; "
-                      "launches over 2 warmup + 3 GAN steps",
+                      "launches over 2 warmup + 2 GAN steps",
+        },
+        {
+            "name": "vq_nearest_stats_sharded", "route": "cuda", "source": "msmctts_tpu_torch/csrc/vq_stats.cu",
+            "replaces": "msmctts_tpu/ops/pallas_vq.py:212", "launches": dp_train["sharded_launches"],
+            "max_abs_err": shard_res["max_err_vs_plain"], "ms": shard_res["stats_sharded_ms"],
+            "plain_ms": shard_res["stats_sharded_plain_ms"],
+            "bound_ms": shard_res["stats_kernel_bound_ms"] + 2 * shard_res["all_reduce_link_bound_ms"],
+            "bound_by": shard_res["stats_bound_by"], "library_ms": None,
+            "kernel_ms": shard_res["stats_kernel_ms"], "all_reduce_ms": shard_res["all_reduce_ms"],
+            "all_reduce_bytes": shard_res["all_reduce_bytes"], "backend": backend, "world": WORLD,
+            "max_abs_err_vs_one_rank": shard_res["max_err_vs_one_rank"],
+            "tolerance": {"idx_quant_counts": "exact", "sums": VQS_TOL, "across_ranks": "bit-equal"},
+            "shapes": f"per train step per rank of {WORLD} sharing one card: n={shard_res['stats_rows']} rows, H=4, d=64, K=64, each "
+                      "followed by one all-reduce; ms is kernel + collective on the host clock; the bound adds the two "
+                      "all-reduces over one NVLink direction (not measured: one card); launches per rank over 2 warmup + 2 GAN steps",
+        },
+        {
+            "name": "vq_nearest_sharded", "route": "cuda", "source": "msmctts_tpu_torch/csrc/vq_nearest.cu",
+            "replaces": "msmctts_tpu/ops/pallas_vq.py:273", "launches": dp_infer["launches"]["vq_nearest_sharded"],
+            "max_abs_err": 0.0, "ms": shard_res["snap_kernel_ms"], "plain_ms": shard_res["snap_plain_ms"],
+            "bound_ms": shard_res["snap_bound_ms"], "bound_by": shard_res["snap_bound_by"], "library_ms": None,
+            "backend": backend, "world": WORLD, "tolerance": {"idx_quant": "exact", "collectives": 0},
+            "shapes": f"per predict per rank of {WORLD}: 2 x n={shard_res['snap_rows'][0]} + 2 x n={shard_res['snap_rows'][1]} rows, "
+                      "H=4, d=64, K=64; launches per rank in one predict of the batch of 4",
         },
         {
             "name": "fused_resblock_layer", "route": "cuda", "source": "msmctts_tpu_torch/csrc/resblock.cu",
@@ -744,8 +1221,10 @@ def main(argv=None):
             json.dump({"env": env, "build": build, "vq": vq_res, "vq_stats": vqs_res, "resblock": rb_res,
                        "analysis_synthesis": as_res, "text_to_wav": tts_res, "profile": profile,
                        "training": train_res, "step_card_vs_cpu": step_res,
+                       "sharded_kernels": shard_res, "nccl_world_1": nccl_res, "dp_training": dp_train,
+                       "dp_inference": dp_infer,
                        "wall_s": time.perf_counter() - t_start}, f, indent=1)
-    log(f"[8] wall {time.perf_counter() - t_start:.1f}s on {env['nvidia_smi']}")
+    log(f"[12] wall {time.perf_counter() - t_start:.1f}s on {env['nvidia_smi']}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": env["name"], "count": env["count"]}}))
     return 0

@@ -24,6 +24,7 @@ from msmctts_tpu_torch.models.transformer import FFTBlocks
 from msmctts_tpu_torch.ops.convs import Conv1x1
 from msmctts_tpu_torch.ops.dropout import Dropout
 from msmctts_tpu_torch.ops.masking import positions_from_lengths, sequence_mask
+from msmctts_tpu_torch.parallel.mesh import all_reduce_sum
 from msmctts_tpu_torch.registry import get_network, register_network
 
 
@@ -129,6 +130,7 @@ class MultiStageQuantizer(nn.Module):
             raise NotImplementedError("quantizer norm: True (TorchBatchNorm) is not ported")
         self.upsample_scales = list(upsample_scales)
         self.update_codebook = update_codebook
+        self.group = None  # see set_group
         self.dropout = Dropout(dropout)
         n_stage = len(self.upsample_scales)
         sizes = embedding_sizes if isinstance(embedding_sizes, (list, tuple)) else [embedding_sizes] * n_stage
@@ -149,6 +151,14 @@ class MultiStageQuantizer(nn.Module):
         self.predictor = nn.ModuleDict(
             {str(i): PriorPredictor(M, dims[i], **dict(prior_config or {})) for i in range(1, n_stage)}
         )
+
+    def set_group(self, group):
+        """Train data-parallel over ``group`` (``parallel/mesh.py``): every
+        stage's codebook statistics and the prior losses' denominators then
+        cover the batch rows of all ranks. ``None`` returns to one process."""
+        self.group = group
+        for q in self.quantizer:
+            q.group = group
 
     def forward(self, stages: List[Tuple[Optional[torch.Tensor], torch.Tensor]], from_encoder: bool = True):
         """stages: [(embedding|None, length)] — fine-to-coarse when
@@ -203,7 +213,9 @@ class MultiStageQuantizer(nn.Module):
 
     def compute_embedding_loss(self, pred_states, methods=("mse",), loss_weights=(1.0,)):
         """Per-stage masked embedding losses (``msmc_vqgan.py:301-342``);
-        returns a dict with 'total_loss'. Only ``mse`` is ported."""
+        returns a dict with 'total_loss'. Only ``mse`` is ported. Under a
+        group each loss is this rank's share: its local sum over the global
+        denominator."""
         ref = pred_states[0]["target_outputs"]
         loss_dict = {"total_loss": torch.zeros((), dtype=torch.float32, device=ref.device)}
         for i, state in enumerate(pred_states):
@@ -213,7 +225,7 @@ class MultiStageQuantizer(nn.Module):
             weights = loss_weights[i] if isinstance(loss_weights[0], (list, tuple)) else loss_weights
             length = state["target_lengths"]
             mask = sequence_mask(length, p.shape[1], dtype=torch.float32)
-            denom = torch.clamp(length.float().sum(), min=1.0)
+            denom = torch.clamp(all_reduce_sum(length.float().sum(), self.group), min=1.0)
             for method, weight in zip(methods, weights):
                 if method != "mse":
                     raise NotImplementedError(f"embedding loss '{method}' is not ported (only 'mse')")

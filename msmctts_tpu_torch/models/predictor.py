@@ -18,7 +18,7 @@ import torch.nn as nn
 
 from msmctts_tpu_torch.models.transformer import FFTBlocks, LengthRegulator
 from msmctts_tpu_torch.ops.masking import positions_from_lengths
-from msmctts_tpu_torch.ops.vq import vq_nearest
+from msmctts_tpu_torch.ops.vq import vq_nearest_sharded
 from msmctts_tpu_torch.registry import register_network
 
 
@@ -26,7 +26,7 @@ def snap_with_codebook(x, embed):
     """Snap [B, T, D] to nearest codewords of embed [H, d, K] (multi-head)."""
     B, T, D = x.shape
     H = embed.shape[0]
-    _, quant = vq_nearest(x.reshape(B * T, H, D // H), embed)
+    _, quant = vq_nearest_sharded(x.reshape(B * T, H, D // H), embed)
     return quant.reshape(B, T, D).to(x.dtype)
 
 

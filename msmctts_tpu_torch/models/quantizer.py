@@ -3,14 +3,22 @@
 
 All heads share one codebook tensor [H, d, K] (``embed``), kept whole as
 in the JAX package. In ``eval()`` mode every snap goes through
-``ops/vq.vq_nearest`` (kernel 1 on the card) and nothing is updated: at
+``ops/vq.vq_nearest_sharded`` (kernel 1 on the card, on this process's rows)
+and nothing is updated: at
 inference the JAX package discards the statistics (its ``codebook``
 collection is not mutable there, ``quantizer.py:169``). In ``train()`` mode
-with ``update``, one ``ops/vq.vq_nearest_stats`` launch (kernel 3) gives
+with ``update``, one ``ops/vq.vq_nearest_stats_sharded`` launch (kernel 3) gives
 the indices, the codewords of the *old* codebook and the masked counts and
 sums, and the EMA update (``quantizer.py:184-188``) then runs in plain
 tensor code on the buffers, in place, under ``no_grad``. ``train()`` mode
 is the port's counterpart of flax's mutable ``codebook`` collection.
+
+Under data parallelism the trainer gives the module its process group
+(``group``): the training forward then goes through
+``ops/vq.vq_nearest_stats_sharded``, which sums the statistics over ranks,
+and ``ema_update`` runs on every rank on equal inputs, so the replicated
+codebooks stay bit-equal. Every snap goes through
+``ops/vq.vq_nearest_sharded`` (the rank's rows, no collective).
 """
 
 from __future__ import annotations
@@ -19,7 +27,7 @@ import torch
 import torch.nn as nn
 
 from msmctts_tpu_torch.ops.masking import sequence_mask
-from msmctts_tpu_torch.ops.vq import vq_nearest, vq_nearest_stats
+from msmctts_tpu_torch.ops.vq import vq_nearest_sharded, vq_nearest_stats_sharded
 
 
 def nearest_codes(x, embed):
@@ -29,7 +37,7 @@ def nearest_codes(x, embed):
     materializes the distances."""
     lead = x.shape[:-2]
     H, d = x.shape[-2:]
-    idx, quant = vq_nearest(x.reshape(-1, H, d), embed)
+    idx, quant = vq_nearest_sharded(x.reshape(-1, H, d), embed)
     return idx.reshape(*lead, H), quant.reshape(*lead, H, d)
 
 
@@ -56,6 +64,7 @@ class EMAQuantizer(nn.Module):
         self.n_head = n_head
         self.n_embed = n_embed
         self.sub_dim = embed_dim // n_head
+        self.group = None  # parallel.mesh.Group of a data-parallel trainer
         embed = torch.randn(n_head, self.sub_dim, n_embed)
         self.register_buffer("embed", embed)
         self.register_buffer("cluster_size", torch.zeros(n_head, n_embed))
@@ -85,7 +94,8 @@ class EMAQuantizer(nn.Module):
         """x [B, T, D] -> (quantized (straight-through), diff [B, T, D] fp32,
         indices [B, T, H] int32); ``quantizer.py:112-220``. The codebook
         moves iff the module is in training mode and ``update``; frames at
-        t >= lengths[b] are left out of its statistics. The codewords
+        t >= lengths[b] are left out of its statistics, which cover the
+        batch rows of every rank of ``self.group``. The codewords
         returned are those of the codebook before the update."""
         if sort:
             raise NotImplementedError("sort=True (full codeword ranking) is not ported")
@@ -96,7 +106,7 @@ class EMAQuantizer(nn.Module):
             else:
                 mask = sequence_mask(lengths, T, dtype=torch.float32).reshape(B * T)
             xf = x.detach().float().reshape(B * T, self.n_head, self.sub_dim)
-            idx, quant, counts, sums = vq_nearest_stats(xf, self.embed, mask)
+            idx, quant, counts, sums = vq_nearest_stats_sharded(xf, self.embed, mask, self.group)
             indices = idx.reshape(B, T, self.n_head)
             quant = quant.reshape(B, T, D).to(x.dtype)
             self.ema_update(counts, sums)

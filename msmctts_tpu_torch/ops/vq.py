@@ -23,6 +23,17 @@ inputs give bit-equal statistics on every launch; idx and quant are
 bit-equal to ``vq_nearest``'s) or raises; on a CPU tensor it runs
 :func:`vq_nearest_stats_plain`. Neither function is differentiable: callers
 detach the inputs and rebuild the straight-through estimator outside.
+
+Under data parallelism (``parallel/mesh.py``) every rank holds a block of
+the rows and a replica of the codebook. ``vq_nearest_stats_sharded(x_local,
+embed, mask_local, group)`` is the statistics kernel on the rank's rows
+followed by one ``all_reduce(SUM)`` of counts and sums, which the kernel
+writes into one flat buffer: the function of
+``msmctts_tpu/ops/pallas_vq.py::vq_nearest_stats_sharded``, whose partition
+rule ``psum``s the two over the row axes. The returned statistics are the
+global ones, bit-equal on every rank. ``vq_nearest_sharded(x_local, embed)``
+is the snap kernel on the rank's rows and runs no collective
+(``pallas_vq.py::vq_nearest_sharded``). Each has its plain version beside it.
 """
 
 from __future__ import annotations
@@ -32,6 +43,7 @@ import ctypes
 import torch
 
 from msmctts_tpu_torch.ops.cuda_build import CudaKernel
+from msmctts_tpu_torch.parallel.mesh import all_reduce_sum
 
 WARPS = 8  # kWarps in csrc/vq_common.cuh
 ROWS_PER_TILE = 64  # kRowsPerBlock in csrc/vq_common.cuh
@@ -52,6 +64,8 @@ STATS_KERNEL = CudaKernel(
      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int],
 )
+# launches of the two kernels made through the sharded wrappers
+SHARDED_LAUNCHES = {"vq_nearest_stats_sharded": 0, "vq_nearest_sharded": 0}
 
 
 def shared_bytes(d: int, K: int) -> int:
@@ -125,11 +139,43 @@ def vq_nearest(x: torch.Tensor, embed: torch.Tensor):
     N, H, d, K = _check_cuda_inputs("vq_nearest", x, embed, shared_bytes)
     idx = torch.empty((N, H), dtype=torch.int32, device=x.device)
     quant = torch.empty((N, H, d), dtype=torch.float32, device=x.device)
+    if N == 0:
+        return idx, quant
     KERNEL.launch(
         x.data_ptr(), x.stride(0), x.stride(1), embed.data_ptr(),
         idx.data_ptr(), quant.data_ptr(), N, H, d, K,
     )
     return idx, quant
+
+
+def _split_stats(flat: torch.Tensor, H: int, d: int, K: int):
+    """counts [H, K] and sums [H, d, K] as views of one flat buffer."""
+    return flat[: H * K].view(H, K), flat[H * K :].view(H, d, K)
+
+
+def _vq_nearest_stats_flat(x: torch.Tensor, embed: torch.Tensor, mask: torch.Tensor):
+    """The statistics kernel with counts and sums in one flat buffer of
+    ``H*K + H*d*K`` floats (counts first), so that one collective carries
+    both. -> (idx, quant, flat)."""
+    N, H, d, K = _check_cuda_inputs("vq_nearest_stats", x, embed, stats_shared_bytes)
+    if mask.dtype != torch.float32 or tuple(mask.shape) != (N,):
+        raise ValueError(f"vq_nearest_stats: mask must be float32 [{N}], got {mask.dtype} {tuple(mask.shape)}")
+    if mask.device != x.device or not mask.is_contiguous():
+        raise ValueError("vq_nearest_stats: mask must be a contiguous tensor on x's device")
+    idx = torch.empty((N, H), dtype=torch.int32, device=x.device)
+    quant = torch.empty((N, H, d), dtype=torch.float32, device=x.device)
+    flat = torch.zeros(H * K + H * d * K, dtype=torch.float32, device=x.device)
+    if N == 0:  # nothing to launch: the statistics of no rows are zeros
+        return idx, quant, flat
+    counts, sums = _split_stats(flat, H, d, K)
+    G = stats_walkers(N)
+    part = torch.empty((G, H, K + d * K), dtype=torch.float32, device=x.device)
+    STATS_KERNEL.launch(
+        x.data_ptr(), x.stride(0), x.stride(1), embed.data_ptr(), mask.data_ptr(),
+        idx.data_ptr(), quant.data_ptr(), part.data_ptr(), counts.data_ptr(), sums.data_ptr(),
+        N, H, d, K, G,
+    )
+    return idx, quant, flat
 
 
 def vq_nearest_stats(x: torch.Tensor, embed: torch.Tensor, mask: torch.Tensor):
@@ -139,21 +185,54 @@ def vq_nearest_stats(x: torch.Tensor, embed: torch.Tensor, mask: torch.Tensor):
     mask 0 still get idx and quant; only the statistics leave them out."""
     if x.device.type == "cpu":
         return vq_nearest_stats_plain(x, embed, mask)
-    N, H, d, K = _check_cuda_inputs("vq_nearest_stats", x, embed, stats_shared_bytes)
-    if mask.dtype != torch.float32 or tuple(mask.shape) != (N,):
-        raise ValueError(f"vq_nearest_stats: mask must be float32 [{N}], got {mask.dtype} {tuple(mask.shape)}")
-    if mask.device != x.device or not mask.is_contiguous():
-        raise ValueError("vq_nearest_stats: mask must be a contiguous tensor on x's device")
-    idx = torch.empty((N, H), dtype=torch.int32, device=x.device)
-    quant = torch.empty((N, H, d), dtype=torch.float32, device=x.device)
-    G = stats_walkers(N)
-    part = torch.empty((G, H, K + d * K), dtype=torch.float32, device=x.device)
-    # zeros: with no rows the launcher returns without writing
-    counts = torch.zeros((H, K), dtype=torch.float32, device=x.device)
-    sums = torch.zeros((H, d, K), dtype=torch.float32, device=x.device)
-    STATS_KERNEL.launch(
-        x.data_ptr(), x.stride(0), x.stride(1), embed.data_ptr(), mask.data_ptr(),
-        idx.data_ptr(), quant.data_ptr(), part.data_ptr(), counts.data_ptr(), sums.data_ptr(),
-        N, H, d, K, G,
-    )
-    return idx, quant, counts, sums
+    idx, quant, flat = _vq_nearest_stats_flat(x, embed, mask)
+    H, d, K = embed.shape
+    return (idx, quant, *_split_stats(flat, H, d, K))
+
+
+def vq_nearest_stats_sharded_plain(x: torch.Tensor, embed: torch.Tensor, mask: torch.Tensor, group=None):
+    """Plain PyTorch: :func:`vq_nearest_stats_plain` on the rank's rows,
+    then the same single ``all_reduce(SUM)`` of counts and sums."""
+    idx, quant, counts, sums = vq_nearest_stats_plain(x, embed, mask)
+    H, d, K = embed.shape
+    flat = all_reduce_sum(torch.cat([counts.reshape(-1), sums.reshape(-1)]), group)
+    return (idx, quant, *_split_stats(flat, H, d, K))
+
+
+def vq_nearest_stats_sharded(x: torch.Tensor, embed: torch.Tensor, mask: torch.Tensor, group=None):
+    """:func:`vq_nearest_stats` on this rank's rows ``x`` [n, H, d] and
+    ``mask`` [n], with ``counts`` and ``sums`` summed over the ranks of
+    ``group`` by one ``all_reduce`` of ``H*K + H*d*K`` floats -> (idx [n, H],
+    quant [n, H, d], counts [H, K], sums [H, d, K]); the last two are global
+    and bit-equal on every rank. A rank with no rows, or with every row
+    masked, enters the collective with zeros. Without a group, or in a group
+    of one, this is :func:`vq_nearest_stats` bit for bit and nothing is
+    communicated.
+
+    The order of a rank's partial sums follows ``stats_walkers(n)`` of its
+    own row count, and the ranks' partials are then added by the collective,
+    so against one rank on all rows the sums differ by rounding (counts, idx
+    and quant are exact)."""
+    if x.device.type == "cpu":
+        return vq_nearest_stats_sharded_plain(x, embed, mask, group)
+    before = STATS_KERNEL.launches
+    idx, quant, flat = _vq_nearest_stats_flat(x, embed, mask)
+    SHARDED_LAUNCHES["vq_nearest_stats_sharded"] += STATS_KERNEL.launches - before
+    H, d, K = embed.shape
+    return (idx, quant, *_split_stats(all_reduce_sum(flat, group), H, d, K))
+
+
+def vq_nearest_sharded_plain(x: torch.Tensor, embed: torch.Tensor):
+    """Plain PyTorch: :func:`vq_nearest_plain` on the rank's rows."""
+    return vq_nearest_plain(x, embed)
+
+
+def vq_nearest_sharded(x: torch.Tensor, embed: torch.Tensor):
+    """:func:`vq_nearest` on this rank's rows: rows are independent and the
+    codebook is replicated, so no rank talks to another."""
+    if x.device.type == "cpu":
+        return vq_nearest_sharded_plain(x, embed)
+    before = KERNEL.launches
+    out = vq_nearest(x, embed)
+    SHARDED_LAUNCHES["vq_nearest_sharded"] += KERNEL.launches - before
+    return out

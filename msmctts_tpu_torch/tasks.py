@@ -14,8 +14,16 @@ expansion and synthesis.
 networks of the recipe (the GAN discriminator) and leaves every network in
 ``train()`` mode for a trainer of ``msmctts_tpu_torch/training``.
 
+``MSMCTTS.use_mesh(group)`` makes ``predict`` and ``analysis_synthesis``
+data-parallel over the ranks of a ``parallel.mesh.Group`` (the JAX
+package's ``use_mesh``): every rank calls them with the same global batch,
+computes its contiguous block of rows with its replica of the weights
+(every snap through ``ops/vq.vq_nearest_sharded``, which communicates
+nothing) and the outputs are gathered in rank order, so every rank returns
+the whole batch's result.
+
 Everything runs in fp32 on ``device`` (``cuda`` unless the caller asks for
-the CPU). No mesh, int8 decoder or streaming yet.
+the CPU). No int8 decoder or streaming yet.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ import torch
 
 from msmctts_tpu_torch.config import Config, component_kwargs
 from msmctts_tpu_torch.data.datasets import FRAME_BUCKETS, bucket_length
+from msmctts_tpu_torch.parallel import mesh
 from msmctts_tpu_torch.registry import get_network, get_task, register_task
 from msmctts_tpu_torch.utils.checkpoint import load_checkpoint
 from msmctts_tpu_torch.utils.device import exact_fp32, resolve_device
@@ -119,6 +128,26 @@ class MSMCTTS(BaseTask):
         self.samplerate = ds["samplerate"]
         self.training_mode = config.task.get("_mode", "train_autoencoder")
         self._loaded_modules = False
+        self._group = None  # data-parallel inference, see use_mesh
+
+    # -------------------------------------------------------------- mesh
+    def use_mesh(self, group) -> "MSMCTTS":
+        """Data-parallel inference over ``group``; batch sizes must divide
+        by its size. ``None`` returns to one process."""
+        self._group = group
+        return self
+
+    def _local_rows(self, batch: dict) -> dict:
+        """This rank's block of a global numpy batch."""
+        W = mesh.world(self._group)
+        B = int(np.asarray(next(iter(batch.values()))).shape[0])
+        if B % W:
+            raise ValueError(f"batch size {B} does not divide the {W}-rank inference group")
+        return mesh.shard_rows({k: np.asarray(v) for k, v in batch.items()}, mesh.rank(self._group), W)
+
+    def _gather(self, t: torch.Tensor) -> np.ndarray:
+        """Every rank's rows of ``t`` in rank order, on the host."""
+        return mesh.all_gather_rows(t, self._group).cpu().numpy()
 
     def _tensor(self, x, dtype=None):
         return torch.as_tensor(np.asarray(x), dtype=dtype, device=self.device)
@@ -154,8 +183,9 @@ class MSMCTTS(BaseTask):
         if ae.training:
             raise RuntimeError("analysis_synthesis needs the autoencoder in eval() mode")
         T = int(batch["mel"].shape[1])
-        out = ae(self._tensor(batch["mel"], torch.float32), self._tensor(batch["mel_length"], torch.long))
-        wav = out["decoder_outputs"][..., 0].cpu().numpy()
+        local = self._local_rows(batch)
+        out = ae(self._tensor(local["mel"], torch.float32), self._tensor(local["mel_length"], torch.long))
+        wav = self._gather(out["decoder_outputs"][..., 0])
         ratio = wav.shape[1] // T
         return {
             "wav": [w[: int(l) * ratio] for w, l in zip(wav, batch["mel_length"])],
@@ -165,8 +195,9 @@ class MSMCTTS(BaseTask):
     @torch.inference_mode()
     def _predict_phase1(self, batch: dict) -> dict:
         """Durations (predicted, or forced by ``dur`` in the batch), rounded
-        and masked, and the batch's frame bucket: the frame total rounded up
-        to ``FRAME_BUCKETS``, at least lcm(n_pred_scale)."""
+        and masked, of this rank's rows, and the global batch's frame
+        bucket: the largest frame total rounded up to ``FRAME_BUCKETS``, at
+        least lcm(n_pred_scale). ``total`` covers the global batch."""
         predictor = self.networks["predictor"]
         scales = list(predictor.n_pred_scale)
         lcm = math.lcm(*scales) if scales else 1
@@ -183,6 +214,8 @@ class MSMCTTS(BaseTask):
             mask = torch.arange(dur.shape[1], device=self.device)[None, :] < text_length[:, None]
             durations = dur * mask
             total = durations.sum(dim=1).long().cpu().numpy()  # one small D2H
+        if mesh.world(self._group) > 1:  # one bucket for the whole batch: every rank's totals
+            total = self._gather(torch.as_tensor(total, device=self.device))
         max_frames = bucket_length(max(int(total.max()), lcm), FRAME_BUCKETS)
         return dict(text=text, text_length=text_length, durations=durations, total=total, max_frames=max_frames)
 
@@ -191,19 +224,19 @@ class MSMCTTS(BaseTask):
         """text -> MSMCR -> waveform (msmc_tts.py:109-127)."""
         predictor = self.networks["predictor"]
         ae = self.networks["autoencoder"]
-        p1 = self._predict_phase1(batch)
+        p1 = self._predict_phase1(self._local_rows(batch))
         out = predictor(
             p1["text"], p1["text_length"], dur=p1["durations"],
             max_frames=p1["max_frames"], codebooks=extract_codebooks(ae),
         )
-        wav = ae.synthesis(out["feat"], out["feat_length"])[..., 0].cpu().numpy()
-        fine = out["feat"][-1].cpu().numpy()
+        wav = self._gather(ae.synthesis(out["feat"], out["feat_length"])[..., 0])
+        fine = self._gather(out["feat"][-1])
         total = p1["total"]
         ratio = wav.shape[1] // fine.shape[1]
         wav_lengths = (total * ratio).astype(np.int64)
         return {
             "wav": [w[:l] for w, l in zip(wav, wav_lengths)],
             "embedding": [f[: int(t)] for f, t in zip(fine, total)],
-            "duration": p1["durations"].cpu().numpy(),
+            "duration": self._gather(p1["durations"]),
             "mel_length": total,
         }

@@ -20,8 +20,20 @@ generator's state sit beside them under keys of their own
 (``torch_opt_state``, ``torch_rng``), which the JAX package ignores: it
 resumes such a checkpoint with fresh moments.
 
-One GPU, fp32; no mesh, profiler hook, multi-host or periodic evaluation
-summaries yet.
+Data parallelism (counterpart of the JAX trainer's ``data`` mesh axis):
+given a ``parallel.mesh.Group``, this process is one of W ranks, each on its
+own device with a replica of the whole state. The config's ``batch_size``
+is the *global* batch: the loader hands this rank a contiguous block of
+``batch_size // W`` rows of every global batch. Every rank's generator holds
+the same state and draws for the global batch, so the ranks' states stay
+bit-equal and W ranks train what one rank trains, to reduction rounding.
+After the resume ladder rank 0's state is broadcast. Rank 0 alone writes
+checkpoints; every rank reads them and keeps a log of its own. SIGTERM /
+SIGINT on any rank is agreed on after every step (one flag over gloo), so
+that all ranks leave the loop at the same iteration.
+
+fp32 only; the ``model`` axis of a ``mesh:`` node (tensor parallelism),
+bf16, the profiler hook and periodic evaluation summaries are not ported.
 """
 
 from __future__ import annotations
@@ -37,6 +49,7 @@ import torch
 from msmctts_tpu_torch.config import component_kwargs
 from msmctts_tpu_torch.data.loader import DataLoader, to_device
 from msmctts_tpu_torch.ops.dropout import bind_generator
+from msmctts_tpu_torch.parallel import mesh
 from msmctts_tpu_torch.registry import get_dataset
 from msmctts_tpu_torch.training.optim import Optimizer
 from msmctts_tpu_torch.utils.checkpoint import find_latest_checkpoint, load_checkpoint, map_leaves, save_checkpoint
@@ -62,12 +75,12 @@ def metrics_to_host(metrics: dict) -> Dict[str, float]:
 
 
 class TextLogger:
-    """Appends time-stamped lines to ``train_rank0_<stamp>.log`` in the save
-    dir and echoes them to stdout."""
+    """Appends time-stamped lines to ``train_rank<rank>_<stamp>.log`` in the
+    save dir and echoes them to stdout."""
 
-    def __init__(self, log_dir: str):
+    def __init__(self, log_dir: str, rank: int = 0):
         os.makedirs(log_dir, exist_ok=True)
-        self.path = os.path.join(log_dir, f"train_rank0_{time.strftime('%Y%m%d-%H%M%S')}.log")
+        self.path = os.path.join(log_dir, f"train_rank{rank}_{time.strftime('%Y%m%d-%H%M%S')}.log")
 
     def text(self, message: str):
         line = f"[{time.strftime('%H:%M:%S')}] {message}"
@@ -76,8 +89,19 @@ class TextLogger:
         print(line, flush=True)
 
 
+def check_mesh_config(config, world: int):
+    """The config's ``mesh: {data: N, model: M}`` node against the run: N
+    (-1 or absent = any) is the number of ranks to expect."""
+    node = dict(config.get("mesh") or {})
+    if int(node.get("model", 1) or 1) > 1:
+        raise NotImplementedError("mesh.model > 1 (tensor parallelism) is not ported")
+    n_data = int(node.get("data", -1) or -1)
+    if n_data != -1 and n_data != world:
+        raise ValueError(f"the config asks for mesh.data = {n_data} but the run has {world} rank(s)")
+
+
 class BaseTrainer:
-    def __init__(self, config, task):
+    def __init__(self, config, task, group=None):
         if task.mode != "train":
             raise ValueError("a trainer needs a task built with mode='train'")
         precision = str(config.get("precision", "float32")).lower()
@@ -85,6 +109,9 @@ class BaseTrainer:
             raise NotImplementedError(f"precision '{precision}' is not ported (fp32 only)")
         self.config = config
         self.task = task
+        self.group = group
+        self.rank, self.world = mesh.rank(group), mesh.world(group)
+        check_mesh_config(config, self.world)
         self.device = task.device
         self.save_dir = config.get("save_checkpoint_dir", "checkpoints")
         self.training_steps = int(config.get("training_steps", 1_000_000))
@@ -94,7 +121,7 @@ class BaseTrainer:
         self.generator = torch.Generator(device=self.device).manual_seed(self.seed)
         self.optimizers: Dict[str, Optimizer] = {}
         for module in task.networks.values():
-            bind_generator(module, self.generator)
+            bind_generator(module, self.generator, shard=(self.rank, self.world))
 
     # ------------------------------------------------------ to be overridden
     def train_step(self, batch: dict, iteration: int) -> dict:
@@ -136,6 +163,7 @@ class BaseTrainer:
             self.load(path)
         elif pretrain:
             self.load_state_tree(load_checkpoint(pretrain)["state"])  # weights only
+        mesh.replicate_state(self.task.networks.values(), self.group)
 
     def load(self, path: str):
         ckpt = load_checkpoint(path)
@@ -150,8 +178,12 @@ class BaseTrainer:
         else:
             self.restart_optimizer_counts(self.iteration)
 
-    def save(self) -> str:
+    def save(self) -> Optional[str]:
+        """Write ``model_<iteration>``; under a group rank 0 alone does (the
+        state is replicated)."""
         self._last_saved_iteration = self.iteration
+        if self.rank != 0:
+            return None
         path = os.path.join(self.save_dir, f"model_{self.iteration}")
         state = self.state_tree()
         as_numpy = lambda x: x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else x
@@ -165,24 +197,27 @@ class BaseTrainer:
     def train(self, max_steps: Optional[int] = None, log_every: int = 50):
         dl_cfg = self.config.get("dataloader", {})
         dataset = build_dataset_from_config(self.config, training=True)
+        # the config's batch_size is global; this rank loads its block of it
         loader = DataLoader(
             dataset,
-            batch_size=int(dl_cfg.get("batch_size", 16)),
+            batch_size=max(1, int(dl_cfg.get("batch_size", 16)) // self.world),
             shuffle=True,
             num_workers=int(dl_cfg.get("num_workers", 4)),
             seed=self.seed,
+            shard=(self.rank, self.world),
         )
         batches = iter(loader)
         self.attempt_resume()
 
-        logger = TextLogger(self.save_dir)
+        logger = TextLogger(self.save_dir, self.rank)
         stop_at = min(
             self.training_steps,
             self.iteration + max_steps if max_steps is not None else self.training_steps,
         )
 
         # SIGTERM/SIGINT set a flag; the loop finishes the step in flight,
-        # saves a resumable checkpoint and returns.
+        # saves a resumable checkpoint and returns. Ranks agree on the flag
+        # after every step, so a signal to one stops all at one iteration.
         preempted = []
         prev_handlers = {}
         for sig in (signal.SIGTERM, signal.SIGINT):
@@ -194,7 +229,8 @@ class BaseTrainer:
         t0 = time.time()
         self._last_saved_iteration = None
         try:
-            while self.iteration < stop_at and not preempted:
+            stop = mesh.agree_any(bool(preempted), self.group)
+            while self.iteration < stop_at and not stop:
                 self.iteration += 1
                 batch = to_device(next(batches), self.device)
                 metrics = self.train_step(batch, self.iteration)
@@ -205,10 +241,13 @@ class BaseTrainer:
                     t0 = time.time()
                 if self.iteration % self.iters_per_checkpoint == 0:
                     self.save()
-            if preempted:
-                logger.text(f"signal {preempted[0]} received - checkpointing at iteration {self.iteration} and exiting")
+                stop = mesh.agree_any(bool(preempted), self.group)
+            if stop:
+                what = f"signal {preempted[0]} received" if preempted else "another rank was signalled"
+                logger.text(f"{what} - checkpointing at iteration {self.iteration} and exiting")
             if self._last_saved_iteration != self.iteration:
                 self.save()  # final / preemption snapshot
+            mesh.barrier(self.group)  # the checkpoint is on disk when any rank returns
         finally:
             batches.close()  # stops the loader's threads
             for sig, handler in prev_handlers.items():

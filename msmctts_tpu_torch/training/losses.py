@@ -11,6 +11,15 @@
 Everything is float32. The discriminator is applied to the fake and the real
 batch in two separate calls, never to one concatenated batch: the reference
 evaluates it that way, and the JAX package keeps it so.
+
+Under data parallelism (``group``, ``parallel/mesh.py``) every function
+returns this rank's *share* of the global term: the shares of all ranks add
+up to what one rank would compute on the whole batch, so summed gradients
+are the global gradient. A masked term divides its local sum by the global
+denominator (``lengths`` summed over ranks); a ``torch.mean`` over equal
+shards is divided by the number of ranks; the spectral convergence, a ratio
+of global norms, is formed on every rank from the summed squared norms and
+shared out in equal parts. Without a group the shares are the terms.
 """
 
 from __future__ import annotations
@@ -20,23 +29,29 @@ from typing import Sequence
 import torch
 
 from msmctts_tpu_torch.ops.masking import sequence_mask
+from msmctts_tpu_torch.parallel.mesh import all_reduce_sum, sum_over_ranks, world
 from msmctts_tpu_torch.ops.stft import _constant, mel_spectrogram_hifigan, stft_magnitude
 
 
-def masked_diff_loss(term, lengths):
+def global_length_sum(lengths, group=None):
+    """sum(lengths) over the batch rows of every rank, at least 1: the
+    denominator of the masked losses."""
+    return torch.clamp(all_reduce_sum(lengths.float().sum(), group), min=1.0)
+
+
+def masked_diff_loss(term, lengths, group=None):
     """sum over valid frames / sum(lengths) / feature_dim."""
     term = term.float()
     mask = sequence_mask(lengths, term.shape[1], dtype=torch.float32)[..., None]
-    denom = torch.clamp(lengths.float().sum(), min=1.0)
-    return torch.sum(term * mask) / denom / term.shape[2]
+    return torch.sum(term * mask) / global_length_sum(lengths, group) / term.shape[2]
 
 
-def quantizer_loss(encoder_diffs, encoder_lengths, decoder_diffs, lambda_vq=1.0, lambda_pr=1.0):
+def quantizer_loss(encoder_diffs, encoder_lengths, decoder_diffs, lambda_vq=1.0, lambda_pr=1.0, group=None):
     """Returns (vq_loss scalar, metrics dict)."""
     metrics = {}
     vq = torch.zeros((), dtype=torch.float32, device=encoder_diffs[0].device)
     for i, (diff, length) in enumerate(zip(encoder_diffs, encoder_lengths)):
-        term = masked_diff_loss(diff, length)
+        term = masked_diff_loss(diff, length, group)
         metrics[f"latent_loss_{i}_0"] = term
         vq = vq + lambda_vq * term
     if decoder_diffs is not None:
@@ -48,38 +63,43 @@ def quantizer_loss(encoder_diffs, encoder_lengths, decoder_diffs, lambda_vq=1.0,
     return vq, metrics
 
 
-def frame_loss(pred_mel, target_mel, lengths):
+def frame_loss(pred_mel, target_mel, lengths, group=None):
     """Masked mel-reconstruction MSE."""
-    return masked_diff_loss(torch.square(pred_mel.float() - target_mel.float()), lengths)
+    return masked_diff_loss(torch.square(pred_mel.float() - target_mel.float()), lengths, group)
 
 
-def duration_loss(dur_pred, dur_target, text_lengths):
+def duration_loss(dur_pred, dur_target, text_lengths, group=None):
     """Masked duration MSE normalized by total text length."""
     sq = torch.square(dur_pred.float() - dur_target.float())
     mask = sequence_mask(text_lengths, sq.shape[1], dtype=torch.float32)
-    denom = torch.clamp(text_lengths.float().sum(), min=1.0)
-    return torch.sum(sq * mask) / denom
+    return torch.sum(sq * mask) / global_length_sum(text_lengths, group)
 
 
-def mel_loss(pred_wav, target_wav, sample_rate, fft_size=None, hop_size=None, win_size=None, num_mels=128):
+def mel_loss(pred_wav, target_wav, sample_rate, fft_size=None, hop_size=None, win_size=None, num_mels=128,
+             group=None):
     """HiFi-GAN-style log-mel L1; defaults derived from the sample rate."""
     win_size = win_size or sample_rate // 20
     hop_size = hop_size or sample_rate // 80
     fft_size = fft_size or (2048 if win_size > 1024 else 1024)
     p = mel_spectrogram_hifigan(pred_wav, sample_rate, fft_size, hop_size, win_size, num_mels)
     t = mel_spectrogram_hifigan(target_wav, sample_rate, fft_size, hop_size, win_size, num_mels)
-    return torch.mean(torch.abs(p - t))
+    return torch.mean(torch.abs(p - t)) / world(group)
 
 
-def _sc_and_mag(p, t):
-    sc = torch.linalg.norm(t - p) / torch.clamp(torch.linalg.norm(t), min=1e-8)
+def _sc_and_mag(p, t, group=None):
+    W = world(group)
+    if W == 1:
+        sc = torch.linalg.norm(t - p) / torch.clamp(torch.linalg.norm(t), min=1e-8)
+    else:  # |t - p| / |t| over every rank's rows, from the summed squared norms
+        sq = sum_over_ranks(torch.stack([torch.sum(torch.square(t - p)), torch.sum(torch.square(t))]), group)
+        sc = torch.sqrt(sq[0]) / torch.clamp(torch.sqrt(sq[1]), min=1e-8) / W
     logp = torch.log(torch.clamp(p, 1e-5, 10.0))
     logt = torch.log(torch.clamp(t, 1e-5, 10.0))
-    return sc, torch.mean(torch.abs(logp - logt))
+    return sc, torch.mean(torch.abs(logp - logt)) / W
 
 
 def stft_loss(pred_wav, target_wav, fft_size: int = 1024, win_size: int = 600, hop_size: int = 120,
-              mel_scale: bool = False, sample_rate: int = 24000, num_mels: int = 80):
+              mel_scale: bool = False, sample_rate: int = 24000, num_mels: int = 80, group=None):
     """Single-resolution STFT loss: spectral convergence + log-magnitude
     L1, with an optional mel warp. Returns {sc_loss, mag_loss}."""
     p = stft_magnitude(pred_wav, fft_size, hop_size, win_size)
@@ -88,17 +108,17 @@ def stft_loss(pred_wav, target_wav, fft_size: int = 1024, win_size: int = 600, h
         fb = _constant("mel", (sample_rate, fft_size, num_mels), str(p.device))
         p = torch.einsum("mf,bft->bmt", fb, p)
         t = torch.einsum("mf,bft->bmt", fb, t)
-    sc, mag = _sc_and_mag(p, t)
+    sc, mag = _sc_and_mag(p, t, group)
     return {"sc_loss": sc, "mag_loss": mag}
 
 
 def multi_resolution_stft_loss(pred_wav, target_wav, fft_sizes: Sequence[int] = (1024, 2048, 512),
                                win_sizes: Sequence[int] = (600, 1200, 300),
-                               hop_sizes: Sequence[int] = (120, 240, 60)):
+                               hop_sizes: Sequence[int] = (120, 240, 60), group=None):
     """Returns dict {sc_loss, mag_loss} averaged over resolutions."""
     sc, mag = [], []
     for n_fft, win, hop in zip(fft_sizes, win_sizes, hop_sizes):
-        s, m = _sc_and_mag(stft_magnitude(pred_wav, n_fft, hop, win), stft_magnitude(target_wav, n_fft, hop, win))
+        s, m = _sc_and_mag(stft_magnitude(pred_wav, n_fft, hop, win), stft_magnitude(target_wav, n_fft, hop, win), group)
         sc.append(s)
         mag.append(m)
     n = len(sc)
@@ -113,20 +133,20 @@ def paired_disc_apply(disc, fake, real):
     return fs, ff, rs, rf
 
 
-def lsgan_d_loss(real_scores, fake_scores):
+def lsgan_d_loss(real_scores, fake_scores, group=None):
     """Sum over discriminators of MSE-to-1 (real) and MSE-to-0 (fake)."""
     real = sum(torch.mean(torch.square(s.float() - 1.0)) for s in real_scores)
     fake = sum(torch.mean(torch.square(s.float())) for s in fake_scores)
-    return real, fake
+    return real / world(group), fake / world(group)
 
 
-def lsgan_g_loss(fake_scores):
-    return sum(torch.mean(torch.square(s.float() - 1.0)) for s in fake_scores)
+def lsgan_g_loss(fake_scores, group=None):
+    return sum(torch.mean(torch.square(s.float() - 1.0)) for s in fake_scores) / world(group)
 
 
-def feature_matching_loss(fake_feats, real_feats):
+def feature_matching_loss(fake_feats, real_feats, group=None):
     total = 0.0
     for ff, rf in zip(fake_feats, real_feats):
         for f, r in zip(ff, rf):
             total = total + torch.mean(torch.abs(f.float() - r.float()))
-    return total
+    return total / world(group)

@@ -17,6 +17,15 @@ JAX package uses, so that both stacks move the same weights the same way:
     during warmup) has a zero gradient, not none: its moments and its step
     count move on, and decoupled weight decay still applies to it.
     ``torch.optim`` alone would skip it and start its bias correction late.
+
+Under data parallelism (``group``) every rank's loss is its share of the
+global loss, so the global gradient is the sum of the ranks' gradients:
+``step`` adds them with one ``all_reduce`` over one flat buffer, after the
+zero fill (every rank then reduces the same tensors) and before the clip
+(the norm is the global one, equal on all ranks, as optax's is). It is done
+by hand, not with ``DistributedDataParallel``: the GAN step runs two
+backwards, toggles ``requires_grad`` on the discriminator and leaves the
+waveform decoder without a gradient during warmup.
 """
 
 from __future__ import annotations
@@ -26,6 +35,8 @@ import re
 from typing import Iterable, Optional, Tuple
 
 import torch
+
+from msmctts_tpu_torch.parallel.mesh import all_reduce_sum, world
 
 
 def make_lr_schedule(base_lr: float, cfg: Optional[dict]):
@@ -58,8 +69,9 @@ class Optimizer:
     rate -> frozen parameters untouched. ``count`` is the number of updates
     made, the schedule's argument."""
 
-    def __init__(self, named_params, opt, schedule, grad_clip: Optional[float], freeze_patterns):
+    def __init__(self, named_params, opt, schedule, grad_clip: Optional[float], freeze_patterns, group=None):
         self.opt = opt
+        self.group = group
         self.schedule = schedule
         self.grad_clip = float(grad_clip) if grad_clip is not None and grad_clip > 0 else None
         self.count = 0
@@ -75,6 +87,9 @@ class Optimizer:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self.params]
+        if world(self.group) > 1 and grads:
+            flat = all_reduce_sum(torch.cat([g.reshape(-1) for g in grads]), self.group)
+            torch._foreach_copy_(grads, [c.view_as(g) for c, g in zip(flat.split([g.numel() for g in grads]), grads)])
         if self.grad_clip is not None and grads:
             norm = global_norm(grads)
             scale = self.grad_clip / torch.clamp(norm, min=self.grad_clip)
@@ -100,7 +115,7 @@ class Optimizer:
 
 def build_optimizer(named_params: Iterable[Tuple[str, torch.nn.Parameter]], opt_cfg: dict,
                     lr_cfg: Optional[dict], grad_clip: Optional[float] = None,
-                    freeze_patterns=None) -> Optimizer:
+                    freeze_patterns=None, group=None) -> Optimizer:
     """One :class:`Optimizer` from an ``optimizer.<module>`` config node.
     Supported ``_name``: Adam (weight decay as an L2 term on the gradient),
     AdamW (decoupled decay), RAdam."""
@@ -119,7 +134,7 @@ def build_optimizer(named_params: Iterable[Tuple[str, torch.nn.Parameter]], opt_
         opt = torch.optim.RAdam(params, lr=lr, betas=betas, eps=eps, weight_decay=wd)
     else:
         raise ValueError(f"unknown optimizer '{name}'")
-    return Optimizer(named_params, opt, make_lr_schedule(lr, lr_cfg), grad_clip, freeze_patterns)
+    return Optimizer(named_params, opt, make_lr_schedule(lr, lr_cfg), grad_clip, freeze_patterns, group)
 
 
 def optimizer_config_for(config: dict, module_name: str) -> dict:

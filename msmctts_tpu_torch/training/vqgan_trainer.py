@@ -16,12 +16,22 @@ the autoencoder's train step.
 The autoencoder's forward runs once per step. Its graph is kept for the
 generator's backward: the discriminator's update sees only the detached
 fake. In that one forward each quantizer stage launches the statistics
-kernel once (``ops/vq.vq_nearest_stats``) and moves its codebook EMA. While
+kernel once (``ops/vq.vq_nearest_stats_sharded``) and moves its codebook EMA. While
 the generator loss is evaluated the discriminator's parameters need no
 gradient and are frozen, so its backward computes input gradients only.
 
 At iteration == warmup_steps the step still runs the warmup graph, as the
 JAX package does.
+
+Data-parallel (``group``, see ``training/base_trainer.py``): the batch a
+step gets is this rank's block of the global batch. Every loss term is the
+rank's share of the global term (``training/losses.py``), each optimizer
+sums the gradients over ranks before it clips, the quantizers sum their
+statistics, window starts and dropout masks are drawn for the global batch,
+and ``lambda_fm: auto`` uses the global losses. The metrics returned are the
+global values, equal on every rank. Per step that is one all-reduce per
+quantizer stage, one per optimizer, one of the metrics and one per masked
+denominator.
 """
 
 from __future__ import annotations
@@ -32,6 +42,7 @@ from typing import Optional
 import torch
 
 from msmctts_tpu_torch.models.msmc_vqgan import crop_windows
+from msmctts_tpu_torch.parallel.mesh import all_reduce_sum, world
 from msmctts_tpu_torch.registry import register_trainer
 from msmctts_tpu_torch.training.base_trainer import BaseTrainer
 from msmctts_tpu_torch.training.losses import (
@@ -68,6 +79,7 @@ class VQGANTrainer(BaseTrainer):
         self,
         config,
         task,
+        group=None,
         warmup_steps: int = 0,
         lambda_frame: float = 1.0,
         eval_inteval_iters: int = 1000,  # accepted for YAML parity (reference spelling); evaluation summaries are not ported
@@ -80,7 +92,7 @@ class VQGANTrainer(BaseTrainer):
         stft_loss_func: str = "mel_loss",
         stft_loss_config: Optional[dict] = None,
     ):
-        super().__init__(config, task)
+        super().__init__(config, task, group)
         self.warmup_steps = int(warmup_steps)
         self.lambda_frame = lambda_frame
         self.lambda_vq = lambda_vq
@@ -101,11 +113,12 @@ class VQGANTrainer(BaseTrainer):
         # the clip and the freeze patterns are the autoencoder's only
         self.ae_opt = build_optimizer(
             self.ae.named_parameters(), optimizer_config_for(config, "autoencoder"), lr_cfg,
-            grad_clip_thresh, freeze_patterns=config.get("freeze"),
+            grad_clip_thresh, freeze_patterns=config.get("freeze"), group=group,
         )
         self.d_opt = build_optimizer(
-            self.disc.named_parameters(), optimizer_config_for(config, "discriminator"), lr_cfg, None
+            self.disc.named_parameters(), optimizer_config_for(config, "discriminator"), lr_cfg, None, group=group
         )
+        self.ae.quantizer.set_group(group)
         self.optimizers = {"autoencoder": self.ae_opt, "discriminator": self.d_opt}
 
     # ----------------------------------------------------------------- state
@@ -135,11 +148,13 @@ class VQGANTrainer(BaseTrainer):
             return {"mel_loss": mel_loss(
                 fake, target, kwargs["sample_rate"], fft_size=kwargs["fft_size"],
                 hop_size=kwargs["hop_size"], win_size=kwargs["win_size"], num_mels=kwargs["num_mels"],
+                group=self.group,
             )}
-        return multi_resolution_stft_loss(fake, target, **self.stft_loss_config)
+        return multi_resolution_stft_loss(fake, target, **self.stft_loss_config, group=self.group)
 
     def _codebook_health(self):
-        """Per-stage codeword usage perplexity from the EMA cluster sizes."""
+        """Per-stage codeword usage perplexity from the EMA cluster sizes
+        (replicated state: the same on every rank, never summed)."""
         metrics = {}
         for i, q in enumerate(self.ae.quantizer.quantizer):
             cs = q.cluster_size
@@ -153,12 +168,12 @@ class VQGANTrainer(BaseTrainer):
         metrics = self._codebook_health()
         vq, vq_metrics = quantizer_loss(
             out["encoder_diffs"], out["encoder_lengths"], out.get("decoder_diffs"),
-            lambda_vq=self.lambda_vq, lambda_pr=self.lambda_pr,
+            lambda_vq=self.lambda_vq, lambda_pr=self.lambda_pr, group=self.group,
         )
         metrics.update(vq_metrics)
         g = vq
         if "mel_outputs" in out:
-            fl = frame_loss(out["mel_outputs"], mel, mel_length)
+            fl = frame_loss(out["mel_outputs"], mel, mel_length, self.group)
             metrics["frame_loss"] = fl
             g = g + self.lambda_frame * fl
         return g, metrics
@@ -175,9 +190,12 @@ class VQGANTrainer(BaseTrainer):
         return metrics
 
     def _draw_starts(self, mel_length):
-        """Per-utterance window starts in [0, max(len - frames, 1))."""
+        """Per-utterance window starts in [0, max(len - frames, 1)). One
+        draw covers the global batch; this rank keeps its own rows."""
         maxval = torch.clamp(mel_length - self.frame_lengths, min=1)
-        u = torch.rand(mel_length.shape, generator=self.generator, device=mel_length.device, dtype=torch.float64)
+        B = mel_length.shape[0]
+        u = torch.rand((B * self.world,), generator=self.generator, device=mel_length.device, dtype=torch.float64)
+        u = u[self.rank * B : (self.rank + 1) * B]
         return torch.minimum((u * maxval).long(), maxval - 1)
 
     def _gan_step(self, batch, starts=None):
@@ -198,7 +216,7 @@ class VQGANTrainer(BaseTrainer):
 
         # discriminator update on (detached fake, real)
         fs, _, rs, _ = paired_disc_apply(self.disc, fake.detach(), target)
-        d_real, d_fake = lsgan_d_loss(rs, fs)
+        d_real, d_fake = lsgan_d_loss(rs, fs, self.group)
         d_loss = d_real + d_fake
         d_loss.backward()
         self.d_opt.step()
@@ -212,9 +230,13 @@ class VQGANTrainer(BaseTrainer):
         g = g + self.lambda_stft * stft_sum
         with _no_param_grads(self.disc):
             fs, ff, _, rf = paired_disc_apply(self.disc, fake, target)
-        adv = lsgan_g_loss(fs)
-        fm = feature_matching_loss(ff, rf)
-        lam = (g / torch.clamp(fm, min=1e-12)).detach() if self.lambda_fm == "auto" else self.lambda_fm
+        adv = lsgan_g_loss(fs, self.group)
+        fm = feature_matching_loss(ff, rf, self.group)
+        if self.lambda_fm == "auto":  # from the global losses
+            g_fm = all_reduce_sum(torch.stack([g.detach(), fm.detach()]), self.group)
+            lam = g_fm[0] / torch.clamp(g_fm[1], min=1e-12)
+        else:
+            lam = self.lambda_fm
         adv_total = adv + fm * lam
         g_total = g + adv_total
         g_total.backward()
@@ -230,11 +252,17 @@ class VQGANTrainer(BaseTrainer):
         warmup graph while ``iteration <= warmup_steps``, else the GAN step.
         ``starts`` [B] fixes the GAN windows (tests compare two stacks whose
         random streams differ); by default they come from the trainer's
-        generator. Returns 0-d metric tensors, detached."""
+        generator. Under a group, ``batch`` and ``starts`` hold this rank's
+        rows. Returns 0-d metric tensors, detached: the global values."""
         self.ae.train()
         self.disc.train()
         if iteration <= self.warmup_steps:
             metrics = self._warmup_step(batch)
         else:
             metrics = self._gan_step(batch, starts)
-        return {k: torch.as_tensor(v).detach() for k, v in metrics.items()}
+        metrics = {k: torch.as_tensor(v).detach() for k, v in metrics.items()}
+        if world(self.group) > 1:  # the loss terms are shares: one sum gives the global values
+            shared = sorted(k for k in metrics if not k.startswith("codebook_perplexity"))
+            total = all_reduce_sum(torch.stack([metrics[k].float().reshape(()) for k in shared]), self.group)
+            metrics.update(zip(shared, total.unbind()))
+        return metrics

@@ -37,6 +37,7 @@ import torch
 import torch.nn as nn
 
 from msmctts_tpu_torch.ops.convs import refold
+from msmctts_tpu_torch.parallel.mesh import max_deviation_from_rank0
 
 StateDict = Dict[str, np.ndarray]
 
@@ -559,3 +560,12 @@ def init_random(module: nn.Module, seed: int):
             module.get_buffer(name[: -len("embed")] + "embed_avg").copy_(b)
             module.get_buffer(name[: -len("embed")] + "cluster_size").zero_()
     refold(module)
+
+
+def assert_replicated(modules, group):
+    """Raise unless every parameter and buffer of ``modules`` is bit-equal
+    on all ranks of ``group`` (max over ranks of |x - x on rank 0| == 0).
+    Every rank must call it: it communicates."""
+    dev = max_deviation_from_rank0(list(modules), group)
+    if dev != 0.0:
+        raise AssertionError(f"state differs across ranks: max |x - x on rank 0| = {dev}")

@@ -51,6 +51,8 @@ def test_scan_covers_the_training_slice():
         "msmctts_tpu_torch/training/__init__.py", "msmctts_tpu_torch/training/losses.py",
         "msmctts_tpu_torch/training/optim.py", "msmctts_tpu_torch/training/base_trainer.py",
         "msmctts_tpu_torch/training/vqgan_trainer.py", "chip_smoke.py",
+        "msmctts_tpu_torch/parallel/__init__.py", "msmctts_tpu_torch/parallel/mesh.py",
+        "msmctts_tpu_torch/parallel/launch.py", "msmctts_tpu_torch/train_dist.py",
     ):
         assert rel in scanned, rel
 
@@ -81,6 +83,7 @@ def test_every_port_module_imports_without_the_jax_package():
     assert res.returncode == 0, res.stderr
     assert res.stdout.startswith("ok")
     assert "msmctts_tpu_torch.training.vqgan_trainer" in modules and "msmctts_tpu_torch.train" in modules
+    assert "msmctts_tpu_torch.parallel.mesh" in modules and "msmctts_tpu_torch.train_dist" in modules
 
 
 def test_entry_points_refuse_cpu_fallback(monkeypatch, tmp_path):
