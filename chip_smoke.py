@@ -91,6 +91,9 @@ AS_TOL = 5e-4  # wav, card vs CPU, as the CPU parity tests hold the port to JAX
 # one train step, card vs CPU from equal state: losses relative, codebook absolute
 # (cuDNN and the CPU's convs sum in other orders, through some 60 layers and a backward)
 STEP_TOL = {"loss_rtol": 2e-3, "codebook_atol": 1e-4}
+# W ranks against one rank after several steps: an assignment may fall the other
+# way only between two codewords this close (relative distance gap), and only so many may
+DP_TOL = {"flip_rel_gap": 1e-3, "max_flips": 16}
 WORLD = 2  # ranks of the data-parallel phases; they share the one card
 BACKEND = "gloo"  # of those phases: NCCL refuses two ranks on one device
 NVLINK_BYTES = 450e9  # per direction between two cards of one host (published)
@@ -163,6 +166,37 @@ def _vq_case(gen, N, tie=False):
     return x, e
 
 
+def _distances(x, e):
+    """[N, H, K] squared distances of x [N, H, d] to embed [H, d, K], in float64."""
+    x64, e64 = x.double(), e.double()
+    return (x64 * x64).sum(-1, keepdim=True) - 2 * torch.einsum("nhd,hdk->nhk", x64, e64) + (e64 * e64).sum(1)
+
+
+def _index_gaps(x, e, idx, ref_idx):
+    """Where ``idx`` and ``ref_idx`` differ: the gap between the two chosen
+    codewords' distances, relative to the distance (floor 1)."""
+    differ = idx != ref_idx
+    dist = _distances(x[differ.any(-1)], e)
+    pick = lambda i: dist.gather(-1, i[differ.any(-1)].long()[..., None])[..., 0]
+    d_a, d_b = pick(idx), pick(ref_idx)
+    return ((d_a - d_b).abs() / d_b.abs().clamp_min(1.0))[differ[differ.any(-1)]]
+
+
+def _hold_snap(what, x, e, idx, quant, ref_idx, ref_quant):
+    """A snap against its plain version: indices equal, or different only
+    between codewords at equal distance (``VQ_TOL``); codewords of the equal
+    indices within ``VQ_TOL``. -> (max abs error of the codewords, mismatches)."""
+    same = idx == ref_idx
+    if not bool(same.all()):
+        gap = float(_index_gaps(x, e, idx, ref_idx).max())
+        if gap > VQ_TOL["index_tie_rel_gap"]:
+            raise AssertionError(f"{what}: index mismatch with distance gap {gap:.3g}")
+    err = float((quant - ref_quant)[same].abs().max()) if bool(same.any()) else 0.0
+    if err > VQ_TOL["quant_atol"]:
+        raise AssertionError(f"{what}: codeword rows differ by {err}")
+    return err, int((~same).sum())
+
+
 def phase_vq(gen):
     from msmctts_tpu_torch.ops import vq
 
@@ -173,23 +207,12 @@ def phase_vq(gen):
         idx, quant = vq.vq_nearest(x, e)
         ref_idx, ref_quant = vq.vq_nearest_plain(x, e)
         torch.cuda.synchronize()
-        same = idx == ref_idx
-        if not bool(same.all()):
-            x64, e64 = x.double(), e.double()
-            dist = (x64 * x64).sum(-1, keepdim=True) - 2 * torch.einsum("nhd,hdk->nhk", x64, e64) + (e64 * e64).sum(1)
-            d_k = dist.gather(-1, idx.long()[..., None])[..., 0]
-            d_p = dist.gather(-1, ref_idx.long()[..., None])[..., 0]
-            rel = ((d_k - d_p).abs() / d_p.abs().clamp_min(1.0))[~same]
-            if float(rel.max()) > VQ_TOL["index_tie_rel_gap"]:
-                raise AssertionError(f"vq {label}: index mismatch with distance gap {float(rel.max()):.3g}")
-            flips += int((~same).sum())
-        err = float((quant - ref_quant)[same].abs().max()) if bool(same.any()) else 0.0
-        if err > VQ_TOL["quant_atol"]:
-            raise AssertionError(f"vq {label}: codeword rows differ by {err}")
+        err, mismatches = _hold_snap(f"vq {label}", x, e, idx, quant, ref_idx, ref_quant)
+        flips += mismatches
         if tie and not bool((idx[::2] == 4).all()):
             raise AssertionError("vq tie: the first of two equal codewords must win")
         worst_err = max(worst_err, err)
-        row = {"label": label, "N": N, "mismatches": int((~same).sum()), "max_abs_err": err}
+        row = {"label": label, "N": N, "mismatches": mismatches, "max_abs_err": err}
         if label.startswith("stage"):
             nbytes = (N * VQ_H * VQ_D * 2 + VQ_H * VQ_D * VQ_K + N * VQ_H) * 4
             flops = 2 * N * VQ_H * VQ_D * VQ_K + 3 * N * VQ_H * VQ_K
@@ -330,8 +353,6 @@ def _reset_counts():
     vq.KERNEL.launches = 0
     vq.STATS_KERNEL.launches = 0
     resblock.KERNEL.launches = 0
-    for k in vq.SHARDED_LAUNCHES:
-        vq.SHARDED_LAUNCHES[k] = 0
 
 
 def _counts():
@@ -339,12 +360,6 @@ def _counts():
 
     return {"vq_nearest": vq.KERNEL.launches, "vq_nearest_stats": vq.STATS_KERNEL.launches,
             "fused_resblock_layer": resblock.KERNEL.launches}
-
-
-def _sharded_counts():
-    from msmctts_tpu_torch.ops import vq
-
-    return dict(vq.SHARDED_LAUNCHES)
 
 
 def _check_wavs(wavs, lengths, ratio, what):
@@ -792,7 +807,7 @@ def rank_sharded_kernels(group, device):
         mesh.reset_collective_counts()
         _reset_counts()
         idx, quant, counts, sums = vq.vq_nearest_stats_sharded(xl, e, ml, group)
-        collectives, launches = mesh.collective_counts(), dict(vq.SHARDED_LAUNCHES)
+        collectives, launches = mesh.collective_counts(), _counts()
         again = vq.vq_nearest_stats_sharded(xl, e, ml, group)
         p_idx, p_quant, p_counts, p_sums = vq.vq_nearest_stats_sharded_plain(xl, e, ml, group)
         o_idx, o_quant, o_counts, o_sums = vq.vq_nearest_stats(x, e, mask)  # one rank, all rows
@@ -800,7 +815,7 @@ def rank_sharded_kernels(group, device):
         what = f"vq_nearest_stats_sharded {label} rank {rank}"
         if collectives["all_reduce"] != {"calls": 1, "bytes": (VQ_H * VQ_K + VQ_H * VQ_D * VQ_K) * 4}:
             raise AssertionError(f"{what}: collectives {collectives}, expected one all-reduce of the flat buffer")
-        if launches["vq_nearest_stats_sharded"] != (1 if hi > lo else 0):
+        if launches["vq_nearest_stats"] != (1 if hi > lo else 0) or launches["vq_nearest"]:
             raise AssertionError(f"{what}: {launches} launches for {hi - lo} rows")
         if not all(torch.equal(a, b) for a, b in zip((idx, quant, counts, sums), again)):
             raise AssertionError(f"{what}: two runs on the same input differ")
@@ -817,7 +832,7 @@ def rank_sharded_kernels(group, device):
         mesh.reset_collective_counts()
         _reset_counts()
         s_idx, s_quant = vq.vq_nearest_sharded(xl, e)
-        snap_launches = vq.SHARDED_LAUNCHES["vq_nearest_sharded"]
+        snap_launches = _counts()["vq_nearest"]
         sp_idx, sp_quant = vq.vq_nearest_sharded_plain(xl, e)
         g_idx, g_quant = vq.vq_nearest(x, e)
         torch.cuda.synchronize()
@@ -825,11 +840,12 @@ def rank_sharded_kernels(group, device):
             raise AssertionError(f"vq_nearest_sharded {label}: it communicated: {mesh.collective_counts()}")
         if snap_launches != (1 if hi > lo else 0):
             raise AssertionError(f"vq_nearest_sharded {label} rank {rank}: {snap_launches} launches for {hi - lo} rows")
-        if not (torch.equal(s_idx, g_idx[lo:hi]) and torch.equal(s_quant, g_quant[lo:hi])
-                and torch.equal(s_idx, sp_idx) and torch.equal(s_quant, sp_quant) and torch.equal(s_idx, idx)):
-            raise AssertionError(f"vq_nearest_sharded {label} rank {rank}: differs from the one-rank snap or the plain version")
+        if not (torch.equal(s_idx, g_idx[lo:hi]) and torch.equal(s_quant, g_quant[lo:hi]) and torch.equal(s_idx, idx)):
+            raise AssertionError(f"vq_nearest_sharded {label} rank {rank}: differs from the one-rank snap")
+        snap_err, snap_mismatches = _hold_snap(f"vq_nearest_sharded {label} rank {rank}", xl, e, s_idx, s_quant, sp_idx, sp_quant)
         rows.append({"label": label, "N": N, "rows": hi - lo, "valid": int(ml.sum()), "walkers": vq.stats_walkers(hi - lo),
                      "sums_err_vs_plain": err_plain, "sums_err_vs_one_rank": err_one,
+                     "snap_err_vs_plain": snap_err, "snap_mismatches": snap_mismatches,
                      "counts": counts.cpu(), "sums": sums.cpu()})
 
     # times at the per-rank rows of one train step (global batch 16) and of one
@@ -839,6 +855,18 @@ def rank_sharded_kernels(group, device):
     stats_in = [(N // world,) + _vq_case(gen, N // world) for N in (n0, n1)]
     stats_in = [(N, x, e, (torch.rand(N, device="cuda", generator=gen) < 0.8).float()) for N, x, e in stats_in]
     snap_in = [(N // world,) + _vq_case(gen, N // world) for N in (B * FRAMES // 4, B * FRAMES)]
+    snap_rows = []
+    for n, x, e in snap_in:  # the rows that predict over these ranks gives the snap
+        mesh.reset_collective_counts()
+        _reset_counts()
+        s_idx, s_quant = vq.vq_nearest_sharded(x, e)
+        launches = _counts()
+        sp_idx, sp_quant = vq.vq_nearest_sharded_plain(x, e)
+        torch.cuda.synchronize()
+        if launches["vq_nearest"] != 1 or any(v["calls"] for v in mesh.collective_counts().values()):
+            raise AssertionError(f"vq_nearest_sharded n={n} rank {rank}: launches {launches}, collectives {mesh.collective_counts()}")
+        err, mismatches = _hold_snap(f"vq_nearest_sharded n={n} rank {rank}", x, e, s_idx, s_quant, sp_idx, sp_quant)
+        snap_rows.append({"rows": n, "snap_err_vs_plain": err, "snap_mismatches": mismatches})
     for turn in range(world):
         if turn == rank:
             timing["stats_kernel_ms"] = [time_ms(lambda: vq.vq_nearest_stats(x, e, m), runs=50) for _, x, e, m in stats_in]
@@ -855,26 +883,36 @@ def rank_sharded_kernels(group, device):
     timing["stats_rows"] = [N for N, *_ in stats_in]
     timing["snap_rows"] = [N for N, *_ in snap_in]
     timing["all_reduce_bytes"] = flat.numel() * 4
-    return {"rows": rows, "timing": timing}
+    return {"rows": rows, "snap_rows": snap_rows, "timing": timing}
 
 
 def phase_sharded_kernels(backend, card):
     res = _run_ranks(rank_sharded_kernels, WORLD, backend)
-    worst_plain = worst_one = 0.0
+    worst_plain = worst_one = worst_snap = 0.0
+    snap_mismatches = 0
+    for case in zip(*(r["snap_rows"] for r in res)):
+        worst_snap = max(worst_snap, *(c["snap_err_vs_plain"] for c in case))
+        snap_mismatches += sum(c["snap_mismatches"] for c in case)
+        log(f"[8] vq_nearest_sharded at predict's n={case[0]['rows']} rows per rank vs its plain version: codewords max abs err "
+            f"{max(c['snap_err_vs_plain'] for c in case)}, indices differing (equal distances) {[c['snap_mismatches'] for c in case]}; "
+            "one launch, 0 collectives")
     for case in zip(*(r["rows"] for r in res)):
         for other in case[1:]:  # the global statistics: bit-equal on every rank
             if not (torch.equal(other["counts"], case[0]["counts"]) and torch.equal(other["sums"], case[0]["sums"])):
                 raise AssertionError(f"sharded statistics {case[0]['label']}: ranks disagree")
         worst_plain = max(worst_plain, *(c["sums_err_vs_plain"] for c in case))
         worst_one = max(worst_one, *(c["sums_err_vs_one_rank"] for c in case))
+        worst_snap = max(worst_snap, *(c["snap_err_vs_plain"] for c in case))
+        snap_mismatches += sum(c["snap_mismatches"] for c in case)
         log(f"[8] {case[0]['label']} N={case[0]['N']}: rows per rank {[c['rows'] for c in case]}, valid {[c['valid'] for c in case]}, "
             f"walkers {[c['walkers'] for c in case]}; idx/quant/counts exact, ranks bit-equal, "
             f"sums err vs plain {max(c['sums_err_vs_plain'] for c in case):.3g}, vs one rank {max(c['sums_err_vs_one_rank'] for c in case):.3g}; "
-            "snap exact, 0 collectives")
+            f"snap equal to the one-rank snap, vs plain max abs err {max(c['snap_err_vs_plain'] for c in case)}, 0 collectives")
     t = [r["timing"] for r in res]
     link_ms = 2 * (WORLD - 1) / WORLD * t[0]["all_reduce_bytes"] / NVLINK_BYTES * 1e3
     out = {
         "backend": backend, "world": WORLD, "max_err_vs_plain": worst_plain, "max_err_vs_one_rank": worst_one,
+        "snap_err_vs_plain": worst_snap, "snap_index_mismatches": snap_mismatches,
         "stats_rows": t[0]["stats_rows"], "snap_rows": t[0]["snap_rows"],
         # per rank, summed over the calls of one step / one predict; the slower rank
         "stats_kernel_ms": max(sum(r["stats_kernel_ms"]) for r in t), "stats_plain_ms": max(sum(r["stats_plain_ms"]) for r in t),
@@ -948,8 +986,11 @@ def phase_nccl(batch_np):
     return res
 
 
-def rank_train(group, device, batch_np):
-    """Phase 6's steps on this rank's 8 rows of the global batch."""
+def rank_train(group, device, batch_np, reference_indices):
+    """Phase 6's steps on this rank's 8 rows of the global batch. Where an
+    assignment differs from the one-rank run's (``reference_indices``, one
+    [B, T, H] per stage pass), the distance gap between the two codewords
+    is recorded, under this rank's input and codebook."""
     import hashlib
 
     from msmctts_tpu_torch.data.loader import to_device
@@ -961,8 +1002,31 @@ def rank_train(group, device, batch_np):
     ae, disc = trainer.ae, trainer.disc
     assert_replicated([ae, disc], group)
     batch = to_device(mesh.shard_rows(batch_np, group.rank, group.world), "cuda")
-    indices, codebooks = [], []
-    hooks = [q.register_forward_hook(lambda m, a, o: indices.append(o[2].cpu())) for q in ae.quantizer.quantizer]
+    indices, codebooks, flips, runner_up_gaps = [], [], [], []
+    rows = slice(group.rank * TRAIN_B // group.world, (group.rank + 1) * TRAIN_B // group.world)
+    old_embed = {}
+
+    def before(q, args):
+        old_embed[q] = q.embed.clone()  # the forward snaps to the codebook before its update
+
+    def after(q, args, out, stage):
+        idx = out[2]
+        want = reference_indices[len(indices)][rows].to(idx.device)
+        x = args[0].detach().float().reshape(-1, q.n_head, q.sub_dim)
+        idx_f, want_f = idx.reshape(-1, q.n_head), want.reshape(-1, q.n_head)
+        if not torch.equal(idx_f, want_f):
+            gaps = _index_gaps(x, old_embed[q], idx_f, want_f)
+            where = (idx_f != want_f).nonzero()
+            flips.extend({"pass": len(indices), "stage": stage, "head": int(h), "codewords": [int(idx_f[n, h]), int(want_f[n, h])],
+                          "rel_gap": float(g)} for (n, h), g in zip(where, gaps))
+        top2 = _distances(x, old_embed[q]).topk(2, dim=-1, largest=False).values
+        runner_up_gaps.append(float(((top2[..., 1] - top2[..., 0]) / top2[..., 0].abs().clamp_min(1.0)).median()))
+        indices.append(idx.cpu())
+
+    hooks = []
+    for stage, q in enumerate(ae.quantizer.quantizer):
+        hooks.append(q.register_forward_pre_hook(before))
+        hooks.append(q.register_forward_hook(lambda q, a, o, stage=stage: after(q, a, o, stage)))
     steps = []
     for it in range(1, 5):
         torch.cuda.synchronize()
@@ -973,7 +1037,7 @@ def rank_train(group, device, batch_np):
         metrics = trainer.train_step(batch, it)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
-        launches = {**_counts(), **_sharded_counts()}
+        launches = _counts()
         steps.append({"iteration": it, "ms": ms, "metrics": metrics_to_host(metrics), "launches": launches,
                       "collectives": mesh.collective_counts()})
         codebooks.append(_codebook_state(ae))
@@ -983,11 +1047,12 @@ def rank_train(group, device, batch_np):
     digest = hashlib.sha256()
     for t in list(ae.state_dict().values()) + list(disc.state_dict().values()):
         digest.update(t.detach().cpu().numpy().tobytes())
-    return {"steps": steps, "indices": indices, "codebooks": codebooks, "digest": digest.hexdigest()}
+    return {"steps": steps, "indices": indices, "codebooks": codebooks, "digest": digest.hexdigest(),
+            "flips": flips, "median_runner_up_gap": runner_up_gaps}
 
 
 def phase_dp_training(backend, batch_np, reference, card):
-    res = _run_ranks(rank_train, WORLD, backend, batch_np)
+    res = _run_ranks(rank_train, WORLD, backend, batch_np, reference["indices"])
     if len({r["digest"] for r in res}) != 1:
         raise AssertionError("data-parallel training: the ranks' final states differ")
     worst = {"loss_rel": 0.0, "codebook_abs": 0.0}
@@ -1002,22 +1067,44 @@ def phase_dp_training(backend, batch_np, reference, card):
         if [s["metrics"] for s in r["steps"]] != [s["metrics"] for s in res[0]["steps"]]:
             raise AssertionError("data-parallel training: the ranks report different metrics")
     # Assignments. Step 1 starts from equal state, so its indices must be equal.
-    # Later steps see weights that differ by the rounding of cuDNN's choices at
-    # batch 8 and at batch 16, so a near-tie may fall the other way: counted.
+    # Later steps see weights that differ by rounding (cuDNN's choices at batch 8
+    # and at batch 16), so an assignment between two codewords at nearly equal
+    # distance may fall the other way: each such is shown with its distance gap,
+    # held to DP_TOL, and only the codewords it touches may then differ.
     flips = [int((torch.cat([r["indices"][i] for r in res]) != want).sum()) for i, want in enumerate(reference["indices"])]
     assignments = sum(want.numel() for want in reference["indices"])
     same = flips[0] == 0 and flips[1] == 0
+    flipped = [f for r in res for f in r["flips"]]
+    if len(flipped) != sum(flips):
+        raise AssertionError(f"data-parallel training: {sum(flips)} assignments differ, the ranks recorded {len(flipped)}")
+    stages = len(reference["codebooks"][0])
+    touched = [torch.zeros_like(reference["codebooks"][0][s][1], dtype=torch.bool) for s in range(stages)]  # [H, K] each
+    for f in flipped:
+        touched[f["stage"]][f["head"], f["codewords"]] = True
 
-    def codebook_diff(step):  # max abs difference of (embed, cluster_size, embed_avg) over the stages
-        stages = list(zip(res[0]["codebooks"][step], reference["codebooks"][step]))
-        return [max(float((a[i] - b[i]).abs().max()) for a, b in stages) for i in range(3)]
+    def codebook_diff(step, untouched_only=False, per_cluster_size=False):
+        """max abs difference of (embed, cluster_size, embed_avg) over the stages. ``embed_avg`` is a codeword
+        times its cluster size (hundreds in a trained codebook); ``per_cluster_size`` divides its difference by
+        that size (floor 1), which is what reaches the codeword."""
+        out = [0.0, 0.0, 0.0]
+        for s, (a, b) in enumerate(zip(res[0]["codebooks"][step], reference["codebooks"][step])):
+            keep = ~touched[s] if untouched_only else torch.ones_like(touched[s])
+            for i in range(3):
+                diff = (a[i] - b[i]).abs()
+                if i == 2 and per_cluster_size:
+                    diff = diff / b[1].clamp_min(1.0)[:, None, :]
+                diff = diff * (keep if diff.dim() == 2 else keep[:, None, :])
+                out[i] = max(out[i], float(diff.max()))
+        return out
 
     first, last = codebook_diff(0), codebook_diff(3)
+    last_untouched_abs = codebook_diff(3, untouched_only=True)
+    last_untouched = codebook_diff(3, untouched_only=True, per_cluster_size=True)
+    sizes = [float(b[1].max()) for b in reference["codebooks"][3]]
     worst["codebook_abs"] = max(first)
     for r in res:
         for step in r["steps"]:
-            want = {"vq_nearest": 0, "vq_nearest_stats": 2, "fused_resblock_layer": 0,
-                    "vq_nearest_stats_sharded": 2, "vq_nearest_sharded": 0}
+            want = {"vq_nearest": 0, "vq_nearest_stats": 2, "fused_resblock_layer": 0}
             if step["launches"] != want:
                 raise AssertionError(f"data-parallel step {step['iteration']}: launches {step['launches']}, expected {want}")
     per_step = [{k: v for k, v in s["collectives"].items() if v["calls"]} for s in res[0]["steps"]]
@@ -1025,18 +1112,28 @@ def phase_dp_training(backend, batch_np, reference, card):
         f"first-step indices equal {same}, worst metric rel diff {worst['loss_rel']:.3g}; codebook after the first step "
         f"(embed, cluster_size, embed_avg) within {first}; parameters and codebooks bit-equal across ranks; "
         f"2 vq_stats launches per step per rank")
-    log(f"[10] assignments that differ, per stage pass of steps 1-4: {flips} of {assignments}; codebook after the last step within {last} "
-        "(each differing assignment moves two cluster sizes by up to 0.01, and a rarely used codeword by much more)")
+    log(f"[10] assignments that differ, per stage pass of steps 1-4: {flips} of {assignments}; each with the relative distance "
+        f"gap between its two codewords: {json.dumps(flipped)}; median gap to the runner-up over all rows, per stage pass: "
+        f"{[round(g, 4) for g in res[0]['median_runner_up_gap']]}")
+    log(f"[10] codebook after the last step (embed, cluster_size, embed_avg per unit of cluster size): within {last_untouched} on the "
+        f"{sum(int((~t).sum()) for t in touched)} codewords no differing assignment touches (embed_avg itself within "
+        f"{last_untouched_abs[2]}, cluster sizes up to {[round(v, 1) for v in sizes]}); (embed, cluster_size, embed_avg) within {last} on all")
     log(f"[10] collectives per step per rank: {json.dumps(per_step)}")
     log(f"[10] step wall per rank, two processes time-slicing {card} (no scaling figure): "
         f"{[[round(s['ms'], 1) for s in r['steps']] for r in res]} ms")
     if not same or worst["codebook_abs"] > STEP_TOL["codebook_atol"]:
         raise AssertionError(f"data-parallel training disagrees with one rank after the first step: indices equal {same}, {first}")
-    if sum(flips) > 1e-3 * assignments or last[1] > STEP_TOL["codebook_atol"] + 0.02 * sum(flips):
-        raise AssertionError(f"data-parallel training drifts from one rank: {flips} assignments differ, codebook within {last}")
-    launches = sum(s["launches"]["vq_nearest_stats_sharded"] for s in res[0]["steps"])
-    return {**worst, "indices_equal": same, "assignments_differing": flips, "codebook_diff_first_step": first,
-            "codebook_diff_last_step": last, "backend": backend, "collectives_per_step": per_step, "sharded_launches": launches,
+    wide = [f for f in flipped if f["rel_gap"] > DP_TOL["flip_rel_gap"]]
+    if len(flipped) > DP_TOL["max_flips"] or wide:
+        raise AssertionError(f"data-parallel training drifts from one rank: {len(flipped)} assignments differ, not near-ties: {wide}")
+    if max(last_untouched) > STEP_TOL["codebook_atol"]:
+        raise AssertionError(f"data-parallel training drifts from one rank: codebook after the last step within {last_untouched} "
+                             "on codewords that no differing assignment touches")
+    launches = sum(s["launches"]["vq_nearest_stats"] for s in res[0]["steps"])
+    return {**worst, "indices_equal": same, "assignments_differing": flips, "flipped": flipped, "codebook_diff_first_step": first,
+            "codebook_diff_last_step": last, "codebook_diff_last_step_untouched": last_untouched,
+            "embed_avg_diff_last_step_untouched": last_untouched_abs[2],
+            "median_runner_up_gap": res[0]["median_runner_up_gap"], "backend": backend, "collectives_per_step": per_step, "sharded_launches": launches,
             "steps": [r["steps"] for r in res]}
 
 
@@ -1065,7 +1162,7 @@ def rank_predict(group, device, am_path, batch):
     out = task.predict(batch)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
-    return {"out": out, "launches": {**_counts(), **_sharded_counts()}, "collectives": mesh.collective_counts(), "ms": ms}
+    return {"out": out, "launches": _counts(), "collectives": mesh.collective_counts(), "ms": ms}
 
 
 def phase_dp_inference(backend, reference):
@@ -1082,8 +1179,7 @@ def phase_dp_inference(backend, reference):
             if a.shape != b.shape:
                 raise AssertionError(f"data-parallel predict: wav of {a.shape} vs {b.shape}")
             worst = max(worst, float(np.abs(a - b).max()))
-        expected = {"vq_nearest": 4, "vq_nearest_stats": 0, "fused_resblock_layer": 36,
-                    "vq_nearest_stats_sharded": 0, "vq_nearest_sharded": 4}
+        expected = {"vq_nearest": 4, "vq_nearest_stats": 0, "fused_resblock_layer": 36}
         if r["launches"] != expected:
             raise AssertionError(f"data-parallel predict: launches {r['launches']}, expected {expected}")
         if r["collectives"]["all_reduce"]["calls"]:
@@ -1196,10 +1292,12 @@ def main(argv=None):
         },
         {
             "name": "vq_nearest_sharded", "route": "cuda", "source": "msmctts_tpu_torch/csrc/vq_nearest.cu",
-            "replaces": "msmctts_tpu/ops/pallas_vq.py:273", "launches": dp_infer["launches"]["vq_nearest_sharded"],
-            "max_abs_err": 0.0, "ms": shard_res["snap_kernel_ms"], "plain_ms": shard_res["snap_plain_ms"],
+            "replaces": "msmctts_tpu/ops/pallas_vq.py:273", "launches": dp_infer["launches"]["vq_nearest"],
+            "max_abs_err": shard_res["snap_err_vs_plain"], "ms": shard_res["snap_kernel_ms"], "plain_ms": shard_res["snap_plain_ms"],
             "bound_ms": shard_res["snap_bound_ms"], "bound_by": shard_res["snap_bound_by"], "library_ms": None,
-            "backend": backend, "world": WORLD, "tolerance": {"idx_quant": "exact", "collectives": 0},
+            "backend": backend, "world": WORLD,
+            "tolerance": {**VQ_TOL, "vs_one_rank_snap": "exact", "collectives": 0},
+            "index_mismatches": shard_res["snap_index_mismatches"],
             "shapes": f"per predict per rank of {WORLD}: 2 x n={shard_res['snap_rows'][0]} + 2 x n={shard_res['snap_rows'][1]} rows, "
                       "H=4, d=64, K=64; launches per rank in one predict of the batch of 4",
         },

@@ -64,8 +64,6 @@ STATS_KERNEL = CudaKernel(
      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int],
 )
-# launches of the two kernels made through the sharded wrappers
-SHARDED_LAUNCHES = {"vq_nearest_stats_sharded": 0, "vq_nearest_sharded": 0}
 
 
 def shared_bytes(d: int, K: int) -> int:
@@ -215,9 +213,7 @@ def vq_nearest_stats_sharded(x: torch.Tensor, embed: torch.Tensor, mask: torch.T
     and quant are exact)."""
     if x.device.type == "cpu":
         return vq_nearest_stats_sharded_plain(x, embed, mask, group)
-    before = STATS_KERNEL.launches
     idx, quant, flat = _vq_nearest_stats_flat(x, embed, mask)
-    SHARDED_LAUNCHES["vq_nearest_stats_sharded"] += STATS_KERNEL.launches - before
     H, d, K = embed.shape
     return (idx, quant, *_split_stats(all_reduce_sum(flat, group), H, d, K))
 
@@ -232,7 +228,4 @@ def vq_nearest_sharded(x: torch.Tensor, embed: torch.Tensor):
     codebook is replicated, so no rank talks to another."""
     if x.device.type == "cpu":
         return vq_nearest_sharded_plain(x, embed)
-    before = KERNEL.launches
-    out = vq_nearest(x, embed)
-    SHARDED_LAUNCHES["vq_nearest_sharded"] += KERNEL.launches - before
-    return out
+    return vq_nearest(x, embed)

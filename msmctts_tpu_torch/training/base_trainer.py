@@ -196,11 +196,14 @@ class BaseTrainer:
     # ------------------------------------------------------------------ loop
     def train(self, max_steps: Optional[int] = None, log_every: int = 50):
         dl_cfg = self.config.get("dataloader", {})
-        dataset = build_dataset_from_config(self.config, training=True)
         # the config's batch_size is global; this rank loads its block of it
+        global_batch = int(dl_cfg.get("batch_size", 16))
+        if global_batch % self.world:
+            raise ValueError(f"batch_size {global_batch} does not divide the {self.world} ranks")
+        dataset = build_dataset_from_config(self.config, training=True)
         loader = DataLoader(
             dataset,
-            batch_size=max(1, int(dl_cfg.get("batch_size", 16)) // self.world),
+            batch_size=global_batch // self.world,
             shuffle=True,
             num_workers=int(dl_cfg.get("num_workers", 4)),
             seed=self.seed,

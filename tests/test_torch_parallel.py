@@ -167,7 +167,7 @@ def test_sharded_functions_without_a_group_are_the_one_rank_functions():
     _, _, counts, sums = vq.vq_nearest_stats_sharded(x[:0], e, m[:0])
     assert counts.shape == (2, 6) and sums.shape == (2, 4, 6) and float(counts.sum()) == 0.0 == float(sums.abs().sum())
     assert all(v["calls"] == 0 for v in mesh.collective_counts().values())
-    assert vq.SHARDED_LAUNCHES == {"vq_nearest_stats_sharded": 0, "vq_nearest_sharded": 0}  # no launch on the CPU
+    assert vq.KERNEL.launches == 0 == vq.STATS_KERNEL.launches  # no launch on the CPU
     with pytest.raises(ValueError, match="unsupported device"):
         vq.vq_nearest_stats_sharded(x.to("meta"), e.to("meta"), m.to("meta"))
     with pytest.raises(ValueError, match="unsupported device"):
@@ -524,6 +524,16 @@ def test_mesh_node_of_the_config_is_checked(corpus):
         workers.build_trainer(config, {})
     config["mesh"] = {"data": 1, "model": 1}
     assert workers.build_trainer(config, {}).world == 1
+
+
+def test_a_global_batch_that_does_not_divide_the_ranks_is_refused(corpus):
+    """The loss shares assume equal shards, so the loop takes no other."""
+    config = tiny_ae_config(corpus).to_dict()
+    config["dataloader"]["batch_size"] = 8
+    trainer = workers.build_trainer(config, {})
+    trainer.world = 3
+    with pytest.raises(ValueError, match="batch_size 8 does not divide the 3 ranks"):
+        trainer.train(max_steps=1)
 
 
 # ----------------------------------------------------------------------- inference
