@@ -10,8 +10,13 @@ Phases, each of which raises on failure:
   3. each kernel against its plain PyTorch version on the card at the
      shapes its path gives it (CSMSC; serving at batch 4, frame bucket 512;
      training at batch 16, 400 frames), with kernel, plain and library-call
-     times (CUDA events, median of repeated runs after warm-up) and the
-     least time the card could take;
+     times (CUDA events, median of repeated runs after warm-up; for the VQ
+     kernels also the device time per launch from the profiler) and the
+     least time the card could take; the fused MRF layer's rows name the
+     kernel body that ran and its plan (tile rows, ring stages, shared
+     bytes); then the edge shapes: T of 1, one short of and one past a
+     tile, not a multiple of it, B = 1, a halo wider than T; N = 1, 7, 9
+     for the VQ search's groups of 8 rows;
   4. the autoencoder's analysis-synthesis on the committed trained CSMSC
      weights, checked against the same model on the CPU on a small input,
      and the kernels' launch counts on a batch of 256 and 448 frames;
@@ -87,6 +92,8 @@ TRAIN_B, TRAIN_FRAMES = 16, 400
 # the plain version's matmul; counts, idx and quant are held exactly
 VQS_TOL = {"rtol": 1e-5, "atol": 2e-4}
 RB_TOL = {"rtol": 2e-4, "atol": 2e-4}
+# beside RB_TOL: the 3xTF32 products must stay in fp32's class (the fp32 SIMT kernel before them: 8.1e-6)
+RB_MAX_ABS = 5e-5
 AS_TOL = 5e-4  # wav, card vs CPU, as the CPU parity tests hold the port to JAX
 # one train step, card vs CPU from equal state: losses relative, codebook absolute
 # (cuDNN and the CPU's convs sum in other orders, through some 60 layers and a backward)
@@ -119,6 +126,26 @@ def time_ms(fn, runs=10, reps=5, warmup=3):
         end.synchronize()
         times.append(start.elapsed_time(end) / runs)
     return statistics.median(times)
+
+
+def device_ms(fn, kernel_name, runs=20):
+    """Device time per launch of the kernels whose name contains
+    ``kernel_name`` over ``runs`` calls of ``fn()`` (torch.profiler): what the
+    card spends, where ``time_ms`` of a short kernel shows the wrapper's
+    host time per call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    rows = [r for r in _device_rows(prof) if kernel_name in r["name"]]
+    seen = sum(r["count"] for r in rows)  # the tracer may drop a few of the launches
+    if not runs // 2 <= seen <= runs:
+        raise AssertionError(f"profile of {kernel_name}: {rows} for {runs} calls")
+    return sum(r["device_ms"] for r in rows) / seen
 
 
 def bound(bytes_moved, flops, peak_flops=PEAK_FP32):
@@ -202,7 +229,8 @@ def phase_vq(gen):
 
     rows, worst_err, flips = [], 0.0, 0
     for label, N, tie in (("stage0", B * FRAMES // 4, False), ("stage1", B * FRAMES, False),
-                          ("ragged", 2047, False), ("tie", 640, True)):
+                          ("ragged", 2047, False), ("tie", 640, True),
+                          ("one-row", 1, False), ("short-group", 7, False), ("group+1", 9, False)):
         x, e = _vq_case(gen, N, tie)
         idx, quant = vq.vq_nearest(x, e)
         ref_idx, ref_quant = vq.vq_nearest_plain(x, e)
@@ -218,6 +246,7 @@ def phase_vq(gen):
             flops = 2 * N * VQ_H * VQ_D * VQ_K + 3 * N * VQ_H * VQ_K
             row.update(
                 ms=time_ms(lambda: vq.vq_nearest(x, e), runs=50),
+                device_ms=device_ms(lambda: vq.vq_nearest(x, e), "vq_nearest_kernel"),
                 plain_ms=time_ms(lambda: vq.vq_nearest_plain(x, e), runs=50),
                 bound=bound(nbytes, flops),
                 library_ms=None,  # no single PyTorch call computes argmin + gather per head
@@ -226,7 +255,7 @@ def phase_vq(gen):
         log(f"[3] vq_nearest {label} N={N}: {json.dumps(row)}")
     # a predict launches it twice per stage: the predictor snap and the re-quant
     per_predict = {
-        key: 2 * sum(r[key] for r in rows if r["label"].startswith("stage")) for key in ("ms", "plain_ms")
+        key: 2 * sum(r[key] for r in rows if r["label"].startswith("stage")) for key in ("ms", "device_ms", "plain_ms")
     }
     per_predict["bound_ms"] = 2 * sum(r["bound"][0] for r in rows if r["label"].startswith("stage"))
     return {"rows": rows, "max_abs_err": worst_err, "tie_flips": flips, **per_predict}
@@ -240,7 +269,8 @@ def phase_vq_stats(gen):
 
     rows, worst = [], 0.0
     cases = (("stage0", TRAIN_B * TRAIN_FRAMES // 4, False), ("stage1", TRAIN_B * TRAIN_FRAMES, False),
-             ("ragged", 2047, False), ("tie", 640, True), ("one-row", 1, False))
+             ("ragged", 2047, False), ("tie", 640, True), ("one-row", 1, False),
+             ("short-group", 7, False), ("group+1", 9, False))
     for label, N, tie in cases:
         x, e = _vq_case(gen, N, tie)
         mask = (torch.rand(N, device="cuda", generator=gen) < 0.8).float()
@@ -281,6 +311,10 @@ def phase_vq_stats(gen):
             table = torch.zeros(VQ_H * VQ_K, VQ_D, device="cuda")
             row.update(
                 ms=time_ms(lambda: vq.vq_nearest_stats(x, e, mask), runs=50),
+                # the search + statistics kernel alone, and the snap at the same N: what
+                # the first takes beyond the second is its statistics pass
+                device_ms=device_ms(lambda: vq.vq_nearest_stats(x, e, mask), "vq_stats_kernel"),
+                snap_device_ms=device_ms(lambda: vq.vq_nearest(x, e), "vq_nearest_kernel"),
                 plain_ms=time_ms(lambda: vq.vq_nearest_stats_plain(x, e, mask), runs=50),
                 bound=bound(nbytes, flops),
                 library_ms=None,  # no single PyTorch call computes argmin, gather and both sums
@@ -290,10 +324,29 @@ def phase_vq_stats(gen):
         rows.append(row)
         log(f"[3] vq_nearest_stats {label} N={N}: {json.dumps(row)}")
     staged = [r for r in rows if r["label"].startswith("stage")]
-    per_step = {key: sum(r[key] for r in staged) for key in ("ms", "plain_ms", "index_add_ms")}
+    per_step = {key: sum(r[key] for r in staged) for key in ("ms", "device_ms", "snap_device_ms", "plain_ms", "index_add_ms")}
     per_step["bound_ms"] = sum(r["bound"][0] for r in staged)
     per_step["bound_by"] = "bytes" if {r["bound"][1] for r in staged} == {"bytes"} else "operations"
     return {"rows": rows, "max_abs_err": worst, **per_step}
+
+
+def _resblock_case(gen, C, k, s=None):
+    s = (k * C) ** -0.5 if s is None else s
+    w1 = torch.randn(k, C, C, device="cuda", generator=gen) * s
+    w2 = torch.randn(k, C, C, device="cuda", generator=gen) * s
+    b1 = torch.randn(C, device="cuda", generator=gen) * 0.1
+    b2 = torch.randn(C, device="cuda", generator=gen) * 0.1
+    return w1, b1, w2, b2
+
+
+def _hold_resblock(rb, what, x, w1, b1, w2, b2, d, prepared):
+    y = rb.fused_resblock_layer(x, w1, b1, w2, b2, d, prepared)
+    ref = rb.fused_resblock_layer_plain(x, w1, b1, w2, b2, d)
+    torch.cuda.synchronize()
+    err = float((y - ref).abs().max())
+    if not torch.allclose(y, ref, **RB_TOL) or err > RB_MAX_ABS:
+        raise AssertionError(f"resblock {what}: max abs err {err}")
+    return err
 
 
 def phase_resblock(gen):
@@ -308,19 +361,11 @@ def phase_resblock(gen):
         x = torch.randn(B, T, C, device="cuda", generator=gen)
         x_ncl = x.transpose(1, 2).contiguous()
         for k in RB_KERNELS:
-            s = (k * C) ** -0.5
-            w1 = torch.randn(k, C, C, device="cuda", generator=gen) * s
-            w2 = torch.randn(k, C, C, device="cuda", generator=gen) * s
-            b1 = torch.randn(C, device="cuda", generator=gen) * 0.1
-            b2 = torch.randn(C, device="cuda", generator=gen) * 0.1
+            w1, b1, w2, b2 = _resblock_case(gen, C, k)
+            prepared = rb.prepare_taps(w1, w2)
             w1t, w2t = w1.permute(2, 1, 0).contiguous(), w2.permute(2, 1, 0).contiguous()
             for d in RB_DILATIONS:
-                y = rb.fused_resblock_layer(x, w1, b1, w2, b2, d)
-                ref = rb.fused_resblock_layer_plain(x, w1, b1, w2, b2, d)
-                torch.cuda.synchronize()
-                err = float((y - ref).abs().max())
-                if not torch.allclose(y, ref, **RB_TOL):
-                    raise AssertionError(f"resblock C={C} k={k} d={d}: max abs err {err}")
+                err = _hold_resblock(rb, f"C={C} k={k} d={d}", x, w1, b1, w2, b2, d, prepared)
                 worst = max(worst, err)
 
                 def library():
@@ -329,22 +374,47 @@ def phase_resblock(gen):
 
                 flops = 4 * k * C * C * B * T
                 nbytes = (2 * B * T * C + 2 * (k * C * C + C)) * 4
+                plan = rb.plan_layer(C, k, d)
                 row = {
-                    "C": C, "T": T, "k": k, "d": d, "tile": rb.choose_tile(C, k, d), "max_abs_err": err,
-                    "ms": time_ms(lambda: rb.fused_resblock_layer(x, w1, b1, w2, b2, d)),
+                    "C": C, "T": T, "k": k, "d": d, "body": plan.body, "tile": plan.tile, "out_rows": plan.out_rows,
+                    "stages": plan.stages, "shared_bytes": plan.shared_bytes, "max_abs_err": err,
+                    "ms": time_ms(lambda: rb.fused_resblock_layer(x, w1, b1, w2, b2, d, prepared)),
                     "plain_ms": time_ms(lambda: rb.fused_resblock_layer_plain(x, w1, b1, w2, b2, d)),
                     "library_ms": time_ms(library),
-                    "bound": bound(nbytes, flops),
+                    # the kernel's operations are TF32 tensor-core products, three per fp32 product
+                    "bound": bound(nbytes, 3 * flops, PEAK_TF32),
+                    "bound_fp32_ms": bound(nbytes, flops)[0],  # the same products as fp32 FMA
                     "bound_tf32_ms": bound(nbytes, flops, PEAK_TF32)[0],
                     "bound_bf16_ms": bound(nbytes // 2, flops, PEAK_BF16)[0],
                 }
                 row["tflops"] = flops / row["ms"] / 1e9
                 rows.append(row)
                 log(f"[3] resblock {json.dumps(row)}")
-    total = {key: sum(r[key] for r in rows) for key in ("ms", "plain_ms", "library_ms", "bound_tf32_ms", "bound_bf16_ms")}
+    # the shapes a tensor-core tile gets wrong first: T short of a tile, one past it, not a
+    # multiple of it, B = 1, a halo wider than T; large weights so that a lost tap shows
+    edges = []
+    for C, k, d, Bx, Tx in ((256, 11, 5, 1, 1), (256, 3, 1, 2, 63), (256, 7, 3, 1, 65), (256, 11, 1, 1, 3071),
+                            (128, 11, 5, 1, 1), (128, 11, 5, 2, 25), (128, 7, 1, 1, 63), (128, 3, 3, 3, 65),
+                            (64, 11, 5, 1, 1), (64, 11, 3, 1, 63), (64, 7, 5, 2, 65), (64, 3, 1, 1, 3071),
+                            (32, 11, 5, 1, 1), (32, 3, 5, 1, 63), (32, 7, 1, 2, 65), (32, 11, 3, 1, 3071)):
+        x = torch.randn(Bx, Tx, C, device="cuda", generator=gen)
+        w1, b1, w2, b2 = _resblock_case(gen, C, k)
+        err = _hold_resblock(rb, f"edge C={C} k={k} d={d} B={Bx} T={Tx}", x, w1, b1, w2, b2, d, None)
+        edges.append({"C": C, "k": k, "d": d, "B": Bx, "T": Tx, "max_abs_err": err})
+        worst = max(worst, err)
+    log(f"[3] resblock edge shapes (taps prepared in the call): {json.dumps(edges)}")
+    keys = ("ms", "plain_ms", "library_ms", "bound_fp32_ms", "bound_tf32_ms", "bound_bf16_ms")
+    total = {key: sum(r[key] for r in rows) for key in keys}
     total["bound_ms"] = sum(r["bound"][0] for r in rows)
+    per_width = {
+        C: {"ms": sum(r["ms"] for r in rows if r["C"] == C), "library_ms": sum(r["library_ms"] for r in rows if r["C"] == C),
+            "bound_ms": sum(r["bound"][0] for r in rows if r["C"] == C),
+            "bound_fp32_ms": sum(r["bound_fp32_ms"] for r in rows if r["C"] == C)}
+        for C, _ in STAGES
+    }
+    log(f"[3] resblock per width, 9 layers each (kernel / cuDNN fp32 / 3xTF32 bound / fp32 FMA bound): {json.dumps(per_width)}")
     log(f"[3] resblock, all 36 layers of one decode (B={B}, {FRAMES} frames): {json.dumps(total)}")
-    return {"rows": rows, "max_abs_err": worst, **total}
+    return {"rows": rows, "edges": edges, "per_width": per_width, "max_abs_err": worst, **total}
 
 
 def _reset_counts():
@@ -1194,18 +1264,10 @@ def phase_dp_inference(backend, reference):
 
 
 
-def profile_call(fn, tag, what):
-    """Device time by kernel name over one warm call of ``fn``, and the
-    card's busy share of its wall time (torch.profiler)."""
+def _device_rows(prof):
+    """[{name, count, device_ms}] of a profile's kernels, the longest first."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:  # host ops also carry their kernels' time
@@ -1218,6 +1280,21 @@ def profile_call(fn, tag, what):
         if dev_us > 0 and ev.count > 0:
             rows.append({"name": ev.key[:120], "count": ev.count, "device_ms": dev_us / 1e3})
     rows.sort(key=lambda r: -r["device_ms"])
+    return rows
+
+
+def profile_call(fn, tag, what):
+    """Device time by kernel name over one warm call of ``fn``, and the
+    card's busy share of its wall time (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = _device_rows(prof)
     busy_ms = sum(r["device_ms"] for r in rows)
     log(f"{tag} profiled {what}: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
         f"({busy_ms / wall_ms:.0%}), {sum(r['count'] for r in rows)} kernels")
@@ -1264,6 +1341,7 @@ def main(argv=None):
             "replaces": "msmctts_tpu/ops/pallas_vq.py:160", "launches": tts_res["launches"]["vq_nearest"],
             "max_abs_err": vq_res["max_abs_err"], "ms": vq_res["ms"], "plain_ms": vq_res["plain_ms"],
             "bound_ms": vq_res["bound_ms"], "bound_by": "bytes", "library_ms": None,
+            "device_ms": vq_res["device_ms"],  # the kernel alone; ms is events around the wrapper's calls
             "tolerance": VQ_TOL, "shapes": "per predict: 2 x N=512 + 2 x N=2048, H=4, d=64, K=64",
         },
         {
@@ -1271,6 +1349,7 @@ def main(argv=None):
             "replaces": "msmctts_tpu/ops/pallas_vq.py:88", "launches": train_res["launches"]["vq_nearest_stats"],
             "max_abs_err": vqs_res["max_abs_err"], "ms": vqs_res["ms"], "plain_ms": vqs_res["plain_ms"],
             "bound_ms": vqs_res["bound_ms"], "bound_by": vqs_res["bound_by"], "library_ms": None,
+            "device_ms": vqs_res["device_ms"], "statistics_pass_ms": vqs_res["device_ms"] - vqs_res["snap_device_ms"],
             "tolerance": {"idx_quant_counts": "exact", "sums": VQS_TOL},
             "shapes": f"per train step: N={TRAIN_B * TRAIN_FRAMES // 4} + N={TRAIN_B * TRAIN_FRAMES}, H=4, d=64, K=64; "
                       "launches over 2 warmup + 2 GAN steps",
@@ -1307,7 +1386,12 @@ def main(argv=None):
             "launches": tts_res["launches"]["fused_resblock_layer"],
             "max_abs_err": rb_res["max_abs_err"], "ms": rb_res["ms"], "plain_ms": rb_res["plain_ms"],
             "bound_ms": rb_res["bound_ms"], "bound_by": "operations", "library_ms": rb_res["library_ms"],
-            "tolerance": RB_TOL, "shapes": f"per decode: the 36 CSMSC MRF layers at B={B}, {FRAMES} frames",
+            "body": sorted({r["body"] for r in rb_res["rows"]}), "bound_fp32_ms": rb_res["bound_fp32_ms"],
+            "per_width": rb_res["per_width"],
+            "tolerance": {**RB_TOL, "max_abs": RB_MAX_ABS},
+            "shapes": f"per decode: the 36 CSMSC MRF layers at B={B}, {FRAMES} frames; bound_ms counts the kernel's operations, "
+                      "three TF32 tensor-core products per fp32 product at 495 TFLOP/s; bound_fp32_ms the same products as "
+                      "fp32 FMA at 67 TFLOP/s, which the library call is bound by",
         },
     ]
     vq_bound_by = {r["bound"][1] for r in vq_res["rows"] if "bound" in r}

@@ -6,20 +6,24 @@
 // _vq_kernel, pallas_vq.py:43-130). It runs twice per autoencoder train
 // step, once per quantizer stage, and feeds the codebook EMA.
 //
-// What bounds it on an H100: memory. At the CSMSC shapes (N = 1600 or 6400
-// rows, H = 4, d = 64, K = 64) a call reads N*H*d*4 bytes and writes as many
-// (6.5 MB each at N = 6400); the distances take 2*N*H*d*K FLOP and the
-// statistics, done as a one-hot product like the TPU kernel's, as many again,
-// together under 4 us of fp32 time.
+// What bounds it on an H100: by the roofline, memory. At the CSMSC shapes
+// (N = 1600 or 6400 rows, H = 4, d = 64, K = 64) a call reads N*H*d*4 bytes
+// and writes as many (6.5 MB each at N = 6400); the distances take
+// 2*N*H*d*K FLOP and the statistics, done as a one-hot product like the TPU
+// kernel's, as many again, together under 4 us of fp32 time. What it spends
+// today is the statistics pass below: every thread scans the tile's 64 rows
+// for each cell it owns (the search itself runs 8 rows at a time per warp,
+// vq_common.cuh, and no longer waits on its fmaf chains).
 //
 // Design. The TPU kernel carries its sums from one grid step to the next;
 // blocks here run in no order, and float atomics would make the EMA state
 // differ from run to run. So the reduction has a fixed order:
 //   1. grid (G, H). Block (g, h) walks the row tiles g, g + G, g + 2G, ...
 //      of head h in rising order. For each tile of 64 rows it stages the
-//      rows in shared memory, finds each row's codeword with the search of
-//      vq_common.cuh (bit-equal to vq_nearest.cu), writes idx and quant, and
-//      then every thread adds the tile's rows, in row order, to the
+//      rows in shared memory (16-byte loads), each warp finds the codewords
+//      of one group of 8 rows with the search of vq_common.cuh (bit-equal
+//      to vq_nearest.cu), writes idx and quant (16-byte stores), and then
+//      every thread adds the tile's rows, in row order, to the
 //      accumulators it owns (a fixed set of (j, k) cells kept in shared
 //      memory). No two threads share a cell, so there is no atomic.
 //   2. the block writes its accumulators to part[g][h]; a second kernel adds
@@ -33,6 +37,7 @@
 
 namespace {
 
+using vq::kGroup;
 using vq::kRowsPerBlock;
 using vq::kWarps;
 
@@ -41,18 +46,19 @@ vq_stats_kernel(const float* __restrict__ x, long long stride_n, long long strid
                 const float* __restrict__ embed, const float* __restrict__ mask,
                 int* __restrict__ idx, float* __restrict__ quant, float* __restrict__ part,
                 int N, int H, int d, int K) {
-  extern __shared__ float smem[];
-  float* es = smem;                     // [d][K] codebook of this head
-  float* esq = es + d * K;              // [K] squared codeword norms
-  float* xs = esq + K;                  // [kRowsPerBlock][d] the tile's rows
-  float* acc = xs + kRowsPerBlock * d;  // [K] counts, then [d][K] sums
-  float* rmask = acc + K + d * K;       // [kRowsPerBlock] row weights
+  extern __shared__ __align__(16) float smem[];
+  float* es = smem;                       // [d][K] codebook of this head
+  float* et = es + d * K;                 // [K][et_stride(d)] its transpose
+  float* xs = et + K * vq::et_stride(d);  // [kRowsPerBlock][d] the tile's rows
+  float* acc = xs + kRowsPerBlock * d;    // [K] counts, then [d][K] sums
+  float* esq = acc + K + d * K;           // [K] squared codeword norms
+  float* rmask = esq + K;                 // [kRowsPerBlock] row weights
   int* ridx = reinterpret_cast<int*>(rmask + kRowsPerBlock);  // [kRowsPerBlock]
 
   const int h = blockIdx.y;
   const int cells = K + d * K;
   for (int e = threadIdx.x; e < cells; e += blockDim.x) acc[e] = 0.f;
-  vq::stage_codebook(embed + (size_t)h * d * K, es, esq, d, K);
+  vq::stage_codebook(embed + (size_t)h * d * K, es, et, esq, d, K);
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -60,20 +66,29 @@ vq_stats_kernel(const float* __restrict__ x, long long stride_n, long long strid
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const int row0 = tile * kRowsPerBlock;
     const int rows = min(kRowsPerBlock, N - row0);
-    for (int r = warp; r < kRowsPerBlock; r += kWarps) {
-      if (r >= rows) {
-        if (lane == 0) ridx[r] = -1;
+    for (int g = warp; g < kRowsPerBlock / kGroup; g += kWarps) {
+      const int r0 = g * kGroup;
+      const int valid = min(kGroup, rows - r0);
+      if (valid <= 0) {
+        if (lane < kGroup) ridx[r0 + lane] = -1;
         continue;
       }
-      const int n = row0 + r;
-      const float* xr = x + (long long)n * stride_n + (long long)h * stride_h;
-      const int bi = vq::warp_nearest(xr, xs + r * d, es, esq, d, K, lane);
-      if (lane == 0) {
-        idx[(size_t)n * H + h] = bi;
-        ridx[r] = bi;
-        rmask[r] = mask[n];
-      }
-      vq::warp_store_codeword(quant + ((size_t)n * H + h) * d, es, bi, d, K, lane);
+      const int n0 = row0 + r0;
+      float* xg = xs + r0 * d;
+      vq::warp_load_rows(x + (long long)n0 * stride_n + (long long)h * stride_h, stride_n, xg, valid, d, lane);
+      int bi[kGroup];
+      vq::warp_nearest_rows(xg, es, esq, d, K, lane, bi);
+#pragma unroll
+      for (int r = 0; r < kGroup; ++r)
+        if (lane == r) {
+          ridx[r0 + r] = r < valid ? bi[r] : -1;
+          if (r < valid) {
+            idx[(size_t)(n0 + r) * H + h] = bi[r];
+            rmask[r0 + r] = mask[n0 + r];
+          }
+        }
+      __syncwarp();
+      vq::warp_store_codewords(quant + ((size_t)n0 * H + h) * d, (long long)H * d, et, ridx + r0, valid, d, lane);
     }
     __syncthreads();
     // the tile's statistics, rows in rising order, each cell by its owner
@@ -121,7 +136,8 @@ extern "C" int vq_stats_launch(const float* x, long long stride_n, long long str
                                int K, int G, void* stream) {
   if (N == 0) return 0;
   const size_t smem =
-      (size_t)(d * K + K + kRowsPerBlock * d + K + d * K + 2 * kRowsPerBlock) * sizeof(float);
+      (size_t)(d * K + K * vq::et_stride(d) + K + kRowsPerBlock * d + K + d * K + 2 * kRowsPerBlock) *
+      sizeof(float);
   if (smem > 48 * 1024) {  // beyond the default dynamic shared-memory limit
     cudaError_t err = cudaFuncSetAttribute(
         vq_stats_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

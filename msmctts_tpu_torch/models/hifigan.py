@@ -2,8 +2,8 @@
 ``msmctts_tpu/models/hifigan.py``).
 
 Generator, ``eval()`` mode: every ResBlock1 dilation layer runs through
-``ops/resblock.py`` (kernel 2 on the card): 4 stages x 3 blocks x 3
-dilations = 36 launches per CSMSC decode. ``train()`` mode: the same layers
+``ops/resblock.py`` (row 5 of the kernel table, on the card): 4 stages x 3
+blocks x 3 dilations = 36 launches per CSMSC decode. ``train()`` mode: the same layers
 run as weight-normalised ``F.conv1d`` under autograd, as the JAX package's
 training graph runs them as XLA convs (its fused kernel has no gradient and
 is reached at inference only). The upsampling transposed convs and the
@@ -29,7 +29,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from msmctts_tpu_torch.ops.convs import WNConv1d, WNConv2d, WNConvTranspose1d, fold_weight_norm
-from msmctts_tpu_torch.ops.resblock import LRELU_SLOPE, fused_resblock_layer
+from msmctts_tpu_torch.ops.resblock import LRELU_SLOPE, fused_resblock_layer, prepare_taps
 from msmctts_tpu_torch.ops.stft import mel_filterbank_htk, stft_real_imag
 from msmctts_tpu_torch.registry import register_network
 
@@ -43,8 +43,10 @@ def _get_padding(kernel_size: int, dilation: int = 1) -> int:
 class ResBlock1(nn.Module):
     """MRF residual block (hifigan/common.py:21-58). ``forward`` takes
     [B, T, C] and runs each dilation layer as one ``fused_resblock_layer``
-    call on folded weights kept tap-major [k, C_in, C_out], the layout the
-    kernel reads, refreshed after every load and on every switch to eval.
+    call on folded weights kept tap-major [k, C_in, C_out] and, beside them,
+    split and laid out as the kernel streams them (``prepared_i``, from
+    ``prepare_taps``); both are refreshed after every load and on every
+    switch to eval.
     ``forward_ncl`` takes [B, C, T] and runs the same layers as two live
     weight-normalised convs each, for the training graph."""
 
@@ -62,14 +64,18 @@ class ResBlock1(nn.Module):
         for i in range(len(self.dilations)):
             self.register_buffer(f"taps1_{i}", None, persistent=False)
             self.register_buffer(f"taps2_{i}", None, persistent=False)
+            self.register_buffer(f"prepared_{i}", None, persistent=False)
         self.register_load_state_dict_post_hook(lambda module, _keys: module.fold())
         self.fold()
 
     @torch.no_grad()
     def fold(self):
         for i, (c1, c2) in enumerate(zip(self.convs1, self.convs2)):
-            setattr(self, f"taps1_{i}", fold_weight_norm(c1.weight_v, c1.weight_g).permute(2, 1, 0).contiguous())
-            setattr(self, f"taps2_{i}", fold_weight_norm(c2.weight_v, c2.weight_g).permute(2, 1, 0).contiguous())
+            taps1 = fold_weight_norm(c1.weight_v, c1.weight_g).permute(2, 1, 0).contiguous()
+            taps2 = fold_weight_norm(c2.weight_v, c2.weight_g).permute(2, 1, 0).contiguous()
+            setattr(self, f"taps1_{i}", taps1)
+            setattr(self, f"taps2_{i}", taps2)
+            setattr(self, f"prepared_{i}", prepare_taps(taps1, taps2) if taps1.shape[1] % 8 == 0 else None)
 
     def train(self, mode: bool = True):
         super().train(mode)
@@ -86,7 +92,7 @@ class ResBlock1(nn.Module):
         for i, d in enumerate(self.dilations):
             x = fused_resblock_layer(
                 x, getattr(self, f"taps1_{i}"), self.convs1[i].bias,
-                getattr(self, f"taps2_{i}"), self.convs2[i].bias, d,
+                getattr(self, f"taps2_{i}"), self.convs2[i].bias, d, getattr(self, f"prepared_{i}"),
             )
         return x
 

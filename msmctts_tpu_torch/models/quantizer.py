@@ -3,11 +3,11 @@
 
 All heads share one codebook tensor [H, d, K] (``embed``), kept whole as
 in the JAX package. In ``eval()`` mode every snap goes through
-``ops/vq.vq_nearest_sharded`` (kernel 1 on the card, on this process's rows)
+``ops/vq.vq_nearest_sharded`` (``csrc/vq_nearest.cu`` on the card, on this process's rows)
 and nothing is updated: at
 inference the JAX package discards the statistics (its ``codebook``
 collection is not mutable there, ``quantizer.py:169``). In ``train()`` mode
-with ``update``, one ``ops/vq.vq_nearest_stats_sharded`` launch (kernel 3) gives
+with ``update``, one ``ops/vq.vq_nearest_stats_sharded`` launch (``csrc/vq_stats.cu``) gives
 the indices, the codewords of the *old* codebook and the masked counts and
 sums, and the EMA update (``quantizer.py:184-188``) then runs in plain
 tensor code on the buffers, in place, under ``no_grad``. ``train()`` mode

@@ -1,5 +1,6 @@
-"""Multi-head nearest-codeword search: the snap (kernel 1 of the port) and
-the snap with masked EMA statistics (kernel 3, the training path).
+"""Multi-head nearest-codeword search: the snap (rows 1 and 4 of the kernel
+table in ``PERF.md``) and the snap with masked EMA statistics (rows 2 and 3,
+the training path).
 
 ``vq_nearest(x [N, H, d], embed [H, d, K]) -> (idx [N, H] int32,
 quant [N, H, d] fp32)``: per head, ``dist = |x|^2 - 2 x.E + |E|^2`` in fp32,
@@ -47,6 +48,7 @@ from msmctts_tpu_torch.parallel.mesh import all_reduce_sum
 
 WARPS = 8  # kWarps in csrc/vq_common.cuh
 ROWS_PER_TILE = 64  # kRowsPerBlock in csrc/vq_common.cuh
+GROUP = 8  # kGroup in csrc/vq_common.cuh: rows a warp searches at once
 MAX_WALKERS = 32  # blocks per head that walk the row tiles of vq_stats
 MAX_SHARED_BYTES = 232448  # per block on sm_90
 
@@ -66,12 +68,17 @@ STATS_KERNEL = CudaKernel(
 )
 
 
+def _codebook_floats(d: int, K: int) -> int:
+    """The staged codebook [d][K], its transpose [K][et_stride(d)] and |E|^2 [K]."""
+    return d * K + K * ((d + 3) // 4 * 4 + 4) + K
+
+
 def shared_bytes(d: int, K: int) -> int:
-    return (d * K + K + WARPS * d) * 4
+    return (_codebook_floats(d, K) + WARPS * GROUP * d + WARPS * GROUP) * 4
 
 
 def stats_shared_bytes(d: int, K: int) -> int:
-    return (2 * (d * K + K) + ROWS_PER_TILE * d + 2 * ROWS_PER_TILE) * 4
+    return (_codebook_floats(d, K) + (d * K + K) + ROWS_PER_TILE * d + 2 * ROWS_PER_TILE) * 4
 
 
 def stats_walkers(N: int) -> int:

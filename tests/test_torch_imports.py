@@ -136,13 +136,14 @@ def test_kernel_wrappers_take_the_plain_version_only_on_cpu():
 
 
 def test_tile_choice_fits_every_csmsc_layer():
-    from msmctts_tpu_torch.ops.resblock import MAX_SHARED_BYTES, choose_tile, shared_bytes
+    from msmctts_tpu_torch.ops.resblock import MAX_SHARED_BYTES, choose_tile, plan_layer, shared_bytes
 
     for C in (256, 128, 64, 32):
         for k in (3, 7, 11):
             for d in (1, 3, 5):
                 tile = choose_tile(C, k, d)
-                assert shared_bytes(C, k, d, tile) <= MAX_SHARED_BYTES
+                assert tile % 64 == 0
+                assert shared_bytes(C, k, d, tile, plan_layer(C, k, d).stages) <= MAX_SHARED_BYTES
     with pytest.raises(ValueError, match="does not fit"):
         choose_tile(1024, 11, 5)
 
