@@ -11,7 +11,9 @@ Phases, each of which raises on failure:
      shapes its path gives it (CSMSC; serving at batch 4, frame bucket 512;
      training at batch 16, 400 frames), with kernel, plain and library-call
      times (CUDA events, median of repeated runs after warm-up; for the VQ
-     kernels also the device time per launch from the profiler) and the
+     functions also the device time per call from the profiler, every
+     kernel of the call counted, at their paths' N and at one rank's rows
+     of two, with the statistics kernel's plan) and the
      least time the card could take; the fused MRF layer's rows name the
      kernel body that ran and its plan (tile rows, ring stages, shared
      bytes); then the edge shapes: T of 1, one short of and one past a
@@ -128,11 +130,12 @@ def time_ms(fn, runs=10, reps=5, warmup=3):
     return statistics.median(times)
 
 
-def device_ms(fn, kernel_name, runs=20):
-    """Device time per launch of the kernels whose name contains
-    ``kernel_name`` over ``runs`` calls of ``fn()`` (torch.profiler): what the
-    card spends, where ``time_ms`` of a short kernel shows the wrapper's
-    host time per call."""
+def device_profile(fn, runs=20):
+    """Device time per call of ``fn()`` over ``runs`` calls (torch.profiler),
+    every kernel and fill it launches counted: what the card spends, where
+    ``time_ms`` of a short kernel shows the wrapper's host time per call.
+    -> {"ms", "launches" per call, "by_kernel": {name: ms per launch}}. Each
+    kernel counts with its mean time per launch: the tracer may drop a few."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -141,11 +144,11 @@ def device_ms(fn, kernel_name, runs=20):
         for _ in range(runs):
             fn()
         torch.cuda.synchronize()
-    rows = [r for r in _device_rows(prof) if kernel_name in r["name"]]
-    seen = sum(r["count"] for r in rows)  # the tracer may drop a few of the launches
-    if not runs // 2 <= seen <= runs:
-        raise AssertionError(f"profile of {kernel_name}: {rows} for {runs} calls")
-    return sum(r["device_ms"] for r in rows) / seen
+    rows = _device_rows(prof)
+    if not rows or any(not runs // 2 <= r["count"] <= runs for r in rows):
+        raise AssertionError(f"profile of {runs} calls: {rows}")
+    by_kernel = {r["name"]: r["device_ms"] / r["count"] for r in rows}
+    return {"ms": sum(by_kernel.values()), "launches": sum(r["count"] for r in rows) / runs, "by_kernel": by_kernel}
 
 
 def bound(bytes_moved, flops, peak_flops=PEAK_FP32):
@@ -246,7 +249,7 @@ def phase_vq(gen):
             flops = 2 * N * VQ_H * VQ_D * VQ_K + 3 * N * VQ_H * VQ_K
             row.update(
                 ms=time_ms(lambda: vq.vq_nearest(x, e), runs=50),
-                device_ms=device_ms(lambda: vq.vq_nearest(x, e), "vq_nearest_kernel"),
+                device_ms=device_profile(lambda: vq.vq_nearest(x, e))["ms"],
                 plain_ms=time_ms(lambda: vq.vq_nearest_plain(x, e), runs=50),
                 bound=bound(nbytes, flops),
                 library_ms=None,  # no single PyTorch call computes argmin + gather per head
@@ -300,7 +303,8 @@ def phase_vq_stats(gen):
         if not torch.allclose(sums, p_sums, **VQS_TOL):
             raise AssertionError(f"vq_stats {label}: sums differ by {err}")
         worst = max(worst, err)
-        row = {"label": label, "N": N, "valid": int(mask.sum()), "walkers": vq.stats_walkers(N), "sums_max_abs_err": err}
+        row = {"label": label, "N": N, "valid": int(mask.sum()), "walkers": vq.stats_plan(N, VQ_D, VQ_K).walkers,
+               "sums_max_abs_err": err}
         if label.startswith("stage"):
             valid = int(mask.sum())
             nbytes = (N * VQ_H * VQ_D * 2 + VQ_H * VQ_D * VQ_K + N + N * VQ_H + VQ_H * VQ_K + VQ_H * VQ_D * VQ_K) * 4
@@ -309,25 +313,50 @@ def phase_vq_stats(gen):
             flat = (idx.long() + torch.arange(VQ_H, device="cuda") * VQ_K).reshape(-1)
             xm = (x * mask[:, None, None]).reshape(N * VQ_H, VQ_D)
             table = torch.zeros(VQ_H * VQ_K, VQ_D, device="cuda")
+            dev = device_profile(lambda: vq.vq_nearest_stats(x, e, mask))
+            if dev["launches"] > 2:
+                raise AssertionError(f"vq_stats {label}: {dev['launches']} device operations per call: {dev['by_kernel']}")
             row.update(
                 ms=time_ms(lambda: vq.vq_nearest_stats(x, e, mask), runs=50),
-                # the search + statistics kernel alone, and the snap at the same N: what
-                # the first takes beyond the second is its statistics pass
-                device_ms=device_ms(lambda: vq.vq_nearest_stats(x, e, mask), "vq_stats_kernel"),
-                snap_device_ms=device_ms(lambda: vq.vq_nearest(x, e), "vq_nearest_kernel"),
+                # every kernel of the call, and the snap at the same N: what the first
+                # takes beyond the second is its statistics (pass, partials, final sum)
+                device_ms=dev["ms"], device_by_kernel=dev["by_kernel"], launches_per_call=dev["launches"],
+                snap_device_ms=device_profile(lambda: vq.vq_nearest(x, e))["ms"],
                 plain_ms=time_ms(lambda: vq.vq_nearest_stats_plain(x, e, mask), runs=50),
                 bound=bound(nbytes, flops),
                 library_ms=None,  # no single PyTorch call computes argmin, gather and both sums
                 # the closest single call: the sums alone, from given indices
                 index_add_ms=time_ms(lambda: table.zero_().index_add_(0, flat, xm), runs=50),
             )
+            row["beyond_snap_ms"] = row["device_ms"] - row["snap_device_ms"]
         rows.append(row)
         log(f"[3] vq_nearest_stats {label} N={N}: {json.dumps(row)}")
     staged = [r for r in rows if r["label"].startswith("stage")]
-    per_step = {key: sum(r[key] for r in staged) for key in ("ms", "device_ms", "snap_device_ms", "plain_ms", "index_add_ms")}
+    per_step = {key: sum(r[key] for r in staged)
+                for key in ("ms", "device_ms", "snap_device_ms", "beyond_snap_ms", "plain_ms", "index_add_ms")}
     per_step["bound_ms"] = sum(r["bound"][0] for r in staged)
     per_step["bound_by"] = "bytes" if {r["bound"][1] for r in staged} == {"bytes"} else "operations"
-    return {"rows": rows, "max_abs_err": worst, **per_step}
+    log(f"[3] vq_nearest_stats per train step on the device: {per_step['device_ms']:.4f} ms in "
+        f"{sum(r['launches_per_call'] for r in staged):.0f} launches (the snap at the same N {per_step['snap_device_ms']:.4f}, "
+        f"the statistics beyond it {per_step['beyond_snap_ms']:.4f}, a share of {per_step['beyond_snap_ms'] / per_step['device_ms']:.0%}); "
+        f"bound {per_step['bound_ms']:.4f}; plan {json.dumps(vq.stats_plan(TRAIN_B * TRAIN_FRAMES, VQ_D, VQ_K)._asdict())}")
+    # one rank's rows of two: a train step's statistics and a predict's snaps (rows 3 and 4)
+    rank = {"stats_rows": [TRAIN_B * TRAIN_FRAMES // 8, TRAIN_B * TRAIN_FRAMES // 2], "snap_rows": [B * FRAMES // 8, B * FRAMES // 2]}
+    rank["stats_device_ms"] = []
+    for n in rank["stats_rows"]:
+        x, e = _vq_case(gen, n)
+        mask = (torch.rand(n, device="cuda", generator=gen) < 0.8).float()
+        rank["stats_device_ms"].append(device_profile(lambda: vq.vq_nearest_stats(x, e, mask))["ms"])
+    rank["snap_device_ms"] = []
+    for n in rank["snap_rows"]:
+        x, e = _vq_case(gen, n)
+        rank["snap_device_ms"].append(device_profile(lambda: vq.vq_nearest(x, e))["ms"])
+    rank["stats_per_step_ms"] = sum(rank["stats_device_ms"])
+    rank["snap_per_predict_ms"] = 2 * sum(rank["snap_device_ms"])
+    log(f"[3] on the device at one rank's rows of two: vq_nearest_stats at n={rank['stats_rows']} {rank['stats_device_ms']} ms "
+        f"({rank['stats_per_step_ms']:.4f} per step), vq_nearest at n={rank['snap_rows']} {rank['snap_device_ms']} ms "
+        f"({rank['snap_per_predict_ms']:.4f} per predict)")
+    return {"rows": rows, "max_abs_err": worst, "rank_rows": rank, **per_step}
 
 
 def _resblock_case(gen, C, k, s=None):
@@ -913,7 +942,7 @@ def rank_sharded_kernels(group, device):
         if not (torch.equal(s_idx, g_idx[lo:hi]) and torch.equal(s_quant, g_quant[lo:hi]) and torch.equal(s_idx, idx)):
             raise AssertionError(f"vq_nearest_sharded {label} rank {rank}: differs from the one-rank snap")
         snap_err, snap_mismatches = _hold_snap(f"vq_nearest_sharded {label} rank {rank}", xl, e, s_idx, s_quant, sp_idx, sp_quant)
-        rows.append({"label": label, "N": N, "rows": hi - lo, "valid": int(ml.sum()), "walkers": vq.stats_walkers(hi - lo),
+        rows.append({"label": label, "N": N, "rows": hi - lo, "valid": int(ml.sum()), "walkers": vq.stats_plan(hi - lo, VQ_D, VQ_K).walkers,
                      "sums_err_vs_plain": err_plain, "sums_err_vs_one_rank": err_one,
                      "snap_err_vs_plain": snap_err, "snap_mismatches": snap_mismatches,
                      "counts": counts.cpu(), "sums": sums.cpu()})
@@ -1349,7 +1378,7 @@ def main(argv=None):
             "replaces": "msmctts_tpu/ops/pallas_vq.py:88", "launches": train_res["launches"]["vq_nearest_stats"],
             "max_abs_err": vqs_res["max_abs_err"], "ms": vqs_res["ms"], "plain_ms": vqs_res["plain_ms"],
             "bound_ms": vqs_res["bound_ms"], "bound_by": vqs_res["bound_by"], "library_ms": None,
-            "device_ms": vqs_res["device_ms"], "statistics_pass_ms": vqs_res["device_ms"] - vqs_res["snap_device_ms"],
+            "device_ms": vqs_res["device_ms"], "beyond_snap_ms": vqs_res["beyond_snap_ms"],
             "tolerance": {"idx_quant_counts": "exact", "sums": VQS_TOL},
             "shapes": f"per train step: N={TRAIN_B * TRAIN_FRAMES // 4} + N={TRAIN_B * TRAIN_FRAMES}, H=4, d=64, K=64; "
                       "launches over 2 warmup + 2 GAN steps",
@@ -1362,6 +1391,7 @@ def main(argv=None):
             "bound_ms": shard_res["stats_kernel_bound_ms"] + 2 * shard_res["all_reduce_link_bound_ms"],
             "bound_by": shard_res["stats_bound_by"], "library_ms": None,
             "kernel_ms": shard_res["stats_kernel_ms"], "all_reduce_ms": shard_res["all_reduce_ms"],
+            "device_ms": vqs_res["rank_rows"]["stats_per_step_ms"],
             "all_reduce_bytes": shard_res["all_reduce_bytes"], "backend": backend, "world": WORLD,
             "max_abs_err_vs_one_rank": shard_res["max_err_vs_one_rank"],
             "tolerance": {"idx_quant_counts": "exact", "sums": VQS_TOL, "across_ranks": "bit-equal"},
@@ -1374,7 +1404,7 @@ def main(argv=None):
             "replaces": "msmctts_tpu/ops/pallas_vq.py:273", "launches": dp_infer["launches"]["vq_nearest"],
             "max_abs_err": shard_res["snap_err_vs_plain"], "ms": shard_res["snap_kernel_ms"], "plain_ms": shard_res["snap_plain_ms"],
             "bound_ms": shard_res["snap_bound_ms"], "bound_by": shard_res["snap_bound_by"], "library_ms": None,
-            "backend": backend, "world": WORLD,
+            "device_ms": vqs_res["rank_rows"]["snap_per_predict_ms"], "backend": backend, "world": WORLD,
             "tolerance": {**VQ_TOL, "vs_one_rank_snap": "exact", "collectives": 0},
             "index_mismatches": shard_res["snap_index_mismatches"],
             "shapes": f"per predict per rank of {WORLD}: 2 x n={shard_res['snap_rows'][0]} + 2 x n={shard_res['snap_rows'][1]} rows, "

@@ -22,7 +22,9 @@ which feeds the codebook EMA of the autoencoder's train step. On a CUDA
 tensor it launches ``csrc/vq_stats.cu`` (a fixed reduction order: the same
 inputs give bit-equal statistics on every launch; idx and quant are
 bit-equal to ``vq_nearest``'s) or raises; on a CPU tensor it runs
-:func:`vq_nearest_stats_plain`. Neither function is differentiable: callers
+:func:`vq_nearest_stats_plain`. :func:`stats_plan` is the single source of
+the kernel's grid (walkers per head), its shared bytes and the layout of
+its statistics pass. Neither function is differentiable: callers
 detach the inputs and rebuild the straight-through estimator outside.
 
 Under data parallelism (``parallel/mesh.py``) every rank holds a block of
@@ -40,6 +42,7 @@ is the snap kernel on the rank's rows and runs no collective
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -49,7 +52,9 @@ from msmctts_tpu_torch.parallel.mesh import all_reduce_sum
 WARPS = 8  # kWarps in csrc/vq_common.cuh
 ROWS_PER_TILE = 64  # kRowsPerBlock in csrc/vq_common.cuh
 GROUP = 8  # kGroup in csrc/vq_common.cuh: rows a warp searches at once
-MAX_WALKERS = 32  # blocks per head that walk the row tiles of vq_stats
+# Blocks per head that walk the row tiles of vq_stats: 64 x 4 heads fill the
+# H100's 132 SMs at two blocks each (kBlocksPerSM of csrc/vq_stats.cu) in one wave.
+MAX_WALKERS = 64
 MAX_SHARED_BYTES = 232448  # per block on sm_90
 
 KERNEL = CudaKernel(
@@ -77,8 +82,18 @@ def shared_bytes(d: int, K: int) -> int:
     return (_codebook_floats(d, K) + WARPS * GROUP * d + WARPS * GROUP) * 4
 
 
+def acc_stride(K: int) -> int:
+    """Row stride of the sums accumulators [d][acc_stride] (``acc_stride``
+    of csrc/vq_stats.cu): odd, so that 32 consecutive j at one k lie in 32
+    shared-memory banks."""
+    return K | 1
+
+
 def stats_shared_bytes(d: int, K: int) -> int:
-    return (_codebook_floats(d, K) + (d * K + K) + ROWS_PER_TILE * d + 2 * ROWS_PER_TILE) * 4
+    """The codebook, the tile's rows, the accumulators (sums [d][K | 1],
+    counts [K]), row weights and codes, and one row list per warp."""
+    tile = ROWS_PER_TILE
+    return (_codebook_floats(d, K) + tile * d + d * acc_stride(K) + K + 2 * tile + WARPS * tile) * 4
 
 
 def stats_walkers(N: int) -> int:
@@ -86,6 +101,23 @@ def stats_walkers(N: int) -> int:
     order of the reduction, and with it every bit of the statistics, is
     fixed by the shapes."""
     return max(1, min(MAX_WALKERS, -(-N // ROWS_PER_TILE)))
+
+
+class StatsPlan(NamedTuple):
+    """What ``vq_stats_launch`` is given and what its statistics pass does."""
+
+    walkers: int  # G: blocks per head, each walking the row tiles g, g + G, ...
+    shared_bytes: int  # dynamic shared memory per block
+    acc_stride: int  # row stride of the sums accumulators
+    j_chunks: int  # items of the pass: j in chunks of 32 lanes ...
+    k_slices: int  # ... by slices of the codewords, one item per warp
+    slice_width: int  # codewords per slice
+
+
+def stats_plan(N: int, d: int, K: int) -> StatsPlan:
+    chunks = -(-d // 32)
+    slices = max(1, WARPS // chunks)
+    return StatsPlan(stats_walkers(N), stats_shared_bytes(d, K), acc_stride(K), chunks, slices, -(-K // slices))
 
 
 def vq_nearest_plain(x: torch.Tensor, embed: torch.Tensor):
@@ -169,11 +201,11 @@ def _vq_nearest_stats_flat(x: torch.Tensor, embed: torch.Tensor, mask: torch.Ten
         raise ValueError("vq_nearest_stats: mask must be a contiguous tensor on x's device")
     idx = torch.empty((N, H), dtype=torch.int32, device=x.device)
     quant = torch.empty((N, H, d), dtype=torch.float32, device=x.device)
-    flat = torch.zeros(H * K + H * d * K, dtype=torch.float32, device=x.device)
     if N == 0:  # nothing to launch: the statistics of no rows are zeros
-        return idx, quant, flat
+        return idx, quant, torch.zeros(H * K + H * d * K, dtype=torch.float32, device=x.device)
+    flat = torch.empty(H * K + H * d * K, dtype=torch.float32, device=x.device)  # the kernel writes every cell
     counts, sums = _split_stats(flat, H, d, K)
-    G = stats_walkers(N)
+    G = stats_plan(N, d, K).walkers
     part = torch.empty((G, H, K + d * K), dtype=torch.float32, device=x.device)
     STATS_KERNEL.launch(
         x.data_ptr(), x.stride(0), x.stride(1), embed.data_ptr(), mask.data_ptr(),

@@ -1,7 +1,10 @@
 """The numerics and the shared-memory plan of the port's tensor-core MRF
 kernel, on the CPU: the TF32 split, the 3xTF32 emulation of the layer
 against the JAX package, the prepared weight stream, and the plan the
-launcher takes its tile rows, ring depth and shared bytes from."""
+launcher takes its tile rows, ring depth and shared bytes from. Then the
+VQ kernels' shared memory, and the plan and the statistics pass of
+csrc/vq_stats.cu: walkers, the owner of every cell, the order in which an
+owner adds its rows, and the accumulators' banks."""
 
 import re
 from pathlib import Path
@@ -188,13 +191,181 @@ def test_plan_refuses_a_halo_beyond_shared_memory():
         rb.plan_layer(256, 65, 1)  # more taps than rows in a tile
 
 
+def _stats_source():
+    return (CSRC / "vq_stats.cu").read_text()
+
+
+def _stats_constant(name):
+    return int(re.search(rf"constexpr int {name} = (\d+);", _stats_source()).group(1))
+
+
+def _launcher_smem_floats(d, K):
+    """The dynamic shared memory vq_stats_launch asks for, in floats, by
+    evaluating the expression of its source."""
+    src = _stats_source()
+    expr = re.search(r"const size_t smem = \(size_t\)\((.*?)\) \* sizeof\(float\);", src, re.S).group(1)
+    expr = " ".join(expr.replace("vq::et_stride", "et_stride").split())
+    names = {"d": d, "K": K, "kRowsPerBlock": vq.ROWS_PER_TILE, "kWarps": vq.WARPS,
+             "et_stride": lambda d: (d + 3) // 4 * 4 + 4, "acc_stride": vq.acc_stride}
+    return eval(expr, {}, names)  # noqa: S307 (an arithmetic expression of the kernel's source)
+
+
 def test_vq_shared_memory_follows_the_kernels():
     src = (CSRC / "vq_common.cuh").read_text()
     assert int(re.search(r"kWarps = (\d+)", src).group(1)) == vq.WARPS
     assert int(re.search(r"kRowsPerBlock = (\d+)", src).group(1)) == vq.ROWS_PER_TILE
     assert int(re.search(r"kGroup = (\d+)", src).group(1)) == vq.GROUP
     assert vq.ROWS_PER_TILE == vq.WARPS * vq.GROUP  # one row group per warp and tile
+    stats = _stats_source()
+    assert "__launch_bounds__(kWarps * 32, kBlocksPerSM)" in stats
+    # the pass's layout, as stats_plan describes it
+    assert "acc_stride(int K) { return K | 1; }" in stats
+    assert "j_chunks(int d) { return (d + 31) / 32; }" in stats
+    assert "k_slices(int d) { return max(1, kWarps / j_chunks(d)); }" in stats
+    assert "const int width = (K + slices - 1) / slices;" in stats
     d = K = 64  # CSMSC: codebook, its transpose (rows of d + 4), norms, row groups, indices
     assert vq.shared_bytes(d, K) == (d * K + K * (d + 4) + K + 8 * 8 * d + 8 * 8) * 4
-    assert vq.stats_shared_bytes(d, K) == (d * K + K * (d + 4) + K + (K + d * K) + 64 * d + 2 * 64) * 4
-    assert max(vq.shared_bytes(d, K), vq.stats_shared_bytes(d, K)) <= vq.MAX_SHARED_BYTES
+    # codebook, transpose, norms; the tile's rows; sums [d][K + 1] and counts; row weights and codes; a row list per warp
+    assert vq.stats_shared_bytes(d, K) == (d * K + K * (d + 4) + K + 64 * d + d * (K + 1) + K + 2 * 64 + 8 * 64) * 4
+    for d, K in ((64, 64), (3, 5), (96, 64), (64, 128), (300, 16), (1, 1)):
+        assert vq.stats_shared_bytes(d, K) == _launcher_smem_floats(d, K) * 4
+    assert max(vq.shared_bytes(64, 64), vq.stats_shared_bytes(64, 64)) <= vq.MAX_SHARED_BYTES
+    # the blocks an SM holds by their register budget fit in its shared memory at the CSMSC codebook
+    assert _stats_constant("kBlocksPerSM") * (vq.stats_shared_bytes(64, 64) + 1024) <= 233472
+
+
+@pytest.mark.parametrize("N", [1, 7, 9, 64, 65, 1600, 2047, 6400])
+def test_vq_stats_plan_depends_on_n_alone(N):
+    """The walkers, and with them the order of every sum, follow N alone."""
+    tiles = -(-N // vq.ROWS_PER_TILE)
+    plans = [vq.stats_plan(N, d, K) for d, K in ((64, 64), (3, 5), (64, 128), (96, 32))]
+    assert len({p.walkers for p in plans}) == 1
+    G = plans[0].walkers
+    assert G == vq.stats_walkers(N) == min(tiles, vq.MAX_WALKERS) and 1 <= G <= tiles
+    plan = vq.stats_plan(N, 64, 64)
+    assert plan.shared_bytes == vq.stats_shared_bytes(64, 64) <= vq.MAX_SHARED_BYTES
+    assert (plan.acc_stride, plan.j_chunks, plan.k_slices, plan.slice_width) == (65, 2, 4, 16)
+
+
+def _stats_owners(d, K):
+    """{cell: [(warp, lane), ...]} of the statistics pass as csrc/vq_stats.cu
+    deals it out: warp w takes the items w, w + kWarps, ...; item i covers
+    j = (i % chunks) * 32 + lane and the codewords of slice i // chunks; the
+    slice's counts go to lane 0 of its first chunk. Cells are ("sum", j, k)
+    and ("count", k)."""
+    plan = vq.stats_plan(1, d, K)
+    owners = {}
+    for item in range(plan.j_chunks * plan.k_slices):
+        warp, chunk, q = item % vq.WARPS, item % plan.j_chunks, item // plan.j_chunks
+        for k in range(q * plan.slice_width, min(K, (q + 1) * plan.slice_width)):
+            for lane in range(32):
+                j = chunk * 32 + lane
+                if j < d:
+                    owners.setdefault(("sum", j, k), []).append((warp, lane))
+            if chunk == 0:
+                owners.setdefault(("count", k), []).append((warp, 0))
+    return owners
+
+
+@pytest.mark.parametrize("d,K", [(64, 64), (3, 5), (96, 64), (64, 128), (300, 16), (32, 7)])
+def test_vq_stats_every_cell_has_one_owner(d, K):
+    owners = _stats_owners(d, K)
+    want = {("sum", j, k) for j in range(d) for k in range(K)} | {("count", k) for k in range(K)}
+    assert set(owners) == want
+    assert all(len(o) == 1 for o in owners.values())
+    assert {w for o in owners.values() for w, _ in o} <= set(range(vq.WARPS))
+    if (d, K) == (64, 64):  # every warp works, on 32 x 16 sums cells, four of them also on 16 counts
+        per_warp = np.bincount([o[0][0] for o in owners.values()], minlength=vq.WARPS)
+        assert sorted(per_warp.tolist()) == [512] * 4 + [528] * 4
+
+
+def _fma(a, b, c):
+    """One rounding of a*b + c to fp32 (a*b is exact in fp64)."""
+    return np.float32(np.float64(a) * np.float64(b) + np.float64(c))
+
+
+def _pass_model(codes, w, x, k0, k1, j, acc, cnt, trace):
+    """One warp's item on one tile, as csrc/vq_stats.cu runs it: the list of
+    the rows whose code lies in [k0, k1), in rising order (ballot and prefix
+    count per 32 rows), then batches of kRun rows; a batch past the list's
+    end repeats its last row with weight 0; a row whose codeword an earlier
+    row of the batch had starts from that row's result; stores in order."""
+    rows = len(codes)
+    lst = []
+    for base in range(0, rows, 32):
+        half = [r for r in range(base, min(rows, base + 32)) if k0 <= codes[r] < k1]
+        lst.extend(half)
+    n = len(lst)
+    run = _stats_constant("kRun")
+    for t in range(0, n, run):
+        kk, ww, xv = [], [], []
+        for u in range(run):
+            real = t + u < n
+            r = lst[t + u if real else n - 1]
+            kk.append(codes[r])
+            ww.append(w[r] if real else np.float32(0))
+            xv.append(x[r, j] if real else np.float32(0))
+            if real:
+                trace.setdefault(codes[r], []).append(r)
+        a = [acc[k] for k in kk]
+        ca = [cnt[k] for k in kk]
+        for u in range(run):
+            for p in range(u):
+                if kk[p] == kk[u]:
+                    a[u], ca[u] = a[p], ca[p]
+            a[u] = _fma(ww[u], xv[u], a[u])
+            ca[u] = np.float32(ca[u] + ww[u])
+        for u in range(run):
+            acc[kk[u]], cnt[kk[u]] = a[u], ca[u]
+
+
+@pytest.mark.parametrize("skew", ["uniform", "one-codeword", "runs"])
+def test_vq_stats_owner_adds_its_rows_in_rising_order(rng, skew):
+    """Over the tiles of a walker, the batched pass gives every cell the same
+    fmaf chain, bit for bit, as adding its rows one at a time in rising order
+    (the order a scan of all rows per cell gives), and each owner sees its
+    rows in rising order; masked rows carry weight 0, a short last tile too."""
+    d, K, width = 5, 64, 16
+    tiles = []
+    for rows in (64, 64, 37):
+        if skew == "uniform":
+            codes = rng.integers(0, K, size=rows)
+        elif skew == "one-codeword":
+            codes = np.where(rng.random(rows) < 0.9, 3, rng.integers(0, K, size=rows))
+        else:
+            codes = np.repeat(rng.integers(0, K, size=rows // 4 + 1), 4)[:rows]
+        w = (rng.random(rows) < 0.8).astype(np.float32)
+        x = rng.normal(size=(rows, d)).astype(np.float32)
+        tiles.append((codes, w, x))
+    for q in range(K // width):
+        k0, k1 = q * width, (q + 1) * width
+        for j in range(d):
+            acc, cnt = np.zeros(K, np.float32), np.zeros(K, np.float32)
+            want_acc, want_cnt = np.zeros(K, np.float32), np.zeros(K, np.float32)
+            trace = {}
+            for codes, w, x in tiles:
+                seen = {}
+                _pass_model(codes, w, x, k0, k1, j, acc, cnt, seen)
+                for k, rows in seen.items():
+                    assert rows == sorted(rows) == [r for r in range(len(codes)) if codes[r] == k]
+                    trace.setdefault(k, []).extend(rows)
+                for r in range(len(codes)):  # one row at a time, rising order
+                    if k0 <= codes[r] < k1:
+                        want_acc[codes[r]] = _fma(w[r], x[r, j], want_acc[codes[r]])
+                        want_cnt[codes[r]] = np.float32(want_cnt[codes[r]] + w[r])
+            assert acc.tobytes() == want_acc.tobytes() and cnt.tobytes() == want_cnt.tobytes()
+            assert set(trace) <= set(range(k0, k1))
+
+
+def test_vq_stats_accumulators_avoid_bank_conflicts():
+    """A warp's 32 lanes hold consecutive j of one codeword k: with a row
+    stride of K | 1 they read and write 32 different banks, for every K."""
+    for K in range(1, 257):
+        stride = vq.acc_stride(K)
+        assert stride in (K, K + 1) and stride % 2 == 1
+        for chunk in range(3):
+            for k in range(K):
+                banks = {((chunk * 32 + lane) * stride + k) % 32 for lane in range(32)}
+                assert len(banks) == 32
+    # a [d][K] layout would put all 32 in one bank at K = 64
+    assert len({(lane * 64) % 32 for lane in range(32)}) == 1
