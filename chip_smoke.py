@@ -45,8 +45,16 @@ Phases, each of which raises on failure:
      rank; state bit-equal across ranks; launches and collectives per step;
  11. data-parallel inference: phase 5's batch of 4 through ``use_mesh`` on
      2 ranks against one rank;
- 12. one JSON line describing each kernel;
- 13. last line: {"ok": true, "device": {...}}.
+ 12. acoustic-model training at the full width of the CSMSC AM recipe:
+     ``PredictorTrainer`` against the trained autoencoder of the fixture,
+     4 steps at batch 64 (text bucket 96, frame bucket 768) on a seeded
+     synthetic batch, dropout on, with per-step times, peak memory, the
+     teacher's snap (2 ``vq_nearest`` launches per step) held against its
+     plain version at its N, the teacher unchanged; one step on the card
+     against the CPU; the ``train`` entry point as a subprocess on a small
+     corpus written here, then ``predict`` from its checkpoint;
+ 13. one JSON line describing each kernel;
+ 14. last line: {"ok": true, "device": {...}}.
 
 NCCL refuses two ranks on one device, so the two-rank phases use gloo, which
 moves CUDA tensors through host memory; the log names the backend. Their
@@ -54,9 +62,9 @@ step times are those of two processes time-slicing one
 card: no scaling figure. A rank that fails, dies or hangs fails the run.
 
 It exits non-zero, printing no result, without a CUDA device or without
-the rest of the repository. ``--out`` also profiles one warm ``predict``
-and one warm GAN step (device time by kernel, busy share) and writes every
-measurement to a JSON file.
+the rest of the repository. ``--out`` also profiles one warm ``predict``,
+one warm GAN step and one warm AM step (device time by kernel, busy share)
+and writes every measurement to a JSON file.
 """
 
 import argparse
@@ -107,6 +115,11 @@ WORLD = 2  # ranks of the data-parallel phases; they share the one card
 BACKEND = "gloo"  # of those phases: NCCL refuses two ranks on one device
 NVLINK_BYTES = 450e9  # per direction between two cards of one host (published)
 RANKS_TIMEOUT_S = 300.0
+# the AM step's shapes: CSMSC AM recipe, batch 64, 24-96 phones (text bucket 96),
+# 240-760 frames (frame bucket 768)
+AM_B, AM_TEXT, AM_FRAMES = 64, 96, 768
+AM_PHONES, AM_LENGTHS = (24, 96), (240, 760)
+AM_STEPS = 4
 
 
 def log(*args):
@@ -130,23 +143,28 @@ def time_ms(fn, runs=10, reps=5, warmup=3):
     return statistics.median(times)
 
 
-def device_profile(fn, runs=20):
+def device_profile(fn, runs=20, attempts=3):
     """Device time per call of ``fn()`` over ``runs`` calls (torch.profiler),
     every kernel and fill it launches counted: what the card spends, where
     ``time_ms`` of a short kernel shows the wrapper's host time per call.
     -> {"ms", "launches" per call, "by_kernel": {name: ms per launch}}. Each
-    kernel counts with its mean time per launch: the tracer may drop a few."""
+    kernel counts with its mean time per launch: the tracer may drop a few.
+    A profiled window whose tracer kept fewer than half of a kernel's
+    launches is taken again, up to ``attempts`` windows."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    rows = _device_rows(prof)
-    if not rows or any(not runs // 2 <= r["count"] <= runs for r in rows):
-        raise AssertionError(f"profile of {runs} calls: {rows}")
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        rows = _device_rows(prof)
+        if rows and all(runs // 2 <= r["count"] <= runs for r in rows):
+            break
+    else:
+        raise AssertionError(f"profile of {runs} calls, {attempts} windows, the last: {rows}")
     by_kernel = {r["name"]: r["device_ms"] / r["count"] for r in rows}
     return {"ms": sum(by_kernel.values()), "launches": sum(r["count"] for r in rows) / runs, "by_kernel": by_kernel}
 
@@ -1292,6 +1310,266 @@ def phase_dp_inference(backend, reference):
     return {"wav_err": worst, "launches": res[0]["launches"], "collectives": res[0]["collectives"], "ms": [r["ms"] for r in res]}
 
 
+# ------------------------------------------------- acoustic-model training
+
+
+def _am_batch(rng, n_symbols, B, Lt, T, phones, frames, n_mel=80):
+    """Seeded text/dur/mel, padded as ``TTSDataset`` pads them (text and dur
+    0, mel -4): ``phones`` and ``frames`` bound the lengths, the first row
+    takes both maxima, and each utterance's durations are positive integers
+    summing to its frame count."""
+    n_phones = rng.integers(phones[0], phones[1] + 1, size=B)
+    n_frames = rng.integers(frames[0], frames[1] + 1, size=B)
+    n_phones[0], n_frames[0] = phones[1], frames[1]
+    dur = np.zeros((B, Lt), np.float32)
+    for i, (n, f) in enumerate(zip(n_phones, n_frames)):
+        cuts = np.sort(rng.choice(np.arange(1, f), size=n - 1, replace=False))
+        dur[i, :n] = np.diff(np.concatenate([[0], cuts, [f]]))
+    valid = np.arange(T)[None, :] < n_frames[:, None]
+    mel = np.where(valid[..., None], rng.normal(size=(B, T, n_mel)) * 0.5, -4.0).astype(np.float32)
+    return {"text": _text(rng, n_phones, n_symbols, Lt).astype(np.int32), "text_length": n_phones.astype(np.int32),
+            "dur": dur, "mel": mel, "mel_length": n_frames.astype(np.int32)}
+
+
+def _am_config(dropout=None):
+    """The CSMSC AM recipe with the fixture's trained autoencoder as its
+    teacher (the fixture's embedded config)."""
+    from msmctts_tpu_torch.config import Config
+
+    cfg = Config(AM_YAML)
+    cfg.task["autoencoder"]["_checkpoint"] = FIXTURE
+    cfg.task["autoencoder"].pop("_config", None)
+    cfg["save_checkpoint_dir"] = os.path.join(SMOKE_DIR, "ckpt_am")
+    if dropout is not None:
+        p = cfg.task["predictor"]
+        for node in (p["encoder_config"], p["decoder_config"]):
+            node["dropout"] = node["attn_dropout"] = dropout
+        p["adaptor_config"]["dropout"] = dropout
+    return cfg
+
+
+def _build_am_trainer(device, dropout=None):
+    from msmctts_tpu_torch.config import component_kwargs
+    from msmctts_tpu_torch.registry import get_trainer
+    from msmctts_tpu_torch.tasks import build_task
+
+    cfg = _am_config(dropout)
+    task = build_task(cfg, device=device, mode="train")
+    trainer = get_trainer(cfg.trainer["_name"])(cfg, task, **component_kwargs(cfg.trainer))
+    trainer.init_state()  # seeded; the teacher loads at the first step
+    return trainer
+
+
+def phase_am_training(card, with_profile=False):
+    from msmctts_tpu_torch.data.loader import to_device
+    from msmctts_tpu_torch.ops import vq
+    from msmctts_tpu_torch.training.base_trainer import metrics_to_host
+
+    torch.cuda.empty_cache()
+    base_gib = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    trainer = _build_am_trainer("cuda")
+    predictor, ae = trainer.predictor, trainer.frozen_autoencoder()
+    n_params = sum(p.numel() for p in predictor.parameters())
+    n_symbols = list(trainer.config.task["predictor"]["n_symbols"])
+    batch_np = _am_batch(np.random.default_rng(1234), n_symbols, AM_B, AM_TEXT, AM_FRAMES, AM_PHONES, AM_LENGTHS)
+    batch = to_device(batch_np, "cuda")
+    teacher0 = {k: v.clone() for k, v in ae.state_dict().items()}
+    log(f"[12] CSMSC acoustic model {n_params / 1e6:.1f}M parameters, teacher {sum(p.numel() for p in ae.parameters()) / 1e6:.1f}M "
+        f"(fixture); batch {AM_B}, phones {batch_np['text_length'].min()}-{batch_np['text_length'].max()} (bucket {AM_TEXT}), "
+        f"frames {batch_np['mel_length'].min()}-{batch_np['mel_length'].max()} (bucket {AM_FRAMES}), dropout on")
+
+    snaps = []  # per step: the teacher's stage inputs and indices
+    pre = [q.register_forward_pre_hook(lambda m, a: snaps.append({"x": a[0].detach().reshape(-1, m.n_head, m.sub_dim)}))
+           for q in ae.quantizer.quantizer]
+    post = [q.register_forward_hook(lambda m, a, o: snaps[-1].update(idx=o[2].reshape(-1, m.n_head), embed=m.embed))
+            for q in ae.quantizer.quantizer]
+    steps = []
+    for it in range(1, AM_STEPS + 1):
+        before = [p.detach().clone() for p in predictor.parameters()]
+        snaps.clear()
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        metrics = trainer.train_step(batch, it)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = _counts()
+        host = metrics_to_host(metrics)
+        bad = [k for k, v in host.items() if not np.isfinite(v)]
+        if bad:
+            raise AssertionError(f"AM step {it}: non-finite metrics {bad}")
+        if counts != {"vq_nearest": 2, "vq_nearest_stats": 0, "fused_resblock_layer": 0}:
+            raise AssertionError(f"AM step {it}: launches {counts}, expected the teacher's 2 vq_nearest snaps only")
+        moved = _moved(predictor, before)
+        if moved < 0.9 * len(before):
+            raise AssertionError(f"AM step {it}: only {moved} of {len(before)} predictor tensors moved")
+        steps.append({"iteration": it, "ms": ms, "metrics": host, "launches": counts, "tensors_moved": moved})
+        log(f"[12] AM step {it}: {ms:.1f} ms, launches {counts}, moved {moved}/{len(before)} tensors, "
+            f"{ {k: round(v, 4) for k, v in sorted(host.items())} }")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    for h in pre + post:
+        h.remove()
+    changed = [k for k, v in ae.state_dict().items() if not torch.equal(v, teacher0[k])]
+    if changed or ae.training:
+        raise AssertionError(f"the teacher changed: {changed[:5]} (training mode {ae.training})")
+
+    # the teacher's snap at its two N, from the last step's inputs: the kernel against its plain version
+    snap_rows = []
+    for stage, s in enumerate(snaps):
+        x, e = s["x"].contiguous(), s["embed"]
+        idx, quant = vq.vq_nearest(x, e)
+        ref_idx, ref_quant = vq.vq_nearest_plain(x, e)
+        torch.cuda.synchronize()
+        if not torch.equal(idx, s["idx"]):
+            raise AssertionError(f"AM teacher stage {stage}: the step's indices differ from a second launch")
+        err, mismatches = _hold_snap(f"AM teacher snap stage {stage}", x, e, idx, quant, ref_idx, ref_quant)
+        N = x.shape[0]
+        dev = device_profile(lambda: vq.vq_nearest(x, e))
+        b = _snap_bound(N)
+        snap_rows.append({"stage": stage, "N": N, "index_mismatches": mismatches, "max_abs_err": err,
+                          "device_ms": dev["ms"], "ms": time_ms(lambda: vq.vq_nearest(x, e), runs=20),
+                          "plain_ms": time_ms(lambda: vq.vq_nearest_plain(x, e), runs=20), "bound_ms": b[0], "bound_by": b[1]})
+        log(f"[12] teacher snap stage {stage} N={N}: vs plain {mismatches} indices differ (equal distances), codewords "
+            f"max abs err {err}; device {dev['ms']:.4f} ms per launch, events {snap_rows[-1]['ms']:.4f}, plain "
+            f"{snap_rows[-1]['plain_ms']:.4f}, bound {b[0]:.4f} ({b[1]})")
+
+    def timed(it):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(batch, it)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    warm = [timed(AM_STEPS + 1 + i) for i in range(5)]
+    warm_ms = statistics.median(warm)
+    # the step's matmul and convolution operations, forward and backward, as PyTorch dispatches them
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as counter:
+        trainer.train_step(batch, AM_STEPS + 6)
+    flops = counter.get_total_flops()
+    snap_ms = sum(r["device_ms"] for r in snap_rows)
+    result = {
+        "steps": steps, "first_ms": steps[0]["ms"], "warm_ms": warm_ms, "warm_runs_ms": warm,
+        "peak_memory_gib": peak_gib, "peak_above_start_gib": peak_gib - base_gib, "am_params": n_params,
+        "launches_per_step": steps[-1]["launches"], "snap": snap_rows, "snap_device_ms_per_step": snap_ms,
+        "snap_share_of_warm_step": snap_ms / warm_ms, "flops": flops, "bound_ms": flops / PEAK_FP32 * 1e3,
+        "tflops": flops / warm_ms / 1e9,
+    }
+    log(f"[12] per AM step on {card}: first {result['first_ms']:.1f} ms, warm median {warm_ms:.1f} ms "
+        f"(runs {[round(w, 1) for w in warm]}); peak memory {peak_gib:.2f} GiB ({peak_gib - base_gib:.2f} above the "
+        f"phase's start); {flops / 1e12:.2f} TFLOP of matmuls and convolutions, {result['tflops']:.1f} TFLOP/s, bound "
+        f"{result['bound_ms']:.1f} ms at fp32 peak; the teacher's 2 snaps {snap_ms:.4f} ms on the device, "
+        f"{result['snap_share_of_warm_step']:.3%} of the step; teacher parameters and codebooks bit-equal before and after")
+    if with_profile:
+        result["profile"] = profile_call(lambda: trainer.train_step(batch, 20), "[12]", "AM step")
+    return result
+
+
+def phase_am_step_card_vs_cpu():
+    """One AM step from identical state and batch on the card and on the
+    CPU: full width, 2 short utterances, dropout 0."""
+    from msmctts_tpu_torch.data.loader import to_device
+    from msmctts_tpu_torch.training.base_trainer import metrics_to_host
+
+    n_symbols = list(_am_config().task["predictor"]["n_symbols"])
+    batch = _am_batch(np.random.default_rng(8), n_symbols, 2, 16, 64, (9, 16), (40, 60))
+    out = {}
+    for device in ("cuda", "cpu"):
+        trainer = _build_am_trainer(device, dropout=0.0)
+        indices = []
+        hooks = [q.register_forward_hook(lambda m, a, o: indices.append(o[2].cpu()))
+                 for q in trainer.frozen_autoencoder().quantizer.quantizer]
+        out[device] = {"metrics": metrics_to_host(trainer.train_step(to_device(batch, device), 1)), "indices": indices}
+        for h in hooks:
+            h.remove()
+        del trainer
+    worst = 0.0
+    for k, want in out["cpu"]["metrics"].items():
+        got = out["cuda"]["metrics"][k]
+        rel = abs(got - want) / max(abs(want), 1e-3)
+        worst = max(worst, rel)
+        if rel > STEP_TOL["loss_rtol"]:
+            raise AssertionError(f"AM step, {k}: card {got} vs CPU {want}")
+    same = all(torch.equal(a, b) for a, b in zip(out["cuda"]["indices"], out["cpu"]["indices"]))
+    log(f"[12] one AM step, card vs CPU (B=2, frames {batch['mel_length'].tolist()}): teacher indices equal {same}, "
+        f"worst metric rel diff {worst:.3g} over {sorted(out['cpu']['metrics'])}")
+    if not same:
+        raise AssertionError("AM step: the teacher's indices differ between the card and the CPU")
+    return {"loss_rel": worst, "indices_equal": same, "card": out["cuda"]["metrics"], "cpu": out["cpu"]["metrics"]}
+
+
+def _write_am_corpus(d, n_symbols, n_utts=16, seed=5):
+    """A small TTSDataset corpus: phone.txt / dur.txt books, mel/*.npy, train.list."""
+    rng = np.random.default_rng(seed)
+    b = _am_batch(rng, n_symbols, n_utts, 48, 256, (12, 48), (60, 250))
+    os.makedirs(os.path.join(d, "mel"), exist_ok=True)
+    ids, phones, durs = [], [], []
+    for i in range(n_utts):
+        uid = f"am{i:03d}"
+        n, f = int(b["text_length"][i]), int(b["mel_length"][i])
+        ids.append(uid)
+        phones.append(uid + "|" + " ".join("_".join(str(v) for v in row) for row in b["text"][i, :n]))
+        durs.append(uid + "|" + " ".join(str(int(v)) for v in b["dur"][i, :n]))
+        np.save(os.path.join(d, "mel", f"{uid}.npy"), b["mel"][i, :f])
+    for name, lines in (("train.list", ids), ("phone.txt", phones), ("dur.txt", durs)):
+        with open(os.path.join(d, name), "w") as fh:
+            fh.write("\n".join(lines) + "\n")
+
+
+def phase_am_entry_point(card):
+    """``python -m msmctts_tpu_torch.train`` on the AM recipe for 2 steps at
+    batch 8 on a corpus written here, then ``predict`` from its checkpoint."""
+    import shutil
+
+    import yaml
+
+    from msmctts_tpu_torch.config import Config
+    from msmctts_tpu_torch.tasks import build_task
+    from msmctts_tpu_torch.utils.checkpoint import load_checkpoint
+
+    d = os.path.join(SMOKE_DIR, "am_corpus")
+    cfg = _am_config()
+    n_symbols = list(cfg.task["predictor"]["n_symbols"])
+    _write_am_corpus(d, n_symbols)
+    cfg["save_checkpoint_dir"] = os.path.join(SMOKE_DIR, "ckpt_am_cli")
+    shutil.rmtree(cfg["save_checkpoint_dir"], ignore_errors=True)
+    cfg["dataloader"] = {"batch_size": 8, "num_workers": 2}
+    cfg.dataset["id_list"] = os.path.join(d, "train.list")
+    cfg.dataset["feature_path"] = [os.path.join(d, "phone.txt"), os.path.join(d, "dur.txt"), os.path.join(d, "mel", "{}.npy")]
+    cfg_path = os.path.join(SMOKE_DIR, "am_cli.yaml")
+    with open(cfg_path, "w") as fh:
+        yaml.safe_dump(cfg.to_dict(), fh)
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "msmctts_tpu_torch.train", "-c", cfg_path, "--max-steps", "2", "--log-every", "1"],
+                         cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    path = os.path.join(cfg["save_checkpoint_dir"], "model_2")
+    if res.returncode != 0 or "step 2" not in res.stdout or not os.path.exists(path):
+        raise AssertionError(f"the train entry point failed ({res.returncode}):\n{res.stdout[-4000:]}\n{res.stderr[-4000:]}")
+    last = [line for line in res.stdout.splitlines() if "step 2" in line][-1]
+    log(f"[12] train entry point, 2 AM steps at batch 8 ({wall:.1f}s with start-up and checkpoint): {last.strip()}")
+
+    ck = load_checkpoint(path)
+    task = build_task(Config(ck["config"]), device="cuda")
+    task.load_variables(ck["state"])
+    rng = np.random.default_rng(6)
+    b = _am_batch(rng, n_symbols, 2, 32, 128, (10, 32), (50, 120))
+    req = {"text": b["text"], "text_length": b["text_length"], "dur": b["dur"]}
+    _reset_counts()
+    out = task.infer_step(req)
+    torch.cuda.synchronize()
+    counts = _counts()
+    ratio = task.networks["autoencoder"].frameshift_ratio
+    _check_wavs(out["wav"], b["mel_length"], ratio, "predict from the trained AM checkpoint")
+    if counts != {"vq_nearest": 4, "vq_nearest_stats": 0, "fused_resblock_layer": 36}:
+        raise AssertionError(f"predict from the AM checkpoint: launches {counts}, expected 4 VQ and 36 resblock")
+    log(f"[12] predict from {os.path.relpath(path, ROOT)} on {card} (durations given, frames {b['mel_length'].tolist()}): "
+        f"wav {[w.shape[0] for w in out['wav']]} samples, launches {counts}")
+    return {"wall_s": wall, "last_line": last.strip(), "predict_launches": counts}
+
 
 def _device_rows(prof):
     """[{name, count, device_ms}] of a profile's kernels, the longest first."""
@@ -1335,7 +1613,7 @@ def profile_call(fn, tag, what):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
-                    help="also profile one predict and write every measurement to this JSON file")
+                    help="also profile one predict, one GAN step and one AM step, and write every measurement to this JSON file")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on a GPU", file=sys.stderr)
@@ -1363,6 +1641,9 @@ def main(argv=None):
     nccl_res = phase_nccl(batch_np)
     dp_train = phase_dp_training(backend, batch_np, train_ref, env["nvidia_smi"])
     dp_infer = phase_dp_inference(backend, tts_ref)
+    am_res = phase_am_training(env["nvidia_smi"], with_profile=bool(args.out))
+    am_cpu = phase_am_step_card_vs_cpu()
+    am_cli = phase_am_entry_point(env["nvidia_smi"])
 
     kernels = [
         {
@@ -1372,6 +1653,10 @@ def main(argv=None):
             "bound_ms": vq_res["bound_ms"], "bound_by": "bytes", "library_ms": None,
             "device_ms": vq_res["device_ms"],  # the kernel alone; ms is events around the wrapper's calls
             "tolerance": VQ_TOL, "shapes": "per predict: 2 x N=512 + 2 x N=2048, H=4, d=64, K=64",
+            # the acoustic-model train step: the frozen teacher's snap, one launch per stage
+            "launches_am_step": am_res["launches_per_step"]["vq_nearest"],
+            "am_step": [{k: r[k] for k in ("N", "device_ms", "ms", "plain_ms", "bound_ms", "bound_by", "index_mismatches")}
+                        for r in am_res["snap"]],
         },
         {
             "name": "vq_nearest_stats", "route": "cuda", "source": "msmctts_tpu_torch/csrc/vq_stats.cu",
@@ -1434,9 +1719,10 @@ def main(argv=None):
                        "analysis_synthesis": as_res, "text_to_wav": tts_res, "profile": profile,
                        "training": train_res, "step_card_vs_cpu": step_res,
                        "sharded_kernels": shard_res, "nccl_world_1": nccl_res, "dp_training": dp_train,
-                       "dp_inference": dp_infer,
+                       "dp_inference": dp_infer, "am_training": am_res, "am_step_card_vs_cpu": am_cpu,
+                       "am_entry_point": am_cli,
                        "wall_s": time.perf_counter() - t_start}, f, indent=1)
-    log(f"[12] wall {time.perf_counter() - t_start:.1f}s on {env['nvidia_smi']}")
+    log(f"[13] wall {time.perf_counter() - t_start:.1f}s on {env['nvidia_smi']}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": env["name"], "count": env["count"]}}))
     return 0

@@ -1,6 +1,7 @@
 """Config-driven datasets on the host, in numpy (the port's own copy of
-``msmctts_tpu/data/datasets.py:39-431``): shape buckets, WAV I/O, and the
-``BaseDataset`` / ``MelDataset`` pair that autoencoder training reads, with
+``msmctts_tpu/data/datasets.py:39-431,478-554``): shape buckets, WAV I/O,
+``BaseDataset``, the ``MelDataset`` that autoencoder training reads and the
+``TTSDataset`` (text, durations, mel) that acoustic-model training reads, with
 the same YAML contract (parallel ``feature`` / ``dimension`` / ``frameshift``
 / ``padding_value`` lists, ``feature_path`` templates, book files, test-list
 YAMLs, ``feature_stat`` normalization, random segment cropping) and the same
@@ -355,6 +356,80 @@ class MelDataset(BaseDataset):
             ).astype(np.float32)
             out["wav"] = wav
             out["wav_length"] = lengths * mel_fs
+        if "_id" in batch[0]:
+            out["_id"] = np.array([b["_id"] for b in batch])
+        return out
+
+
+@register_dataset("TTSDataset")
+class TTSDataset(BaseDataset):
+    """text/dur/mel for acoustic-model training (tts_dataset.py:10-99).
+    Durations given in seconds (fewer than one per 100 mel frames) are
+    rescaled to frames, each rounded with its rounding error carried to the
+    next; the last duration then absorbs the difference between the mel
+    frames and the durations' sum, which may be at most 5 frames. Text is
+    padded to a text bucket, frame features to a frame bucket."""
+
+    frame_buckets = FRAME_BUCKETS
+    text_buckets = TEXT_BUCKETS
+
+    def parse_case(self, index):
+        data = super().parse_case(index)
+        data = align_features(data, self.frameshift)
+
+        text = data["text"]
+        if text.ndim == 2 and text.shape[1] == 1:
+            text = text[:, 0]
+        data["text"] = text
+        text_length = len(text)
+
+        if "dur" in data:
+            durs = np.asarray(data["dur"], np.float64)
+            if durs.ndim == 2:
+                durs = durs[:, 0]
+            if len(durs) != text_length:
+                raise ValueError(f"{self.id_list[index]}: dur {len(durs)} vs text {text_length}")
+            if "mel" in data:
+                n_frames = data["mel"].shape[0]
+                if n_frames / max(durs.sum(), 1e-9) > 100:
+                    # durations in seconds -> frames, carrying the rounding error
+                    durs = durs * self.samplerate / self.frameshift["mel"]
+                    for i in range(len(durs)):
+                        int_f = round(durs[i])
+                        if i < len(durs) - 1:
+                            durs[i + 1] += durs[i] - int_f
+                        durs[i] = int_f
+                shift = n_frames - durs.sum()
+                if not -5 <= shift <= 5:
+                    raise ValueError(f"{self.id_list[index]}: mel {n_frames} vs dur {durs.sum()}")
+                durs[-1] += shift
+            data["dur"] = durs.astype(np.float32)
+        return data
+
+    def collate_fn(self, batch):
+        out = {}
+        text_lengths = np.array([b["text"].shape[0] for b in batch], np.int32)
+        Lt = bucket_length(int(text_lengths.max()), self.text_buckets)
+        out["text_length"] = text_lengths
+        for name in ("text", "tone", "dur"):
+            if name in batch[0]:
+                out[name] = np.stack([self._pad_to(b[name], Lt, self.padding_value.get(name, 0)) for b in batch])
+        out["text"] = out["text"].astype(np.int32)
+
+        for name in ("mel", "emb", "wav", "pitch", "energy"):
+            if name not in batch[0]:
+                continue
+            lengths = np.array([b[name].shape[0] for b in batch], np.int32)
+            if name == "wav":
+                frame_fs = self.frameshift.get("mel", self.frameshift.get("emb", 1))
+                T = bucket_length(int(lengths.max()), tuple(b * frame_fs for b in self.frame_buckets))
+            else:
+                T = bucket_length(int(lengths.max()), self.frame_buckets)
+            arrs = [b[name] for b in batch]
+            arrs = [np.squeeze(a, -1) if (name == "wav" and a.ndim == 2) else a for a in arrs]
+            out[name] = np.stack([self._pad_to(a, T, self.padding_value.get(name, 0)) for a in arrs]).astype(np.float32)
+            if name in ("mel", "emb", "wav"):
+                out[name + "_length"] = lengths
         if "_id" in batch[0]:
             out["_id"] = np.array([b["_id"] for b in batch])
         return out

@@ -197,7 +197,8 @@ class MultiStageQuantizer(nn.Module):
             quant_outputs.append(quant)
             quant_diffs.append(diff)
             quant_indices.append(indices)
-            pred_states.append(dict(predictor_outputs=pred_quant, target_outputs=quant, target_lengths=length))
+            pred_states.append(dict(predictor_outputs=pred_quant, target_outputs=quant, target_indices=indices,
+                                    target_lengths=length))
             residual = repeat_upsample(residual, self.upsample_scales[i])
 
         out = dict(
@@ -212,10 +213,15 @@ class MultiStageQuantizer(nn.Module):
         return out
 
     def compute_embedding_loss(self, pred_states, methods=("mse",), loss_weights=(1.0,)):
-        """Per-stage masked embedding losses (``msmc_vqgan.py:301-342``);
-        returns a dict with 'total_loss'. Only ``mse`` is ported. Under a
-        group each loss is this rank's share: its local sum over the global
-        denominator."""
+        """Per-stage, per-method masked embedding losses
+        (``msmc_vqgan.py:301-342``); returns a dict with 'total_loss'.
+        ``loss_weights`` is per stage ([[w, ...], ...]) or one list for all.
+        Methods: ``mse`` against the target codewords, ``softmax`` (the
+        predictions read as logits over their last axis, scored at the
+        first head's target index, as the JAX package does), ``triple`` /
+        ``triple_mean`` and ``triple_sum`` (``EMAQuantizer.compute_triple_loss``).
+        Under a group each loss is this rank's share: its local sum over the
+        global denominator."""
         ref = pred_states[0]["target_outputs"]
         loss_dict = {"total_loss": torch.zeros((), dtype=torch.float32, device=ref.device)}
         for i, state in enumerate(pred_states):
@@ -227,9 +233,19 @@ class MultiStageQuantizer(nn.Module):
             mask = sequence_mask(length, p.shape[1], dtype=torch.float32)
             denom = torch.clamp(all_reduce_sum(length.float().sum(), self.group), min=1.0)
             for method, weight in zip(methods, weights):
-                if method != "mse":
-                    raise NotImplementedError(f"embedding loss '{method}' is not ported (only 'mse')")
-                loss = torch.mean(torch.square(p - state["target_outputs"].detach()), dim=-1)  # [B, T]
+                if method == "mse":
+                    loss = torch.mean(torch.square(p - state["target_outputs"].detach()), dim=-1)  # [B, T]
+                elif method == "softmax":
+                    t = state["target_indices"]
+                    if t.dim() == 3:
+                        t = t[..., 0]
+                    loss = -torch.gather(torch.log_softmax(p, dim=-1), -1, t[..., None].long())[..., 0]
+                elif method in ("triple", "triple_mean"):
+                    loss = self.quantizer[i].compute_triple_loss(p, state["target_indices"], reduction="mean")
+                elif method == "triple_sum":
+                    loss = self.quantizer[i].compute_triple_loss(p, state["target_indices"], reduction="sum")
+                else:
+                    raise ValueError(f"unknown embedding loss '{method}'")
                 loss = torch.sum(loss * mask) / denom
                 loss_dict[f"embed_loss_{method}_{i}"] = loss
                 loss_dict["total_loss"] = loss_dict["total_loss"] + loss * weight
@@ -331,3 +347,19 @@ class MSMCVQGAN(nn.Module):
         """Predicted embeddings (coarsest-first) -> waveform [B, T*r, 1]
         (msmc_vqgan.py:372-398)."""
         return self.decoder(self.synthesis_features(quantizer_outputs, quantizer_lengths))
+
+    def compute_embedding_loss(self, quantizer_outputs, quantizer_lengths, quantizer_states,
+                               methods=("mse",), loss_weights=(1.0,)):
+        """The acoustic model's embedding losses (``msmc_vqgan.py:489-508``):
+        its coarsest-first predictions against the states of ``analysis``
+        (codewords and indices) at the given per-stage lengths."""
+        pred_states = [
+            dict(
+                predictor_outputs=quantizer_outputs[i],
+                target_outputs=quantizer_states["quantizer_outputs"][i],
+                target_indices=quantizer_states["quantizer_indices"][i],
+                target_lengths=quantizer_lengths[i],
+            )
+            for i in range(len(quantizer_outputs))
+        ]
+        return self.quantizer.compute_embedding_loss(pred_states, methods, loss_weights)

@@ -1,10 +1,13 @@
 """FastSpeech-style multi-stage acoustic predictor (counterpart of
-``msmctts_tpu/models/predictor.py``), inference only.
+``msmctts_tpu/models/predictor.py``).
 
 text (phone/tone/erhua embedding sum) -> encoder FFT blocks -> length
 regulation to frame rate -> per-stage decoding coarsest-first, each stage
 conditioned on the downsampled text and the repeat-upsampled previous
-stage, and snapped to the autoencoder's codebook through ``ops/vq.py``.
+stage. In training the previous stage is the frozen autoencoder's quantizer
+output (teacher forcing) and the durations returned are the raw
+predictions; at inference it is the previous prediction, snapped to the
+autoencoder's codebook through ``ops/vq.py``.
 Names follow the reference (``word_emb``, ``encoder``, ``upsampler``,
 ``downsamplers.i``, ``decoders.i.{0,1,2}``).
 """
@@ -101,24 +104,34 @@ class MultiStagePredictor(nn.Module):
         self,
         text,
         text_length,
-        max_frames: int,
+        max_frames: Optional[int] = None,
         dur: Optional[torch.Tensor] = None,
+        feat: Optional[List[torch.Tensor]] = None,
+        feat_length: Optional[List[torch.Tensor]] = None,
         codebooks: Optional[List[torch.Tensor]] = None,
     ):
         """Returns {'feat': coarsest-first predictions, 'feat_length',
-        'text_length', 'duration'}. ``max_frames`` bounds the expansion;
-        ``dur`` forces the durations; ``codebooks`` (coarsest-first
-        [H, d, K]) enable per-stage snapping. Inference only: the teacher
-        features of training are not taken."""
+        'text_length', 'duration'}.
+
+        Training (``train()`` mode): ``dur`` and the teacher's coarsest-first
+        ``feat`` (with its per-stage ``feat_length``, used as given);
+        ``max_frames`` defaults to the teacher's fine length, and 'duration'
+        holds the raw predictions. Inference: ``max_frames`` bounds the
+        expansion; ``dur`` forces the durations; ``codebooks``
+        (coarsest-first [H, d, K]) enable per-stage snapping."""
         x, text_mask = self._encode(text, text_length)
+        if max_frames is None:
+            if feat is None:
+                raise ValueError("max_frames required when no teacher features are given")
+            max_frames = feat[-1].shape[1]
         x, total_length, _, duration = self.upsampler(x, text_mask, max_out_len=max_frames, target=dur)
-        # per-stage lengths, ceil-cumulative (fine -> coarse)
-        feat_length, total = [], total_length
-        for scale in self.n_pred_scale[::-1]:
-            total = (total + scale - 1) // scale
-            feat_length.append(total)
-        feat_length = feat_length[::-1]
-        preds = self.decode(x, feat_length, codebooks=codebooks)
+        if feat_length is None:  # per-stage lengths, ceil-cumulative (fine -> coarse)
+            feat_length, total = [], total_length
+            for scale in self.n_pred_scale[::-1]:
+                total = (total + scale - 1) // scale
+                feat_length.append(total)
+            feat_length = feat_length[::-1]
+        preds = self.decode(x, feat, feat_length, codebooks=codebooks)
         return dict(feat=preds, feat_length=feat_length, text_length=text_length, duration=duration)
 
     @torch.no_grad()
@@ -134,9 +147,9 @@ class MultiStagePredictor(nn.Module):
         dur = self.upsampler.duration_predictor(x, text_mask)
         return torch.round(torch.clamp(dur, min=0.0))
 
-    def decode(self, text_embedding, feat_lengths, codebooks=None):
-        """Per-stage cascade, each stage fed the previous stage's
-        prediction."""
+    def decode(self, text_embedding, feat, feat_lengths, codebooks=None):
+        """Per-stage cascade: stage i > 0 is fed the teacher's ``feat[i - 1]``
+        when ``feat`` is given, else the previous stage's prediction."""
         downsampled = []
         h = text_embedding
         for conv, scale in zip(self.downsamplers, self.n_pred_scale[::-1]):
@@ -150,7 +163,7 @@ class MultiStagePredictor(nn.Module):
             text_emb = downsampled[i]
             pos = positions_from_lengths(feat_lengths[i], text_emb.shape[1])
             if i > 0:
-                prev = torch.cat([output, preds[-1]], dim=-1)
+                prev = torch.cat([output, feat[i - 1] if feat is not None else preds[-1]], dim=-1)
                 prev = torch.repeat_interleave(prev, self.n_pred_scale[i - 1], dim=1)[:, : text_emb.shape[1]]
                 stage_in = torch.cat([text_emb, prev], dim=-1)
             else:

@@ -13,6 +13,11 @@ sums, and the EMA update (``quantizer.py:184-188``) then runs in plain
 tensor code on the buffers, in place, under ``no_grad``. ``train()`` mode
 is the port's counterpart of flax's mutable ``codebook`` collection.
 
+The acoustic model's triplet loss (``compute_triple_loss``) needs every
+distance to the codebook with its gradient: it takes them from the plain
+``codebook_distances``, as the JAX package takes them from its unfused
+``nearest_codes`` outside any Pallas kernel.
+
 Under data parallelism the trainer gives the module its process group
 (``group``): the training forward then goes through
 ``ops/vq.vq_nearest_stats_sharded``, which sums the statistics over ranks,
@@ -28,6 +33,20 @@ import torch.nn as nn
 
 from msmctts_tpu_torch.ops.masking import sequence_mask
 from msmctts_tpu_torch.ops.vq import vq_nearest_sharded, vq_nearest_stats_sharded
+
+
+def codebook_distances(x, embed):
+    """x [..., H, d], embed [H, d, K] -> squared distances [..., H, K] in
+    fp32, ``|x|^2 - 2 x.E + |E|^2`` in the JAX package's order
+    (``msmctts_tpu/models/quantizer.py:34-47``). Plain and differentiable:
+    the triplet loss needs every distance and its gradient, which the snap
+    kernel never materializes."""
+    x = x.float()
+    embed = embed.float()
+    x_sq = torch.sum(x * x, dim=-1, keepdim=True)  # [..., H, 1]
+    e_sq = torch.sum(embed * embed, dim=1)  # [H, K]
+    xe = torch.einsum("...hd,hdk->...hk", x, embed)
+    return x_sq - 2.0 * xe + e_sq
 
 
 def nearest_codes(x, embed):
@@ -116,3 +135,25 @@ class EMAQuantizer(nn.Module):
         diff = torch.square(quant.float() - x.float())
         quant_st = x + (quant - x).detach()
         return quant_st, diff, indices
+
+    def compute_triple_loss(self, pred, target_indices, reduction: str = "mean", margin: float = 1e-6):
+        """Triplet loss of predictions [B, T, D] against the codebook
+        (``quantizer.py:260-283``), averaged over heads -> [B, T]: the
+        squared error to the target codeword against the distances to all
+        codewords, hinged at ``margin``, with the target entry masked out by
+        the exact test ``pos_loss - dist != 0`` (kept in the JAX order of
+        operations, so that the same entries drop out)."""
+        B, T, D = pred.shape
+        H, d = self.n_head, self.sub_dim
+        if target_indices.dim() == 2:
+            target_indices = target_indices[..., None]
+        ph = pred.reshape(B, T, H, d).float()
+        dist = codebook_distances(ph, self.embed)  # [B, T, H, K]
+        target = lookup_codes(target_indices, self.embed)  # [B, T, H, d]
+        pos_loss = torch.sum(torch.square(ph - target.float()), dim=-1)  # [B, T, H]
+        raw = pos_loss[..., None] - dist  # zero exactly at the target codeword
+        self_mask = (raw != 0).float()
+        # maximum, not clamp: on a tie it splits the gradient as jnp.maximum does
+        hinge = torch.maximum(raw + margin, torch.zeros_like(raw)) * self_mask / d  # [B, T, H, K]
+        per_head = torch.mean(hinge, dim=-1) if reduction == "mean" else torch.sum(hinge, dim=-1)
+        return torch.mean(per_head, dim=-1)

@@ -1,6 +1,7 @@
 """FastSpeech-style transformer blocks (counterpart of
 ``msmctts_tpu/models/transformer.py``). Dropout sits where the JAX package
-applies it (attention weights, attention output, FFN output) and draws from
+applies it (attention weights, attention output, FFN output, both layer
+norms of the duration predictor) and draws from
 the generator the trainer binds (``ops/dropout.py``); in ``eval()`` it is
 the identity.
 
@@ -170,30 +171,37 @@ def regulate_lengths(x, durations, max_out_len: int):
 
 
 class DurationPredictor(nn.Module):
-    """2x(conv1d k -> relu -> LN) -> linear -> [B, T] durations
+    """2x(conv1d k -> relu -> LN -> dropout) -> linear -> [B, T] durations
     (reference transformer.py:481-534)."""
 
-    def __init__(self, input_size: int, filter_size: int, kernel: int = 3):
+    def __init__(self, input_size: int, filter_size: int, kernel: int = 3, dropout: float = 0.1):
         super().__init__()
         pad = _same_padding(kernel)
         self.conv1d_1 = nn.Conv1d(input_size, filter_size, kernel, padding=pad)
         self.layer_norm_1 = nn.LayerNorm(filter_size, eps=LAYERNORM_EPS)
+        self.dropout_1 = Dropout(dropout)
         self.conv1d_2 = nn.Conv1d(filter_size, filter_size, kernel, padding=pad)
         self.layer_norm_2 = nn.LayerNorm(filter_size, eps=LAYERNORM_EPS)
+        self.dropout_2 = Dropout(dropout)
         self.linear_layer = nn.Linear(filter_size, 1)
 
     def forward(self, x, non_pad):
         x = x * non_pad
         h = F.relu(self.conv1d_1(x.transpose(1, 2))).transpose(1, 2)
-        h = self.layer_norm_1(h)
+        h = self.dropout_1(self.layer_norm_1(h))
         h = F.relu(self.conv1d_2(h.transpose(1, 2))).transpose(1, 2)
-        h = self.layer_norm_2(h)
+        h = self.dropout_2(self.layer_norm_2(h))
         return (self.linear_layer(h) * non_pad)[..., 0]
 
 
 class LengthRegulator(nn.Module):
     """Duration predictor + expansion (reference transformer.py:427-478).
-    Expands by the given ``target`` durations, else by clamp_min(pred, 0)."""
+    Expands by the given ``target`` durations, else by clamp_min(pred, 0).
+
+    In ``train()`` mode with a ``target`` (teacher forcing) the durations
+    returned are the raw predictions, with their graph, for the duration
+    loss (the JAX package's ``deterministic=False``); otherwise they are the
+    rounded expansion durations, int32."""
 
     def __init__(
         self,
@@ -205,15 +213,17 @@ class LengthRegulator(nn.Module):
     ):
         super().__init__()
         self.duration_predictor = DurationPredictor(
-            input_size, duration_predictor_filter_size, duration_predictor_kernel_size
+            input_size, duration_predictor_filter_size, duration_predictor_kernel_size, dropout
         )
 
     def forward(self, x, non_pad, max_out_len: int, target: Optional[torch.Tensor] = None):
-        """-> (expanded [B, max_out_len, D], out_lengths, pos, durations int)."""
+        """-> (expanded [B, max_out_len, D], out_lengths, pos, durations)."""
         if target is not None:
             expand_dur = target
+            # inference with given durations has no use for the predictor
+            dur_out = self.duration_predictor(x, non_pad) if self.training else torch.round(target).to(torch.int32)
         else:
             expand_dur = torch.clamp(self.duration_predictor(x, non_pad), min=0.0)
-        dur_out = torch.round(expand_dur).to(torch.int32)
+            dur_out = torch.round(expand_dur).to(torch.int32)
         out, out_lengths, pos = regulate_lengths(x, expand_dur, max_out_len)
         return out, out_lengths, pos, dur_out

@@ -49,7 +49,10 @@ def _populate():
         msmc_vqgan as _msmc_vqgan,
         predictor as _predictor,
     )
-    from msmctts_tpu_torch.training import vqgan_trainer as _vqgan_trainer  # noqa: F401
+    from msmctts_tpu_torch.training import (  # noqa: F401
+        predictor_trainer as _predictor_trainer,
+        vqgan_trainer as _vqgan_trainer,
+    )
 
 
 def get_network(name: str):

@@ -82,7 +82,9 @@ class Optimizer:
         self.frozen = [p for n, p in named_params if any(r.search(n.replace(".", "/")) for r in regexes)]
 
     @torch.no_grad()
-    def step(self):
+    def step(self) -> Optional[torch.Tensor]:
+        """One update; returns the global norm of the (summed) gradients
+        before the clip (optax's ``global_norm`` of the gradient tree)."""
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
@@ -90,8 +92,8 @@ class Optimizer:
         if world(self.group) > 1 and grads:
             flat = all_reduce_sum(torch.cat([g.reshape(-1) for g in grads]), self.group)
             torch._foreach_copy_(grads, [c.view_as(g) for c, g in zip(flat.split([g.numel() for g in grads]), grads)])
+        norm = global_norm(grads) if grads else None
         if self.grad_clip is not None and grads:
-            norm = global_norm(grads)
             scale = self.grad_clip / torch.clamp(norm, min=self.grad_clip)
             torch._foreach_mul_(grads, scale)
         for p in self.frozen:
@@ -101,6 +103,7 @@ class Optimizer:
             group["lr"] = lr
         self.opt.step()
         self.count += 1
+        return norm
 
     def zero_grad(self):
         self.opt.zero_grad(set_to_none=True)

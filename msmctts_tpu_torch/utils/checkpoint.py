@@ -7,6 +7,11 @@ model_state, ...} per module). ``weights.py`` maps that tree to the port's
 ``state_dict`` and back. Stripped checkpoints store float16; the reader
 upcasts every floating array to float32, the precision of this slice.
 
+A checkpoint that a JAX trainer wrote also pickles its optimizer state as
+optax classes. The reader never imports them (the port runs where JAX is
+not installed): every class of the JAX stack comes back as a
+:class:`ForeignState`, its fields as a tuple, which the port does not read.
+
 Orbax checkpoints (directories) are not read yet.
 """
 
@@ -23,12 +28,32 @@ FORMAT = "msmctts_tpu/v1"
 CKPT_PREFIX = "model_"
 
 
+JAX_STACK = ("jax", "jaxlib", "flax", "optax")
+
+
+class ForeignState(tuple):
+    """What an object of a JAX-stack class in a checkpoint (an optax
+    optimizer state) reads back as: its constructor's arguments."""
+
+    def __new__(cls, *fields):
+        return super().__new__(cls, fields)
+
+
+class _Unpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        if module.split(".")[0] in JAX_STACK:
+            return type(name, (ForeignState,), {"__module__": f"{__name__}.{module}"})
+        return super().find_class(module, name)
+
+
 def map_leaves(tree, fn):
-    """``fn`` over every leaf of nested dicts, lists and tuples."""
+    """``fn`` over every leaf of nested dicts, lists and tuples (named
+    tuples included)."""
     if isinstance(tree, dict):
         return {k: map_leaves(v, fn) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(map_leaves(v, fn) for v in tree)
+        items = [map_leaves(v, fn) for v in tree]
+        return type(tree)(items) if type(tree) in (list, tuple) else type(tree)(*items)
     return fn(tree)
 
 
@@ -53,7 +78,7 @@ def load_checkpoint(path: str) -> dict:
             f"'{FORMAT}' pickles only"
         )
     with open(path, "rb") as f:
-        payload = pickle.load(f)
+        payload = _Unpickler(f).load()
     if payload.get("format") != FORMAT:
         raise ValueError(f"{path}: format {payload.get('format')!r}, expected {FORMAT!r}")
     payload["state"] = map_leaves(payload["state"], _upcast)

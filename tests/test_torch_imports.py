@@ -53,6 +53,8 @@ def test_scan_covers_the_training_slice():
         "msmctts_tpu_torch/training/vqgan_trainer.py", "chip_smoke.py",
         "msmctts_tpu_torch/parallel/__init__.py", "msmctts_tpu_torch/parallel/mesh.py",
         "msmctts_tpu_torch/parallel/launch.py", "msmctts_tpu_torch/train_dist.py",
+        "msmctts_tpu_torch/training/predictor_trainer.py", "msmctts_tpu_torch/models/quantizer.py",
+        "msmctts_tpu_torch/utils/checkpoint.py",
     ):
         assert rel in scanned, rel
 

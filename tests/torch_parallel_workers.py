@@ -1,4 +1,5 @@
-"""What each rank runs in ``tests/test_torch_parallel.py``.
+"""What each rank runs in ``tests/test_torch_parallel.py`` and
+``tests/test_torch_am_train.py``.
 
 The ranks are fresh processes (``msmctts_tpu_torch.parallel.launch.run_ranks``)
 that import this module to find their function, so it imports torch and the
@@ -128,6 +129,32 @@ def run_steps(trainer, batch, iterations, starts, group=None):
 def train_steps_rank(group, device, config_dict, state, batch, iterations, starts):
     torch.set_num_threads(2)
     return run_steps(build_trainer(config_dict, state, group), batch, iterations, starts, group)
+
+
+def run_am_steps(trainer, batches, group=None):
+    """A ``PredictorTrainer``'s steps over the global ``batches``, each on
+    this rank's rows; the teacher's indices of every stage pass."""
+    rank, world = mesh.rank(group), mesh.world(group)
+    indices = []
+    hooks = [q.register_forward_hook(lambda m, a, o: indices.append(o[2].numpy().copy()))
+             for q in trainer.frozen_autoencoder().quantizer.quantizer]
+    metrics, collectives = [], []
+    for it, batch in enumerate(batches, 1):
+        local = to_device(mesh.shard_rows(batch, rank, world), "cpu")
+        mesh.reset_collective_counts()
+        metrics.append({k: float(v) for k, v in trainer.train_step(local, it).items()})
+        collectives.append(mesh.collective_counts())
+    for h in hooks:
+        h.remove()
+    deviation = mesh.max_deviation_from_rank0([trainer.predictor], group)
+    W.assert_replicated([trainer.predictor], group)
+    return dict(metrics=metrics, indices=indices, collectives=collectives, deviation=deviation,
+                state=W.state_dict_numpy(trainer.predictor), rng=trainer.generator.get_state().numpy().copy())
+
+
+def am_steps_rank(group, device, config_dict, state, batches):
+    torch.set_num_threads(2)
+    return run_am_steps(build_trainer(config_dict, state, group), batches, group)
 
 
 def build_inference_task(am_checkpoint):
