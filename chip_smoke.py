@@ -53,8 +53,19 @@ Phases, each of which raises on failure:
      plain version at its N, the teacher unchanged; one step on the card
      against the CPU; the ``train`` entry point as a subprocess on a small
      corpus written here, then ``predict`` from its checkpoint;
- 13. one JSON line describing each kernel;
- 14. last line: {"ok": true, "device": {...}}.
+ 13. serving at the full width of the CSMSC AM recipe (phase 5's seeded
+     predictor, the fixture's autoencoder): a ``BatchingEngine`` (batch 4,
+     text buckets 32 and 64, frame cap 512) warmed over its 12 shapes; one
+     streamed batch at chunk 64 held against the monolithic ``predict`` of
+     the same batch and against the same stream on the CPU, with its
+     launches (4 ``vq_nearest``, 36 ``fused_resblock_layer`` per window)
+     and both kernels held against their plain versions at its shapes;
+     then ``python -m msmctts_tpu_torch.serve`` as a subprocess answering
+     16 requests (a quarter streamed) from 8 client threads, each held
+     against the in-process engine, its ``/stats`` showing no cold shape,
+     no kernel build, no error and coalesced batches;
+ 14. one JSON line describing each kernel;
+ 15. last line: {"ok": true, "device": {...}}.
 
 NCCL refuses two ranks on one device, so the two-rank phases use gloo, which
 moves CUDA tensors through host memory; the log names the backend. Their
@@ -63,8 +74,8 @@ card: no scaling figure. A rank that fails, dies or hangs fails the run.
 
 It exits non-zero, printing no result, without a CUDA device or without
 the rest of the repository. ``--out`` also profiles one warm ``predict``,
-one warm GAN step and one warm AM step (device time by kernel, busy share)
-and writes every measurement to a JSON file.
+one warm GAN step, one warm AM step and one streamed batch (device time by
+kernel, busy share) and writes every measurement to a JSON file.
 """
 
 import argparse
@@ -1571,6 +1582,310 @@ def phase_am_entry_point(card):
     return {"wall_s": wall, "last_line": last.strip(), "predict_launches": counts}
 
 
+# ------------------------------------------------------------- serving
+# Phase 13: the inference entry points at the CSMSC AM recipe's full width
+# (phase 5's seeded predictor, the fixture's autoencoder): the batching
+# engine and the streaming decode in this process, then the HTTP daemon as a
+# subprocess under concurrent load.
+SERVE_B, SERVE_TEXT_BUCKETS, SERVE_MAX_FRAMES, SERVE_CHUNK = 4, (32, 64), 512, 64
+SERVE_REQUESTS, SERVE_CLIENTS, SERVE_PHONES = 16, 8, (24, 57)
+SERVE_TIMEOUT_S = 300.0
+
+
+def _phone_string(row):
+    return " ".join("_".join(str(int(v)) for v in tok) for tok in row)
+
+
+def _hold_window_layers(gen, window, batch):
+    """Kernel 5 against its plain version at the window decode's 36 layers
+    (``batch`` rows of ``window`` frames), with kernel and plain times per
+    window decode (CUDA events)."""
+    from msmctts_tpu_torch.ops import resblock as rb
+
+    rows, worst, T = [], 0.0, window
+    for C, up in STAGES:
+        T *= up
+        x = torch.randn(batch, T, C, device="cuda", generator=gen)
+        for k in RB_KERNELS:
+            w1, b1, w2, b2 = _resblock_case(gen, C, k)
+            prepared = rb.prepare_taps(w1, w2)
+            for d in RB_DILATIONS:
+                err = _hold_resblock(rb, f"window C={C} T={T} k={k} d={d}", x, w1, b1, w2, b2, d, prepared)
+                worst = max(worst, err)
+                flops = 4 * k * C * C * batch * T
+                nbytes = (2 * batch * T * C + 2 * (k * C * C + C)) * 4
+                rows.append({
+                    "C": C, "T": T, "k": k, "d": d, "max_abs_err": err,
+                    "ms": time_ms(lambda: rb.fused_resblock_layer(x, w1, b1, w2, b2, d, prepared), runs=5, reps=3, warmup=1),
+                    "plain_ms": time_ms(lambda: rb.fused_resblock_layer_plain(x, w1, b1, w2, b2, d), runs=5, reps=3, warmup=1),
+                    "bound_ms": bound(nbytes, 3 * flops, PEAK_TF32)[0],
+                })
+    total = {key: sum(r[key] for r in rows) for key in ("ms", "plain_ms", "bound_ms")}
+    shapes = sorted({(r["C"], r["T"]) for r in rows}, reverse=True)
+    return {"max_abs_err": worst, "shapes": [{"B": batch, "T": T, "C": C} for C, T in shapes], **total}
+
+
+def _wait_for_line(lines, prefix, proc, timeout):
+    """The first line of the daemon's output that starts with ``prefix``."""
+    import queue
+
+    deadline = time.perf_counter() + timeout
+    while time.perf_counter() < deadline:
+        try:
+            line = lines.get(timeout=1.0)
+        except queue.Empty:
+            if proc.poll() is not None:
+                raise AssertionError(f"the serving daemon exited with {proc.returncode} before '{prefix}'")
+            continue
+        log(f"[13] daemon: {line.rstrip()}")
+        if line.startswith(prefix):
+            return line
+    raise AssertionError(f"the serving daemon printed no '{prefix}' within {timeout:.0f}s")
+
+
+def _http(port, method, path, body=None, timeout=SERVE_TIMEOUT_S):
+    """-> (status, body bytes, seconds to the response's headers, total seconds)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        t0 = time.perf_counter()
+        conn.request(method, path, body=json.dumps(body) if body is not None else None,
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        t_head = time.perf_counter() - t0
+        data = resp.read()
+        return resp.status, data, t_head, time.perf_counter() - t0
+    finally:
+        conn.close()
+
+
+def _pcm(data, stream):
+    """int16 samples of a WAV body: a streamed one has the daemon's 44-byte
+    header of unknown length."""
+    import io
+
+    from scipy.io import wavfile
+
+    if data[:4] != b"RIFF" or data[8:12] != b"WAVE":
+        raise AssertionError(f"not a WAV body: {data[:16]!r}")
+    return np.frombuffer(data[44:], "<i2") if stream else wavfile.read(io.BytesIO(data))[1]
+
+
+def phase_serving(card, am_path, with_profile=False):
+    import queue
+    import threading
+
+    from msmctts_tpu_torch.ops import cuda_build
+    from msmctts_tpu_torch.serving import BatchingEngine
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    task = _load_tts_task(am_path, "cuda")
+    n_symbols = list(task.networks["predictor"].n_symbols)
+    ratio = task.networks["autoencoder"].frameshift_ratio
+    eng = BatchingEngine(task, sample_rate=task.samplerate, batch_size=SERVE_B, window_ms=0.0,
+                         text_buckets=SERVE_TEXT_BUCKETS, max_frames=SERVE_MAX_FRAMES, stream_chunk_frames=SERVE_CHUNK)
+    torch.cuda.synchronize()
+    warm_s = eng.warmup()
+    frame_buckets = eng._reachable_frame_buckets()
+    log(f"[13] in-process warmup on {card}: {warm_s:.3f}s, {len(task.shapes)} shapes "
+        f"(text buckets {list(SERVE_TEXT_BUCKETS)} x frame buckets {frame_buckets}, streaming {eng._streaming_warm})")
+    if len(frame_buckets) != 6 or not eng._streaming_warm:
+        raise AssertionError(f"warmup: frame buckets {frame_buckets}, streaming warm {eng._streaming_warm}")
+
+    # (a) one streamed batch of 4 at chunk 64, forced durations of 4-6 frames a phone:
+    # the longest utterance spans at least 4 chunks
+    rng = np.random.default_rng(13)
+    n_phones = [64, 57, 40, 33]
+    Lt = max(SERVE_TEXT_BUCKETS)
+    text = _text(rng, n_phones, n_symbols, Lt)
+    dur = rng.integers(4, 7, size=(SERVE_B, Lt)).astype(np.float32) * (np.arange(Lt)[None] < np.array(n_phones)[:, None])
+    batch = {"text": text, "text_length": np.array(n_phones), "dur": dur}
+    shapes_before = set(task.shapes)
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    meta, chunks = task.predict_stream(batch, chunk_frames=SERVE_CHUNK)
+    pieces, first_ms = [], None
+    for c in chunks:
+        pieces.append(c)
+        if first_ms is None:
+            first_ms = (time.perf_counter() - t0) * 1e3  # the chunk is on the host: the device has finished it
+    stream_ms = (time.perf_counter() - t0) * 1e3
+    counts = _counts()
+    streamed = np.concatenate(pieces, axis=1)
+    sd = task._streaming_decoder(SERVE_CHUNK)
+    F = int(task._predict_phase1(batch)["max_frames"])
+    n_windows = len(pieces)
+    if n_windows < 4 or F <= sd.window_frames:
+        raise AssertionError(f"streamed batch: {n_windows} chunks of a {F}-frame bucket, window {sd.window_frames}")
+    want_counts = {"vq_nearest": 4, "vq_nearest_stats": 0, "fused_resblock_layer": 36 * n_windows}
+    if counts != want_counts:
+        raise AssertionError(f"streamed batch: launches {counts}, expected {want_counts}")
+    if set(task.shapes) != shapes_before:
+        raise AssertionError(f"streamed batch ran shapes the warmup did not: {set(task.shapes) - shapes_before}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mono = task.predict(batch)
+    torch.cuda.synchronize()
+    mono_ms = (time.perf_counter() - t0) * 1e3
+    _check_wavs(mono["wav"], mono["mel_length"], ratio, "predict of the streamed batch")
+    diffs = []
+    for i, w in enumerate(mono["wav"]):
+        if int(meta["wav_length"][i]) != w.shape[0]:
+            raise AssertionError(f"stream row {i}: {meta['wav_length'][i]} samples, predict {w.shape[0]}")
+        diffs.append(float(np.abs(streamed[i, : w.shape[0]] - w).max()))
+    bit_equal = all(np.array_equal(streamed[i, : w.shape[0]], w) for i, w in enumerate(mono["wav"]))
+    log(f"[13] streamed batch B={SERVE_B} phones {n_phones} (text bucket {Lt}, frame bucket {F}, frames "
+        f"{meta['mel_length'].tolist()}): {n_windows} windows of {sd.window_frames} frames (R = {sd.context_frames}), "
+        f"launches {counts}; stream vs monolithic predict on the card: max abs diff {max(diffs):.3g}, bit-equal {bit_equal}")
+    if max(diffs) > AS_TOL:
+        raise AssertionError(f"stream differs from predict by {max(diffs)}")
+    log(f"[13] streamed batch on {card}: first chunk {first_ms:.1f} ms, whole stream {stream_ms:.1f} ms, "
+        f"monolithic predict {mono_ms:.1f} ms (host clock)")
+
+    # the kernels against their plain versions at this path's shapes
+    from msmctts_tpu_torch.ops import vq
+
+    snap_err, snap_flips = 0.0, 0
+    for N in (SERVE_B * F // 4, SERVE_B * F):
+        x, e = _vq_case(gen, N)
+        idx, quant = vq.vq_nearest(x, e)
+        ref_idx, ref_quant = vq.vq_nearest_plain(x, e)
+        err, flips = _hold_snap(f"vq serving N={N}", x, e, idx, quant, ref_idx, ref_quant)
+        snap_err, snap_flips = max(snap_err, err), snap_flips + flips
+    window = _hold_window_layers(gen, sd.window_frames, SERVE_B)
+    log(f"[13] kernels at the serving shapes: vq_nearest N={SERVE_B * F // 4} and {SERVE_B * F}: max abs err {snap_err}, "
+        f"mismatches {snap_flips}; fused_resblock_layer at the window's 36 layers "
+        f"{[(s['C'], s['T']) for s in window['shapes']]}: max abs err {window['max_abs_err']:.3g}, per window decode "
+        f"{window['ms']:.3f} ms kernel, {window['plain_ms']:.3f} ms plain, bound {window['bound_ms']:.3f} ms")
+
+    # the same stream on the CPU (the longest row alone)
+    one = {k: v[:1] for k, v in batch.items()}
+    card_one = np.concatenate(list(task.predict_stream(one, chunk_frames=SERVE_CHUNK)[1]), axis=1)
+    cpu = _load_tts_task(am_path, "cpu")
+    cpu.max_frames_cap = SERVE_MAX_FRAMES
+    t0 = time.perf_counter()
+    cpu_one = np.concatenate(list(cpu.predict_stream(one, chunk_frames=SERVE_CHUNK)[1]), axis=1)
+    cpu_s = time.perf_counter() - t0
+    del cpu
+    cpu_err = float(np.abs(card_one - cpu_one).max()) if card_one.shape == cpu_one.shape else float("inf")
+    log(f"[13] stream of {n_phones[0]} phones ({card_one.shape[1]} samples), card vs CPU: max abs err {cpu_err:.3g} "
+        f"(CPU {cpu_s:.1f}s)")
+    if cpu_err > AS_TOL:
+        raise AssertionError(f"stream on the card vs the CPU: {card_one.shape} vs {cpu_one.shape}, err {cpu_err}")
+    profile = None
+    if with_profile:
+        profile = profile_call(lambda: [None for _ in task.predict_stream(batch, chunk_frames=SERVE_CHUNK)[1]],
+                               "[13]", "streamed batch")
+
+    # (b) the daemon as a subprocess under 8 concurrent clients
+    texts = [_phone_string(_text(rng, [int(n)], n_symbols, int(n))[0]) for n in rng.integers(SERVE_PHONES[0], SERVE_PHONES[1] + 1, 12)]
+    requests = [(t, False) for t in texts] + [(t, True) for t in texts[:SERVE_REQUESTS // 4]]
+    rng.shuffle(requests)
+    eng.start()
+    try:
+        alone = {t: eng.synthesize(t, timeout=SERVE_TIMEOUT_S) for t in texts}
+    finally:
+        eng.stop()
+    builds_before = cuda_build.build_count()
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    cmd = [sys.executable, "-m", "msmctts_tpu_torch.serve", "-m", am_path, "--port", "0", "--batch-size", str(SERVE_B),
+           "--max-frames", str(SERVE_MAX_FRAMES), "--text-buckets", *map(str, SERVE_TEXT_BUCKETS),
+           "--warmup-lengths", *map(str, SERVE_TEXT_BUCKETS)]
+    t_start = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(line) for line in proc.stdout], daemon=True).start()
+    try:
+        warm_line = _wait_for_line(lines, "warmup:", proc, SERVE_TIMEOUT_S)
+        daemon_warm_s = float(warm_line.split(" in ")[1].split("s ")[0])
+        port = int(_wait_for_line(lines, "serving on", proc, 60).rsplit(":", 1)[1])
+        status, data, _, _ = _http(port, "GET", "/healthz")
+        if status != 200:
+            raise AssertionError(f"/healthz {status}: {data[:200]!r}")
+        ready_s = time.perf_counter() - t_start
+        waves = []
+        for wave in (1, 2):  # the second wave: the same requests on a server that has served
+            results = [None] * len(requests)
+
+            def client(worker):
+                for i in range(worker, len(requests), SERVE_CLIENTS):
+                    t, stream = requests[i]
+                    results[i] = _http(port, "POST", "/synthesize", {"text": t, "stream": stream})
+
+            threads = [threading.Thread(target=client, args=(w,)) for w in range(SERVE_CLIENTS)]
+            t0 = time.perf_counter()
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(SERVE_TIMEOUT_S)
+            load_s = time.perf_counter() - t0
+            if any(th.is_alive() for th in threads) or any(r is None for r in results):
+                raise AssertionError(f"wave {wave} of the serving load did not finish")
+            status, data, _, _ = _http(port, "GET", "/stats")
+            waves.append({"results": results, "load_s": load_s, "stats": json.loads(data)})
+        if proc.poll() is not None:
+            raise AssertionError(f"the serving daemon died with {proc.returncode}")
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(30)
+    worst, stream_lsb = 0.0, 0
+    for wave, w in enumerate(waves, 1):
+        blocking_pcm = {}
+        for (t, stream), (status, data, _, _) in zip(requests, w["results"]):
+            if status != 200:
+                raise AssertionError(f"wave {wave}, {len(t.split())} phones (stream {stream}): {status} {data[:300]!r}")
+            pcm = _pcm(data, stream)
+            want = alone[t]
+            if pcm.shape != want.shape:
+                raise AssertionError(f"wave {wave}: response of {pcm.shape} samples, in-process {want.shape} (stream {stream})")
+            worst = max(worst, float(np.abs(pcm / 32767.0 - want).max()))
+            if not stream:
+                blocking_pcm[t] = pcm
+        for (t, stream), (_, data, _, _) in zip(requests, w["results"]):
+            if stream:
+                lsb = np.abs(_pcm(data, True).astype(np.int32) - blocking_pcm[t].astype(np.int32)).max()
+                stream_lsb = max(stream_lsb, int(lsb))
+        stats = w["stats"]
+        if stats["cold_shapes"] != 0 or stats["kernel_builds"] != 0 or stats["errors"] != 0 or not stats["mean_batch_size"] > 1:
+            raise AssertionError(f"daemon /stats after wave {wave}: {stats}")
+        lat = sorted(r[3] for (_, s), r in zip(requests, w["results"]) if not s)
+        first = sorted(r[2] for (_, s), r in zip(requests, w["results"]) if s)
+        w.update(p50=statistics.median(lat), p95=lat[min(len(lat) - 1, int(0.95 * len(lat)))], first=first)
+        del w["results"]
+        log(f"[13] daemon on {card}, wave {wave}: {len(requests)} requests ({len(first)} streamed) from {SERVE_CLIENTS} "
+            f"clients in {w['load_s']:.2f}s: blocking latency p50 {w['p50'] * 1e3:.1f} ms, p95 {w['p95'] * 1e3:.1f} ms "
+            f"(client clock; engine's p50 / p95 so far {stats['latency_s']['p50'] * 1e3:.1f} / "
+            f"{stats['latency_s']['p95'] * 1e3:.1f} ms); streamed first chunk {[round(f * 1e3, 1) for f in first]} ms; "
+            f"{stats['batches']} batches so far, mean size {stats['mean_batch_size']:.2f}, device real-time factor "
+            f"{stats['device_realtime_factor']}")
+    if worst > AS_TOL or stream_lsb > 1:
+        raise AssertionError(f"served audio vs in-process: {worst}; streamed vs blocking PCM: {stream_lsb} LSB")
+    if cuda_build.build_count() != builds_before:
+        raise AssertionError("this process built a kernel during the serving phase")
+    log(f"[13] daemon ready in {ready_s:.1f}s (warmup {daemon_warm_s:.3f}s); served vs in-process max abs err {worst:.3g}, "
+        f"streamed vs blocking PCM at most {stream_lsb} LSB; /stats {json.dumps(stats)}")
+    p50, p95, first, load_s = waves[0]["p50"], waves[0]["p95"], waves[0]["first"], waves[0]["load_s"]
+    return {
+        "warmup_s": warm_s, "shapes": len(task.shapes), "frame_buckets": frame_buckets,
+        "stream": {"phones": n_phones, "frame_bucket": F, "frames": meta["mel_length"].tolist(), "windows": n_windows,
+                   "window_frames": sd.window_frames, "context_frames": sd.context_frames, "launches": counts,
+                   "max_abs_diff_vs_predict": max(diffs), "bit_equal": bit_equal, "first_chunk_ms": first_ms,
+                   "stream_ms": stream_ms, "predict_ms": mono_ms, "cpu_err": cpu_err, "cpu_s": cpu_s},
+        "snap": {"N": [SERVE_B * F // 4, SERVE_B * F], "max_abs_err": snap_err, "mismatches": snap_flips},
+        "window": window, "profile": profile,
+        "daemon": {"ready_s": ready_s, "warmup_s": daemon_warm_s, "load_s": load_s, "requests": len(requests),
+                   "streamed": len(first), "latency_p50_ms": p50 * 1e3, "latency_p95_ms": p95 * 1e3,
+                   "first_chunk_ms": [f * 1e3 for f in first], "served_err": worst, "stream_lsb": stream_lsb,
+                   "stats": stats, "waves": waves},
+    }
+
+
 def _device_rows(prof):
     """[{name, count, device_ms}] of a profile's kernels, the longest first."""
     from torch.autograd import DeviceType
@@ -1644,6 +1959,10 @@ def main(argv=None):
     am_res = phase_am_training(env["nvidia_smi"], with_profile=bool(args.out))
     am_cpu = phase_am_step_card_vs_cpu()
     am_cli = phase_am_entry_point(env["nvidia_smi"])
+    t_serving = time.perf_counter()
+    serving = phase_serving(env["nvidia_smi"], tts_ref["am_path"], with_profile=bool(args.out))
+    serving["phase_s"] = time.perf_counter() - t_serving
+    log(f"[13] serving phase {serving['phase_s']:.1f}s")
 
     kernels = [
         {
@@ -1657,6 +1976,9 @@ def main(argv=None):
             "launches_am_step": am_res["launches_per_step"]["vq_nearest"],
             "am_step": [{k: r[k] for k in ("N", "device_ms", "ms", "plain_ms", "bound_ms", "bound_by", "index_mismatches")}
                         for r in am_res["snap"]],
+            # serving: one streamed batch (predict_features), and the kernel at its N
+            "launches_serving": serving["stream"]["launches"]["vq_nearest"],
+            "serving": {**serving["snap"], "frame_bucket": serving["stream"]["frame_bucket"]},
         },
         {
             "name": "vq_nearest_stats", "route": "cuda", "source": "msmctts_tpu_torch/csrc/vq_stats.cu",
@@ -1703,6 +2025,10 @@ def main(argv=None):
             "bound_ms": rb_res["bound_ms"], "bound_by": "operations", "library_ms": rb_res["library_ms"],
             "body": sorted({r["body"] for r in rb_res["rows"]}), "bound_fp32_ms": rb_res["bound_fp32_ms"],
             "per_width": rb_res["per_width"],
+            # serving: 36 per window decode, over every window of one streamed batch
+            "launches_serving": serving["stream"]["launches"]["fused_resblock_layer"],
+            "window_shapes": serving["window"]["shapes"],
+            "window": {k: serving["window"][k] for k in ("ms", "plain_ms", "bound_ms", "max_abs_err")},
             "tolerance": {**RB_TOL, "max_abs": RB_MAX_ABS},
             "shapes": f"per decode: the 36 CSMSC MRF layers at B={B}, {FRAMES} frames; bound_ms counts the kernel's operations, "
                       "three TF32 tensor-core products per fp32 product at 495 TFLOP/s; bound_fp32_ms the same products as "
@@ -1720,9 +2046,9 @@ def main(argv=None):
                        "training": train_res, "step_card_vs_cpu": step_res,
                        "sharded_kernels": shard_res, "nccl_world_1": nccl_res, "dp_training": dp_train,
                        "dp_inference": dp_infer, "am_training": am_res, "am_step_card_vs_cpu": am_cpu,
-                       "am_entry_point": am_cli,
+                       "am_entry_point": am_cli, "serving": serving,
                        "wall_s": time.perf_counter() - t_start}, f, indent=1)
-    log(f"[13] wall {time.perf_counter() - t_start:.1f}s on {env['nvidia_smi']}")
+    log(f"[14] wall {time.perf_counter() - t_start:.1f}s on {env['nvidia_smi']}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": env["name"], "count": env["count"]}}))
     return 0

@@ -129,3 +129,11 @@ def to_device(batch: dict, device) -> dict:
         t = t.float() if t.is_floating_point() else t.long()
         out[key] = t.pin_memory().to(device, non_blocking=True) if cuda else t.to(device)
     return out
+
+
+def finite_loader(dataset, batch_size: int = 1):
+    """Sequential single pass over ``dataset`` in order, collated
+    (``infer.py``'s loader)."""
+    n = len(dataset)
+    for i in range(0, n, batch_size):
+        yield dataset.collate_fn([dataset[j] for j in range(i, min(n, i + batch_size))])

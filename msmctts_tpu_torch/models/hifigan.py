@@ -40,6 +40,37 @@ def _get_padding(kernel_size: int, dilation: int = 1) -> int:
     return (kernel_size * dilation - dilation) // 2
 
 
+def receptive_field_frames(decoder_config) -> int:
+    """Conservative one-sided receptive-field radius of HifiGANGenerator,
+    in input-frame units (``msmctts_tpu/models/hifigan.py:40-70``, the same
+    integer arithmetic).
+
+    Any output sample depends only on input frames within this radius, so a
+    chunk decoded with this much context on each side reproduces the
+    monolithic decode in its interior (``streaming.py``). Every conversion
+    rounds up.
+    """
+    rates = list(decoder_config["upsample_rates"])
+    ks = list(decoder_config["upsample_kernel_sizes"])
+    rks = list(decoder_config["resblock_kernel_sizes"])
+    rds = list(decoder_config["resblock_dilation_sizes"])
+    # MRF radius in stage-output units: within ResBlock1 each dilation d
+    # applies conv(k, d) then conv(k, 1) sequentially (radii add through
+    # the residual chain); parallel kernels take the max.
+    mrf = max(
+        sum((k - 1) * d // 2 + (k - 1) // 2 for d in dil)
+        for k, dil in zip(rks, rds)
+    )
+    r = 3.0  # conv_pre, k=7
+    cum = 1.0
+    for u, k in zip(rates, ks):
+        r += math.ceil(k / u) / cum  # transposed-conv input window
+        cum *= u
+        r += mrf / cum
+    r += 3.0 / cum  # conv_post, k=7 (output-sample units)
+    return int(math.ceil(r)) + 1  # slack for window-floor effects
+
+
 class ResBlock1(nn.Module):
     """MRF residual block (hifigan/common.py:21-58). ``forward`` takes
     [B, T, C] and runs each dilation layer as one ``fused_resblock_layer``

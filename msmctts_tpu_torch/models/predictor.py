@@ -56,6 +56,7 @@ class MultiStagePredictor(nn.Module):
     ):
         super().__init__()
         syms = n_symbols if isinstance(n_symbols, (list, tuple)) else [n_symbols]
+        self.n_symbols = n_symbols  # vocabulary per phone stream (serving draws warmup text from it)
         M = n_model_size
         # one stream is a bare Embedding in the reference, several a list
         if len(syms) == 1:

@@ -9,7 +9,9 @@ import: a kernel builds at its first launch, or ahead of time through
 
 A launcher returns ``cudaGetLastError()`` after the launch; a non-zero code
 raises here. Every :class:`CudaKernel` counts its successful launches in
-``launches``, so a run can show that its path went through the kernel.
+``launches``, so a run can show that its path went through the kernel, and
+:func:`build_count` counts the nvcc builds this process ran (a warmed server
+reports 0 new ones under traffic).
 """
 
 from __future__ import annotations
@@ -36,6 +38,13 @@ NVCC_FLAGS = (
 )
 
 _LOCK = threading.Lock()
+_BUILDS = [0]  # nvcc builds that completed in this process
+
+
+def build_count() -> int:
+    """Sources this process has compiled with nvcc (cached libraries not
+    counted)."""
+    return _BUILDS[0]
 
 
 def _nvcc() -> str:
@@ -80,6 +89,7 @@ def build(names: Iterable[str]) -> Dict[str, dict]:
             failed.append(f"--- {name} (nvcc exit {proc.returncode}) ---\n{log}")
             continue
         os.replace(tmp, path)
+        _BUILDS[0] += 1
         out[name] = {"seconds": time.perf_counter() - t0, "log": log, "cached": False}
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))

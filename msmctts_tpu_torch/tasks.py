@@ -22,8 +22,22 @@ computes its contiguous block of rows with its replica of the weights
 nothing) and the outputs are gathered in rank order, so every rank returns
 the whole batch's result.
 
+``predict_stream`` is the streaming surface (``msmctts_tpu/tasks.py:666-707``):
+the same two phases up to the decoder's input features
+(``predict_features``), then the HiFi-GAN decode in windows of
+``chunk + 2R`` frames sliced from the device-resident features
+(``streaming.StreamingDecoder``), chunk by chunk. ``max_frames_cap`` clamps
+every utterance's frame total (the serving cap that makes the reachable
+(text bucket x frame bucket) set finite), and ``static_max_frames`` pins one
+frame bucket, so that nothing returns to the host before the waveform.
+``shapes`` records every shape the task has run, keyed like the JAX
+package's ``_jit_cache``: ``("dur", Lt)``, ``("syn", Lt, F)``,
+``("stream", chunk, Lt, F)`` and ``("ae", T)``; it is the eager port's
+counterpart of "this graph is compiled", and serving counts the shapes first
+run after its warmup (``serving.py``).
+
 Everything runs in fp32 on ``device`` (``cuda`` unless the caller asks for
-the CPU). No int8 decoder or streaming yet.
+the CPU). No int8 decoder yet (ROADMAP A14).
 """
 
 from __future__ import annotations
@@ -38,6 +52,7 @@ from msmctts_tpu_torch.config import Config, component_kwargs
 from msmctts_tpu_torch.data.datasets import FRAME_BUCKETS, bucket_length
 from msmctts_tpu_torch.parallel import mesh
 from msmctts_tpu_torch.registry import get_network, get_task, register_task
+from msmctts_tpu_torch.streaming import StreamingDecoder
 from msmctts_tpu_torch.utils.checkpoint import load_checkpoint
 from msmctts_tpu_torch.utils.device import exact_fp32, resolve_device
 from msmctts_tpu_torch.weights import (
@@ -129,6 +144,14 @@ class MSMCTTS(BaseTask):
         self.training_mode = config.task.get("_mode", "train_autoencoder")
         self._loaded_modules = False
         self._group = None  # data-parallel inference, see use_mesh
+        # When set (frames), predict() uses this one frame bucket and reads
+        # nothing back before the waveform (no host bucket pick).
+        self.static_max_frames: Optional[int] = None
+        # When set (frames), every utterance's frame total is clamped to it
+        # (audio past it is truncated): the serving cap.
+        self.max_frames_cap: Optional[int] = None
+        self.shapes: set = set()  # see the module docstring
+        self._streamers: Dict[int, StreamingDecoder] = {}
 
     # -------------------------------------------------------------- mesh
     def use_mesh(self, group) -> "MSMCTTS":
@@ -183,6 +206,7 @@ class MSMCTTS(BaseTask):
         if ae.training:
             raise RuntimeError("analysis_synthesis needs the autoencoder in eval() mode")
         T = int(batch["mel"].shape[1])
+        self.shapes.add(("ae", T))
         local = self._local_rows(batch)
         out = ae(self._tensor(local["mel"], torch.float32), self._tensor(local["mel_length"], torch.long))
         wav = self._gather(out["decoder_outputs"][..., 0])
@@ -196,32 +220,60 @@ class MSMCTTS(BaseTask):
     def _predict_phase1(self, batch: dict) -> dict:
         """Durations (predicted, or forced by ``dur`` in the batch), rounded
         and masked, of this rank's rows, and the global batch's frame
-        bucket: the largest frame total rounded up to ``FRAME_BUCKETS``, at
-        least lcm(n_pred_scale). ``total`` covers the global batch."""
+        bucket: the largest frame total (clamped to ``max_frames_cap``)
+        rounded up to ``FRAME_BUCKETS``, at least lcm(n_pred_scale).
+        ``total`` covers the global batch; with ``static_max_frames`` and
+        predicted durations it is None, the bucket is the static one, and
+        the totals stay on the device (``total_dev``, this rank's rows)."""
         predictor = self.networks["predictor"]
         scales = list(predictor.n_pred_scale)
         lcm = math.lcm(*scales) if scales else 1
         text = self._tensor(batch["text"], torch.long)
         text_length = self._tensor(batch["text_length"], torch.long)
+        Lt = int(text.shape[1])
+        cap = int(self.max_frames_cap) if self.max_frames_cap else None
+        total_dev = None
         if "dur" in batch:
             given = np.asarray(batch["dur"], np.float32)
             mask = np.arange(given.shape[1])[None, :] < np.asarray(batch["text_length"])[:, None]
             given = np.round(np.maximum(given, 0.0)) * mask
             durations = self._tensor(given, torch.float32)
             total = given.sum(axis=1).astype(np.int64)
+            if cap:
+                total = np.minimum(total, cap)
         else:
+            self.shapes.add(("dur", Lt))
             dur = predictor.predict_durations(text, text_length)
             mask = torch.arange(dur.shape[1], device=self.device)[None, :] < text_length[:, None]
             durations = dur * mask
-            total = durations.sum(dim=1).long().cpu().numpy()  # one small D2H
-        if mesh.world(self._group) > 1:  # one bucket for the whole batch: every rank's totals
+            total_dev = durations.sum(dim=1).long()
+            if self.static_max_frames is not None:
+                total = None  # nothing crosses to the host before the waveform
+            else:
+                total = total_dev.cpu().numpy()  # one small D2H
+                if cap:
+                    total = np.minimum(total, cap)
+        if total is not None and mesh.world(self._group) > 1:  # one bucket for the whole batch
             total = self._gather(torch.as_tensor(total, device=self.device))
-        max_frames = bucket_length(max(int(total.max()), lcm), FRAME_BUCKETS)
-        return dict(text=text, text_length=text_length, durations=durations, total=total, max_frames=max_frames)
+        longest = int(self.static_max_frames) if total is None else int(total.max())
+        max_frames = bucket_length(max(longest, lcm), FRAME_BUCKETS)
+        return dict(text=text, text_length=text_length, Lt=Lt, durations=durations, total=total,
+                    total_dev=total_dev, max_frames=max_frames)
+
+    def _totals(self, p1: dict) -> np.ndarray:
+        """The global batch's frame totals, at most the frame bucket (read
+        from the device in static-frames mode)."""
+        total = p1["total"]
+        if total is None:
+            total = self._gather(p1["total_dev"])
+        return np.minimum(total.astype(np.int64), p1["max_frames"])
 
     @torch.inference_mode()
-    def predict(self, batch: dict) -> dict:
-        """text -> MSMCR -> waveform (msmc_tts.py:109-127)."""
+    def predict_features(self, batch: dict):
+        """Phases 1-2 of ``predict`` up to (excluding) the HiFi-GAN decoder,
+        on this rank's rows. Returns ``(p1, out, feats)`` with ``feats``
+        [B, max_frames, C] left on the device: the streaming decode slices
+        its windows out of it."""
         predictor = self.networks["predictor"]
         ae = self.networks["autoencoder"]
         p1 = self._predict_phase1(self._local_rows(batch))
@@ -229,9 +281,16 @@ class MSMCTTS(BaseTask):
             p1["text"], p1["text_length"], dur=p1["durations"],
             max_frames=p1["max_frames"], codebooks=extract_codebooks(ae),
         )
-        wav = self._gather(ae.synthesis(out["feat"], out["feat_length"])[..., 0])
+        return p1, out, ae.synthesis_features(out["feat"], out["feat_length"])
+
+    @torch.inference_mode()
+    def predict(self, batch: dict) -> dict:
+        """text -> MSMCR -> waveform (msmc_tts.py:109-127)."""
+        p1, out, feats = self.predict_features(batch)
+        self.shapes.add(("syn", p1["Lt"], p1["max_frames"]))
+        wav = self._gather(self.networks["autoencoder"].decoder(feats)[..., 0])
         fine = self._gather(out["feat"][-1])
-        total = p1["total"]
+        total = self._totals(p1)
         ratio = wav.shape[1] // fine.shape[1]
         wav_lengths = (total * ratio).astype(np.int64)
         return {
@@ -240,3 +299,52 @@ class MSMCTTS(BaseTask):
             "duration": self._gather(p1["durations"]),
             "mel_length": total,
         }
+
+    def _streaming_decoder(self, chunk_frames: int) -> StreamingDecoder:
+        """The cached StreamingDecoder of the autoencoder's HiFi-GAN decoder
+        (``MSMCVQGAN`` builds no other) for one chunk size. It holds the
+        module itself, so a weight reload reaches it."""
+        sd = self._streamers.get(chunk_frames)
+        if sd is None:
+            ae = self.networks["autoencoder"]
+            sd = StreamingDecoder.from_generator(ae.decoder, ae.decoder_config, chunk_frames)
+            self._streamers[chunk_frames] = sd
+        return sd
+
+    def predict_stream(self, batch: dict, chunk_frames: int = 64):
+        """Streaming synthesis for low time-to-first-audio: text -> MSMCR ->
+        waveform CHUNKS, whose concatenation is the monolithic decode.
+
+        Returns ``(meta, chunks)``: ``meta`` has per-utterance
+        ``wav_length`` / ``mel_length`` (host ints, for trimming), ``hop``
+        and ``duration``; ``chunks`` is a generator of float32
+        [B, <=chunk_frames*hop] arrays, left to right. Utterance i's samples
+        are the first ``wav_length[i]`` of the concatenation. It stops once
+        every utterance is covered: the padded tail of the frame bucket is
+        never decoded. Each step of the generator runs under its own
+        ``torch.inference_mode()`` (``StreamingDecoder.stream`` takes it per
+        step), in whichever thread consumes it."""
+        if mesh.world(self._group) > 1:
+            raise NotImplementedError("streaming over an inference group is not ported (ROADMAP A12c)")
+        p1, _, feats = self.predict_features(batch)
+        sd = self._streaming_decoder(chunk_frames)
+        self.shapes.add(("stream", chunk_frames, p1["Lt"], p1["max_frames"]))
+        total = self._totals(p1)
+        wav_length = total * sd.hop
+        meta = {
+            "mel_length": total,
+            "wav_length": wav_length,
+            "hop": sd.hop,
+            "duration": p1["durations"].cpu().numpy(),
+        }
+
+        def chunks():
+            need = int(wav_length.max())
+            produced = 0
+            for chunk in sd.stream(feats):
+                yield chunk
+                produced += chunk.shape[1]
+                if produced >= need:
+                    return
+
+        return meta, chunks()

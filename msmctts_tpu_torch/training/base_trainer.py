@@ -56,10 +56,14 @@ from msmctts_tpu_torch.utils.checkpoint import find_latest_checkpoint, load_chec
 from msmctts_tpu_torch.weights import init_random
 
 
-def build_dataset_from_config(config, training: bool = True):
+def build_dataset_from_config(config, training: bool = True, id_list=None):
+    """The config's ``dataset``; ``id_list`` (a list file or a test-list
+    YAML) replaces the config's, as ``infer.py`` does with ``-t``."""
     node = dict(config.dataset)
     name = node.pop("_name")
     kwargs = component_kwargs(node)
+    if id_list is not None:
+        kwargs["id_list"] = id_list
     kwargs["training"] = training
     kwargs.setdefault("seed", config.get("seed", 1234))
     return get_dataset(name)(**kwargs)

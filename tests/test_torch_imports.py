@@ -54,7 +54,9 @@ def test_scan_covers_the_training_slice():
         "msmctts_tpu_torch/parallel/__init__.py", "msmctts_tpu_torch/parallel/mesh.py",
         "msmctts_tpu_torch/parallel/launch.py", "msmctts_tpu_torch/train_dist.py",
         "msmctts_tpu_torch/training/predictor_trainer.py", "msmctts_tpu_torch/models/quantizer.py",
-        "msmctts_tpu_torch/utils/checkpoint.py",
+        "msmctts_tpu_torch/utils/checkpoint.py", "msmctts_tpu_torch/streaming.py",
+        "msmctts_tpu_torch/serving.py", "msmctts_tpu_torch/serve.py", "msmctts_tpu_torch/infer.py",
+        "msmctts_tpu_torch/utils/plot.py",
     ):
         assert rel in scanned, rel
 
@@ -86,6 +88,8 @@ def test_every_port_module_imports_without_the_jax_package():
     assert res.stdout.startswith("ok")
     assert "msmctts_tpu_torch.training.vqgan_trainer" in modules and "msmctts_tpu_torch.train" in modules
     assert "msmctts_tpu_torch.parallel.mesh" in modules and "msmctts_tpu_torch.train_dist" in modules
+    for m in ("streaming", "serving", "serve", "infer", "utils.plot"):
+        assert f"msmctts_tpu_torch.{m}" in modules
 
 
 def test_entry_points_refuse_cpu_fallback(monkeypatch, tmp_path):
