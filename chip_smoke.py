@@ -407,47 +407,59 @@ def _hold_resblock(rb, what, x, w1, b1, w2, b2, d, prepared):
     return err
 
 
-def phase_resblock(gen):
+def _resblock_layers(gen, batch, frames, what, library=False, **timing):
+    """Kernel 5 against its plain version at the 36 MRF layers of one decode of
+    ``batch`` rows of ``frames`` frames. Each row carries the kernel's and the
+    plain version's time (CUDA events, ``timing`` goes to ``time_ms``), its
+    bounds, and with ``library`` cuDNN's fp32 time. -> (rows, worst error)."""
     import torch.nn.functional as F
 
     from msmctts_tpu_torch.ops import resblock as rb
 
-    rows, worst = [], 0.0
-    T = FRAMES
+    rows, worst, T = [], 0.0, frames
     for C, up in STAGES:
         T *= up
-        x = torch.randn(B, T, C, device="cuda", generator=gen)
+        x = torch.randn(batch, T, C, device="cuda", generator=gen)
         x_ncl = x.transpose(1, 2).contiguous()
         for k in RB_KERNELS:
             w1, b1, w2, b2 = _resblock_case(gen, C, k)
             prepared = rb.prepare_taps(w1, w2)
             w1t, w2t = w1.permute(2, 1, 0).contiguous(), w2.permute(2, 1, 0).contiguous()
             for d in RB_DILATIONS:
-                err = _hold_resblock(rb, f"C={C} k={k} d={d}", x, w1, b1, w2, b2, d, prepared)
+                err = _hold_resblock(rb, f"{what} C={C} T={T} k={k} d={d}", x, w1, b1, w2, b2, d, prepared)
                 worst = max(worst, err)
 
-                def library():
+                def cudnn():
                     h = F.conv1d(F.leaky_relu(x_ncl, 0.1), w1t, b1, padding=(k - 1) // 2 * d, dilation=d)
                     return x_ncl + F.conv1d(F.leaky_relu(h, 0.1), w2t, b2, padding=(k - 1) // 2)
 
-                flops = 4 * k * C * C * B * T
-                nbytes = (2 * B * T * C + 2 * (k * C * C + C)) * 4
+                flops = 4 * k * C * C * batch * T
+                nbytes = (2 * batch * T * C + 2 * (k * C * C + C)) * 4
                 plan = rb.plan_layer(C, k, d)
                 row = {
                     "C": C, "T": T, "k": k, "d": d, "body": plan.body, "tile": plan.tile, "out_rows": plan.out_rows,
                     "stages": plan.stages, "shared_bytes": plan.shared_bytes, "max_abs_err": err,
-                    "ms": time_ms(lambda: rb.fused_resblock_layer(x, w1, b1, w2, b2, d, prepared)),
-                    "plain_ms": time_ms(lambda: rb.fused_resblock_layer_plain(x, w1, b1, w2, b2, d)),
-                    "library_ms": time_ms(library),
+                    "ms": time_ms(lambda: rb.fused_resblock_layer(x, w1, b1, w2, b2, d, prepared), **timing),
+                    "plain_ms": time_ms(lambda: rb.fused_resblock_layer_plain(x, w1, b1, w2, b2, d), **timing),
                     # the kernel's operations are TF32 tensor-core products, three per fp32 product
                     "bound": bound(nbytes, 3 * flops, PEAK_TF32),
                     "bound_fp32_ms": bound(nbytes, flops)[0],  # the same products as fp32 FMA
                     "bound_tf32_ms": bound(nbytes, flops, PEAK_TF32)[0],
                     "bound_bf16_ms": bound(nbytes // 2, flops, PEAK_BF16)[0],
                 }
+                if library:
+                    row["library_ms"] = time_ms(cudnn, **timing)
                 row["tflops"] = flops / row["ms"] / 1e9
                 rows.append(row)
-                log(f"[3] resblock {json.dumps(row)}")
+    return rows, worst
+
+
+def phase_resblock(gen):
+    from msmctts_tpu_torch.ops import resblock as rb
+
+    rows, worst = _resblock_layers(gen, B, FRAMES, "decode", library=True)
+    for row in rows:
+        log(f"[3] resblock {json.dumps(row)}")
     # the shapes a tensor-core tile gets wrong first: T short of a tile, one past it, not a
     # multiple of it, B = 1, a halo wider than T; large weights so that a lost tap shows
     edges = []
@@ -1588,6 +1600,8 @@ def phase_am_entry_point(card):
 # engine and the streaming decode in this process, then the HTTP daemon as a
 # subprocess under concurrent load.
 SERVE_B, SERVE_TEXT_BUCKETS, SERVE_MAX_FRAMES, SERVE_CHUNK = 4, (32, 64), 512, 64
+# the daemon keeps the default ladder (16, 32, 48, 64, ...): 24-57 phones reach these buckets
+SERVE_DAEMON_WARM = (32, 48, 64)
 SERVE_REQUESTS, SERVE_CLIENTS, SERVE_PHONES = 16, 8, (24, 57)
 SERVE_TIMEOUT_S = 300.0
 
@@ -1598,29 +1612,10 @@ def _phone_string(row):
 
 def _hold_window_layers(gen, window, batch):
     """Kernel 5 against its plain version at the window decode's 36 layers
-    (``batch`` rows of ``window`` frames), with kernel and plain times per
-    window decode (CUDA events)."""
-    from msmctts_tpu_torch.ops import resblock as rb
-
-    rows, worst, T = [], 0.0, window
-    for C, up in STAGES:
-        T *= up
-        x = torch.randn(batch, T, C, device="cuda", generator=gen)
-        for k in RB_KERNELS:
-            w1, b1, w2, b2 = _resblock_case(gen, C, k)
-            prepared = rb.prepare_taps(w1, w2)
-            for d in RB_DILATIONS:
-                err = _hold_resblock(rb, f"window C={C} T={T} k={k} d={d}", x, w1, b1, w2, b2, d, prepared)
-                worst = max(worst, err)
-                flops = 4 * k * C * C * batch * T
-                nbytes = (2 * batch * T * C + 2 * (k * C * C + C)) * 4
-                rows.append({
-                    "C": C, "T": T, "k": k, "d": d, "max_abs_err": err,
-                    "ms": time_ms(lambda: rb.fused_resblock_layer(x, w1, b1, w2, b2, d, prepared), runs=5, reps=3, warmup=1),
-                    "plain_ms": time_ms(lambda: rb.fused_resblock_layer_plain(x, w1, b1, w2, b2, d), runs=5, reps=3, warmup=1),
-                    "bound_ms": bound(nbytes, 3 * flops, PEAK_TF32)[0],
-                })
-    total = {key: sum(r[key] for r in rows) for key in ("ms", "plain_ms", "bound_ms")}
+    (``batch`` rows of ``window`` frames), times summed per window decode."""
+    rows, worst = _resblock_layers(gen, batch, window, "window", runs=5, reps=3, warmup=1)
+    total = {key: sum(r[key] for r in rows) for key in ("ms", "plain_ms")}
+    total["bound_ms"] = sum(r["bound"][0] for r in rows)
     shapes = sorted({(r["C"], r["T"]) for r in rows}, reverse=True)
     return {"max_abs_err": worst, "shapes": [{"B": batch, "T": T, "C": C} for C, T in shapes], **total}
 
@@ -1791,8 +1786,7 @@ def phase_serving(card, am_path, with_profile=False):
     builds_before = cuda_build.build_count()
     env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
     cmd = [sys.executable, "-m", "msmctts_tpu_torch.serve", "-m", am_path, "--port", "0", "--batch-size", str(SERVE_B),
-           "--max-frames", str(SERVE_MAX_FRAMES), "--text-buckets", *map(str, SERVE_TEXT_BUCKETS),
-           "--warmup-lengths", *map(str, SERVE_TEXT_BUCKETS)]
+           "--max-frames", str(SERVE_MAX_FRAMES), "--warmup-lengths", *map(str, SERVE_DAEMON_WARM)]
     t_start = time.perf_counter()
     proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     lines = queue.Queue()
@@ -1800,6 +1794,8 @@ def phase_serving(card, am_path, with_profile=False):
     try:
         warm_line = _wait_for_line(lines, "warmup:", proc, SERVE_TIMEOUT_S)
         daemon_warm_s = float(warm_line.split(" in ")[1].split("s ")[0])
+        if not warm_line.rstrip().endswith("kernel builds 0)"):  # phase 2 built every library
+            raise AssertionError(f"the daemon built kernels at startup: {warm_line.rstrip()}")
         port = int(_wait_for_line(lines, "serving on", proc, 60).rsplit(":", 1)[1])
         status, data, _, _ = _http(port, "GET", "/healthz")
         if status != 200:

@@ -40,7 +40,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 
 from msmctts_tpu_torch.config import Config
-from msmctts_tpu_torch.data.datasets import TEXT_BUCKETS
+from msmctts_tpu_torch.ops.cuda_build import build_count
 from msmctts_tpu_torch.serving import BatchingEngine
 from msmctts_tpu_torch.tasks import build_task
 from msmctts_tpu_torch.utils.checkpoint import load_checkpoint
@@ -67,7 +67,6 @@ def build_engine(args) -> BatchingEngine:
         sample_rate=sr,
         batch_size=args.batch_size,
         window_ms=args.window_ms,
-        text_buckets=args.text_buckets or TEXT_BUCKETS,
         max_frames=args.max_frames,
         max_queue=args.max_queue,
         stream_chunk_frames=args.stream_chunk_frames,
@@ -265,8 +264,6 @@ def main(argv=None):
     p.add_argument("--no-warmup", action="store_true", help="skip the startup warmup (first requests run cold)")
     p.add_argument("--warmup-lengths", type=int, nargs="*", default=None,
                    help="text lengths to warm (default: the full ladder)")
-    p.add_argument("--text-buckets", type=int, nargs="*", default=None,
-                   help="the ladder of padded text lengths (default: the dataset's, 16 to 256)")
     args = p.parse_args(argv)
     if args.artifact:
         p.error(NOT_PORTED["--artifact"])
@@ -291,23 +288,27 @@ def main(argv=None):
                           "shapes": len(engine._warm_shapes), "device": str(engine.task.device)}), flush=True)
         return 0
 
-    engine = build_engine(args).start()
+    engine = build_engine(args)
     ready = threading.Event()
     server = ThreadingHTTPServer((args.host, args.port), make_handler(engine, ready, args.request_timeout))
 
     failed = []
 
     def _warm():
-        if not args.no_warmup:
-            try:
-                secs = engine.warmup(args.warmup_lengths, include_streaming=include_streaming)
-            except Exception as e:  # a daemon that cannot warm up exits non-zero
-                failed.append(e)
-                traceback.print_exc()
-                server.shutdown()
-                return
-            print(f"warmup: ran {len(engine._warm_shapes)} serving shapes in {secs:.3f}s on {engine.task.device} "
-                  f"(streaming={'warm' if engine._streaming_warm else 'off'})", flush=True)
+        # the worker thread warms up before it serves (BatchingEngine.start)
+        warmup = None if args.no_warmup else {"text_lengths": args.warmup_lengths,
+                                               "include_streaming": include_streaming}
+        try:
+            engine.start(warmup=warmup)
+        except Exception as e:  # a daemon that cannot warm up exits non-zero
+            failed.append(e)
+            traceback.print_exc()
+            server.shutdown()
+            return
+        if warmup is not None:
+            print(f"warmup: ran {len(engine._warm_shapes)} serving shapes in {engine.warmup_s:.3f}s on "
+                  f"{engine.task.device} (streaming={'warm' if engine._streaming_warm else 'off'}, "
+                  f"kernel builds {build_count()})", flush=True)
         ready.set()
         print(f"serving on http://{args.host}:{server.server_port}", flush=True)
 

@@ -26,9 +26,9 @@ once, and hands each request its trimmed waveform. Callers block on
 
 ``/stats`` reports, in place of the JAX package's ``xla_compiles``,
 ``cold_shapes`` (shapes the task first ran after ``warmup()`` ended, from
-``MSMCTTS.shapes``) and ``kernel_builds`` (nvcc builds in this process,
-``ops/cuda_build.build_count``). A warmed server reports 0 for both under
-any traffic within its buckets.
+``MSMCTTS.shapes``) and ``kernel_builds`` (nvcc builds in this process
+since ``warmup()`` ended, from ``ops/cuda_build.build_count``). A warmed
+server reports 0 for both under any traffic within its buckets.
 """
 
 from __future__ import annotations
@@ -82,7 +82,7 @@ class ServingStats:
             del self._latencies[random.randrange(len(self._latencies))]
         bisect.insort(self._latencies, seconds)
 
-    def snapshot(self, sample_rate: int, cold_shapes: int = 0) -> dict:
+    def snapshot(self, sample_rate: int, cold_shapes: int = 0, kernel_builds: int = 0) -> dict:
         lat = self._latencies
         pct = lambda p: (lat[min(len(lat) - 1, int(p * len(lat)))] if lat else None)
         uptime = time.time() - self.started_at
@@ -91,7 +91,7 @@ class ServingStats:
             "batches": self.batches,
             "errors": self.errors,
             "cold_shapes": cold_shapes,
-            "kernel_builds": build_count(),
+            "kernel_builds": kernel_builds,
             "mean_batch_size": (self.requests / self.batches) if self.batches else None,
             "audio_seconds": round(self.audio_seconds, 3),
             "device_realtime_factor": (
@@ -116,25 +116,6 @@ class _Request:
         # streaming requests receive trimmed wav pieces here, then a None
         # sentinel (or one BaseException)
         self.chunk_q: Optional[queue.Queue] = queue.Queue() if stream else None
-
-
-class _Job:
-    """Work other than a batch that must run on the worker thread."""
-
-    __slots__ = ("fn", "done", "result", "error")
-
-    def __init__(self, fn):
-        self.fn = fn
-        self.done = threading.Event()
-        self.result = None
-        self.error: Optional[BaseException] = None
-
-    def run(self) -> None:
-        try:
-            self.result = self.fn()
-        except Exception as e:  # delivered to the thread that waits on it
-            self.error = e
-        self.done.set()
 
 
 class BatchingEngine:
@@ -192,16 +173,41 @@ class BatchingEngine:
         self._warmed = False
         self._streaming_warm = False
         self._warm_shapes: frozenset = frozenset()
-        self._deferred: Optional[_Job] = None
+        self._warm_builds = 0  # build_count() when warmup ended
+        self.warmup_s: Optional[float] = None  # set by start(warmup=...)
 
     # -- lifecycle -----------------------------------------------------
 
-    def start(self) -> "BatchingEngine":
+    def start(self, warmup: Optional[dict] = None) -> "BatchingEngine":
+        """Start the worker thread. With ``warmup`` (``warmup()``'s keyword
+        arguments) the worker runs the warmup before it takes a request, and
+        this call returns once it has, raising what the warmup raised; the
+        seconds are in ``warmup_s``. A serving deploy warms this way:
+        PyTorch keeps cuDNN's execution plans per thread, so shapes warmed
+        on another thread run cold in the worker's first batches."""
         if self._thread is not None:
             raise RuntimeError("engine already started")
         self._stopping = False
-        self._thread = threading.Thread(target=self._worker, name="tts-batcher", daemon=True)
+        warmed, failed = threading.Event(), []
+
+        def run():
+            if warmup is not None:
+                try:
+                    self.warmup_s = self.warmup(**warmup)
+                except Exception as e:  # raised by start() in the caller's thread
+                    failed.append(e)
+                    warmed.set()
+                    return
+            warmed.set()
+            self._worker()
+
+        self._thread = threading.Thread(target=run, name="tts-batcher", daemon=True)
         self._thread.start()
+        warmed.wait()
+        if failed:
+            self._thread.join()
+            self._thread = None
+            raise failed[0]
         return self
 
     def stop(self, timeout: float = 30.0) -> None:
@@ -218,10 +224,7 @@ class BatchingEngine:
         self._fail_queued()
 
     def _fail_queued(self) -> None:
-        """Fail every request or job still waiting ("engine stopped")."""
-        if self._thread is None and self._deferred is not None:
-            self._queue.put(self._deferred)  # the worker has gone: fail it below
-            self._deferred = None
+        """Fail every request still waiting ("engine stopped")."""
         while True:
             try:
                 req = self._queue.get_nowait()
@@ -229,7 +232,7 @@ class BatchingEngine:
                 return
             if req is not None:
                 req.error = RuntimeError("engine stopped")
-                if getattr(req, "stream", False):
+                if req.stream:
                     req.chunk_q.put(req.error)
                 req.done.set()
 
@@ -238,10 +241,16 @@ class BatchingEngine:
         when no warmup ran)."""
         return len(getattr(self.task, "shapes", set()) - self._warm_shapes)
 
+    def kernel_builds(self) -> int:
+        """nvcc builds in this process since ``warmup()`` ended (all of them
+        when no warmup ran)."""
+        return build_count() - self._warm_builds
+
     def snapshot(self) -> dict:
         """``/stats``: the counters, ``cold_shapes`` and ``kernel_builds``."""
         with self._lock:
-            return self.stats.snapshot(self.sample_rate, cold_shapes=self.cold_shapes())
+            return self.stats.snapshot(self.sample_rate, cold_shapes=self.cold_shapes(),
+                                       kernel_builds=self.kernel_builds())
 
     def warmup(
         self,
@@ -266,23 +275,9 @@ class BatchingEngine:
 
         Warmup text is random phone ids from the model's vocabulary, so the
         duration predictor sees in-distribution input. Returns the wall
-        seconds spent. Run it before accepting traffic.
-
-        On a started engine it runs on the worker thread, which serves every
-        batch after it: the CUDA libraries keep state per thread (cuBLAS
-        and cuDNN handles and their workspaces), and a warmup on another
-        thread would leave the worker's first batches to create it.
+        seconds spent. Run it before accepting traffic, on the thread that
+        will serve: ``start(warmup=...)``.
         """
-        if self._thread is not None and threading.current_thread() is not self._thread:
-            job = _Job(lambda: self._warmup(text_lengths, include_streaming))
-            self._queue.put(job)  # no backpressure refusal: warmup runs before traffic
-            job.done.wait()
-            if job.error is not None:
-                raise job.error
-            return job.result
-        return self._warmup(text_lengths, include_streaming)
-
-    def _warmup(self, text_lengths, include_streaming) -> float:
         stream = include_streaming
         if stream is None:
             stream = hasattr(self.task, "predict_stream")
@@ -306,6 +301,7 @@ class BatchingEngine:
             self._warmed = True
             self._streaming_warm = bool(stream) and hasattr(self.task, "predict_stream")
             self._warm_shapes = frozenset(getattr(self.task, "shapes", ()))
+            self._warm_builds = build_count()
         return time.time() - t0
 
     def _try_drain_stream(self, batch: dict, explicit: Optional[bool]) -> bool:
@@ -445,14 +441,12 @@ class BatchingEngine:
         n_symbols = self.task.networks["predictor"].n_symbols
         return len(n_symbols) if isinstance(n_symbols, (list, tuple)) else 1
 
-    def _gather(self):
+    def _gather(self) -> Optional[List[_Request]]:
         """Block for the first request, then coalesce followers for up to
-        ``window_ms`` or until ``batch_size`` is reached. A job taken first
-        is returned alone; one that arrives while gathering waits in
-        ``_deferred`` for the end of the batch."""
+        ``window_ms`` or until ``batch_size`` is reached."""
         first = self._queue.get()
-        if first is None or isinstance(first, _Job):
-            return first
+        if first is None:
+            return None
         reqs = [first]
         deadline = time.time() + self.window_ms / 1000.0
         while len(reqs) < self.batch_size:
@@ -465,9 +459,6 @@ class BatchingEngine:
                 break
             if nxt is None:
                 self._queue.put(None)  # re-post the stop sentinel
-                break
-            if isinstance(nxt, _Job):
-                self._deferred = nxt
                 break
             reqs.append(nxt)
         return reqs
@@ -543,9 +534,6 @@ class BatchingEngine:
             reqs = self._gather()
             if reqs is None:
                 return
-            if isinstance(reqs, _Job):
-                reqs.run()
-                continue
             try:
                 with self._model_lock:
                     self._run_batch(reqs)
@@ -557,6 +545,3 @@ class BatchingEngine:
                     if r.stream:
                         r.chunk_q.put(e)
                     r.done.set()
-            if self._deferred is not None:
-                job, self._deferred = self._deferred, None
-                job.run()

@@ -265,8 +265,9 @@ def test_warmup_leaves_no_cold_shape(tiny_pair):
 
 
 def test_warmup_of_a_started_engine_runs_on_its_worker_thread(port_task, monkeypatch):
-    """The CUDA libraries keep handles per thread, so the thread that warms
-    is the thread that serves."""
+    """``start(warmup=...)`` warms on the worker thread, which then serves:
+    PyTorch keeps cuDNN's execution plans per thread. A warmup that fails
+    is raised by ``start`` and leaves the engine stopped."""
     threads = []
     real = port_task.infer_step
 
@@ -275,18 +276,53 @@ def test_warmup_of_a_started_engine_runs_on_its_worker_thread(port_task, monkeyp
         return real(batch)
 
     monkeypatch.setattr(port_task, "infer_step", recorded)
-    eng = _engine(port_task, max_frames=64, window_ms=0.0).start()
+    eng = _engine(port_task, max_frames=64, window_ms=0.0)
     try:
-        assert eng.warmup(text_lengths=[4], include_streaming=False) > 0
+        eng.start(warmup={"text_lengths": [4], "include_streaming": False})
+        assert eng.warmup_s > 0 and eng.cold_shapes() == 0 and len(threads) >= 2
         eng.synthesize("3_1 5_2", timeout=120)
     finally:
         eng.stop()
         port_task.max_frames_cap = None
-    assert threads and set(threads) == {"tts-batcher"}
-    eng = _engine(port_task, max_frames=64)  # not started: the caller's thread
-    eng.warmup(text_lengths=[4], include_streaming=False)
-    port_task.max_frames_cap = None
-    assert threads[-1] == threading.current_thread().name
+    assert set(threads) == {"tts-batcher"}
+
+    def broken(batch):
+        raise RuntimeError("warmup broke")
+
+    monkeypatch.setattr(port_task, "infer_step", broken)
+    eng = _engine(port_task, max_frames=64)
+    try:
+        with pytest.raises(RuntimeError, match="warmup broke"):
+            eng.start(warmup={"text_lengths": [4]})
+        with pytest.raises(RuntimeError, match="not started"):
+            eng.synthesize("3_1 5_2", timeout=10)
+    finally:
+        port_task.max_frames_cap = None
+
+
+def test_kernel_builds_count_from_the_end_of_warmup(port_task, monkeypatch):
+    """``kernel_builds`` counts nvcc builds since ``warmup()`` ended, as
+    ``cold_shapes`` counts shapes: a server that built its libraries while
+    warming up reads 0 under traffic; with no warmup every build counts."""
+    from msmctts_tpu_torch.ops import cuda_build
+
+    monkeypatch.setattr(cuda_build, "_BUILDS", [2])  # built before the engine
+    real = port_task.infer_step
+
+    def building(batch):  # a library built during warmup
+        cuda_build._BUILDS[0] += 1
+        return real(batch)
+
+    eng = _engine(port_task, max_frames=64, window_ms=0.0)
+    try:
+        assert eng.snapshot()["kernel_builds"] == 2
+        monkeypatch.setattr(port_task, "infer_step", building)
+        eng.warmup(text_lengths=[4], include_streaming=False)
+        assert cuda_build.build_count() > 2 and eng.snapshot()["kernel_builds"] == 0
+        cuda_build._BUILDS[0] += 1  # one under traffic
+        assert eng.snapshot()["kernel_builds"] == 1
+    finally:
+        port_task.max_frames_cap = None
 
 
 def test_cold_streaming_is_refused(port_task):
