@@ -64,8 +64,26 @@ Phases, each of which raises on failure:
      16 requests (a quarter streamed) from 8 client threads, each held
      against the in-process engine, its ``/stats`` showing no cold shape,
      no kernel build, no error and coalesced batches;
- 14. one JSON line describing each kernel;
- 15. last line: {"ok": true, "device": {...}}.
+ 14. the QS-TTS family at the full width of its two recipes, on seeded
+     weights and data: (a) the synthesizer's analysis-synthesis of a batch of
+     4 (1024-dim embeddings, frame bucket 512, x200 at 16 kHz) with launches
+     (2 ``vq_nearest``, 36 ``fused_resblock_layer``), first and warm times,
+     real-time factor, both kernels held against their plain versions at
+     this path's shapes, and a small input against the CPU; (b)
+     ``EmbVQGANTrainer`` at batch 16 (bucket 384) through its supervised,
+     decode and GAN phases (2 ``vq_nearest_stats`` per step, held against
+     plain on one step's inputs at N = 1536 and 6144), per-phase times, peak
+     memory, which tensors moved, the trained synthesizer saved; one step of
+     each phase from equal state against the CPU (losses, indices,
+     codebooks, batch statistics, parameters) on a small config that turns
+     on the ECAPA encoder, pitch / energy and the prosody estimator; (c) ``NASynEmbFSTrainer`` at the predictor recipe's width,
+     batch 64 (bucket 768), dropout on, (b)'s synthesizer as its teacher (2
+     ``vq_nearest`` per step, held against plain at N = 12 288 and 49 152;
+     teacher unchanged); (d) both recipes through ``python -m
+     msmctts_tpu_torch.train`` on a corpus written here, and ``infer`` from
+     the synthesizer's checkpoint;
+ 15. one JSON line describing each kernel;
+ 16. last line: {"ok": true, "device": {...}}.
 
 NCCL refuses two ranks on one device, so the two-rank phases use gloo, which
 moves CUDA tensors through host memory; the log names the backend. Their
@@ -74,12 +92,14 @@ card: no scaling figure. A rank that fails, dies or hangs fails the run.
 
 It exits non-zero, printing no result, without a CUDA device or without
 the rest of the repository. ``--out`` also profiles one warm ``predict``,
-one warm GAN step, one warm AM step and one streamed batch (device time by
-kernel, busy share) and writes every measurement to a JSON file.
+one warm GAN step, one warm AM step, one streamed batch and phase 14's
+analysis-synthesis, GAN step and predictor step (device time by kernel, busy
+share) and writes every measurement to a JSON file.
 """
 
 import argparse
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -119,6 +139,10 @@ AS_TOL = 5e-4  # wav, card vs CPU, as the CPU parity tests hold the port to JAX
 # one train step, card vs CPU from equal state: losses relative, codebook absolute
 # (cuDNN and the CPU's convs sum in other orders, through some 60 layers and a backward)
 STEP_TOL = {"loss_rtol": 2e-3, "codebook_atol": 1e-4}
+# the ECAPA encoder's BN running statistics, card vs CPU after one step: relative where
+# |x| > 1; flax's variance E[x^2] - E[x]^2 cancels in fp32 where the mean is large
+# against the spread, and the two devices' convs sum in other orders
+BN_STATS_RTOL = 1e-3
 # W ranks against one rank after several steps: an assignment may fall the other
 # way only between two codewords this close (relative distance gap), and only so many may
 DP_TOL = {"flip_rel_gap": 1e-3, "max_flips": 16}
@@ -407,9 +431,10 @@ def _hold_resblock(rb, what, x, w1, b1, w2, b2, d, prepared):
     return err
 
 
-def _resblock_layers(gen, batch, frames, what, library=False, **timing):
+def _resblock_layers(gen, batch, frames, what, library=False, stages=STAGES, **timing):
     """Kernel 5 against its plain version at the 36 MRF layers of one decode of
-    ``batch`` rows of ``frames`` frames. Each row carries the kernel's and the
+    ``batch`` rows of ``frames`` frames (``stages``: the generator's (channels,
+    upsample) per stage). Each row carries the kernel's and the
     plain version's time (CUDA events, ``timing`` goes to ``time_ms``), its
     bounds, and with ``library`` cuDNN's fp32 time. -> (rows, worst error)."""
     import torch.nn.functional as F
@@ -417,7 +442,7 @@ def _resblock_layers(gen, batch, frames, what, library=False, **timing):
     from msmctts_tpu_torch.ops import resblock as rb
 
     rows, worst, T = [], 0.0, frames
-    for C, up in STAGES:
+    for C, up in stages:
         T *= up
         x = torch.randn(batch, T, C, device="cuda", generator=gen)
         x_ncl = x.transpose(1, 2).contiguous()
@@ -1882,6 +1907,614 @@ def phase_serving(card, am_path, with_profile=False):
     }
 
 
+# ------------------------------------------------------------- QS-TTS
+# Phase 14: the QS-TTS family at the full width of its two recipes (seeded
+# weights and data: the repository holds no QS-TTS checkpoint or corpus).
+SYN_YAML = os.path.join(ROOT, "examples", "qs-tts", "configs", "synthesizer", "msmc_vq_gan_hubertch_aishell3.yaml")
+PRED_YAML = os.path.join(ROOT, "examples", "qs-tts", "configs", "predictor", "msmc_vq_gan_hubertch_tts.yaml")
+QS_B, QS_FRAMES, QS_LENGTHS = 4, 512, (512, 437, 350, 268)  # analysis-synthesis: 6.4 s rows at 16 kHz, bucket 512
+QS_STAGES = [(256, 5), (128, 5), (64, 4), (32, 2)]  # the x200 generator: T = 5F / 25F / 100F / 200F
+QS_TRAIN_B, QS_TRAIN_FRAMES, QS_TRAIN_LENGTHS = 16, 384, (200, 380)
+QS_STEPS = 4  # supervised (1), decode (2), GAN (3, 4) with frame / stft supervised steps 1 / 2
+QS_PHASES = {1: "supervised", 2: "decode", 3: "gan", 4: "gan"}
+
+
+def _qs_emb_batch(rng, lengths, T, emb_dim=1024, n_mel=80, hop=200):
+    """Seeded emb / mel / wav padded as ``EmbDataset`` pads them (emb 0, mel -4, wav 0)."""
+    lengths = np.asarray(lengths, np.int32)
+    valid = np.arange(T)[None, :] < lengths[:, None]
+    emb = np.where(valid[..., None], rng.normal(size=(len(lengths), T, emb_dim)), 0.0).astype(np.float32)
+    mel = np.where(valid[..., None], rng.normal(size=(len(lengths), T, n_mel)) * 0.5, -4.0).astype(np.float32)
+    wav = (rng.normal(size=(len(lengths), T * hop)) * 0.1 * np.repeat(valid, hop, axis=1)).astype(np.float32)
+    return {"emb": emb, "emb_length": lengths, "mel": mel, "wav": wav}
+
+
+def _qs_syn_config(save_dir, small=False):
+    """The synthesizer recipe, frame / stft supervised steps 1 / 2 so that
+    four steps cross the three phases. ``small``: the card-vs-CPU check's
+    config, which turns on what the recipe leaves off (ECAPA global encoder,
+    pitch / energy, the prosody estimator), with dropout 0 and short windows."""
+    from msmctts_tpu_torch.config import Config
+
+    cfg = Config(SYN_YAML)
+    cfg.trainer["frame_loss_supervised_step"] = 1
+    cfg.trainer["stft_loss_supervised_step"] = 2
+    cfg["save_checkpoint_dir"] = save_dir
+    if small:
+        ae = cfg.task["autoencoder"]
+        ae["pitch_dim"] = ae["energy_dim"] = 1
+        ae["global_encoder_config"] = {"_name": "ECAPA_TDNN"}
+        for node in (ae["encoder_config"], ae["frame_decoder_config"]):
+            node["dropout"] = node["attn_dropout"] = 0.0
+        ae["quantizer_config"]["dropout"] = 0.0
+        ae["quantizer_config"]["prior_config"]["p_dropout"] = 0.0
+        cfg.task["prosody_estimator"] = {"_name": "AttrPredictor", "in_channels": ae["n_model_size"], "out_channels": 2}
+        cfg.trainer["sample_batch_size"] = 2
+        cfg.trainer["sample_lengths"] = 3200
+    return cfg
+
+
+def _qs_trainer(cfg, device, seed=1234):
+    from msmctts_tpu_torch.config import component_kwargs
+    from msmctts_tpu_torch.registry import get_trainer
+    from msmctts_tpu_torch.tasks import build_task
+
+    cfg["seed"] = seed
+    task = build_task(cfg, device=device, mode="train")
+    trainer = get_trainer(cfg.trainer["_name"])(cfg, task, **component_kwargs(cfg.trainer))
+    trainer.init_state()
+    return trainer
+
+
+def _snap_rows(ae, run):
+    """Run ``run()`` and return, per quantizer stage, (x [N, H, d], embed, idx)."""
+    snaps = []
+    pre = [q.register_forward_pre_hook(lambda m, a: snaps.append({"x": a[0].detach().reshape(-1, m.n_head, m.sub_dim)}))
+           for q in ae.quantizer.quantizer]
+    post = [q.register_forward_hook(lambda m, a, o: snaps[-1].update(idx=o[2].reshape(-1, m.n_head), embed=m.embed))
+            for q in ae.quantizer.quantizer]
+    try:
+        run()
+    finally:
+        for h in pre + post:
+            h.remove()
+    return snaps
+
+
+def _hold_snaps(snaps, what):
+    """The snap kernel against its plain version at each stage's N, with
+    device, event and plain times and the bound."""
+    from msmctts_tpu_torch.ops import vq
+
+    rows = []
+    for stage, s in enumerate(snaps):
+        x, e = s["x"].contiguous(), s["embed"]
+        idx, quant = vq.vq_nearest(x, e)
+        ref_idx, ref_quant = vq.vq_nearest_plain(x, e)
+        torch.cuda.synchronize()
+        if not torch.equal(idx, s["idx"].to(idx.dtype)):
+            raise AssertionError(f"{what} stage {stage}: the path's indices differ from a second launch")
+        err, mismatches = _hold_snap(f"{what} stage {stage}", x, e, idx, quant, ref_idx, ref_quant)
+        b = _snap_bound(x.shape[0])
+        rows.append({"stage": stage, "N": x.shape[0], "index_mismatches": mismatches, "max_abs_err": err,
+                     "device_ms": device_profile(lambda: vq.vq_nearest(x, e))["ms"],
+                     "ms": time_ms(lambda: vq.vq_nearest(x, e), runs=20),
+                     "plain_ms": time_ms(lambda: vq.vq_nearest_plain(x, e), runs=20), "bound_ms": b[0], "bound_by": b[1]})
+        log(f"[14] {what} snap stage {stage}: {json.dumps(rows[-1])}")
+    return rows
+
+
+def _stats_rows(ae, run):
+    """Run ``run()`` (one train step) and return, per quantizer stage, the
+    statistics kernel's inputs as the path gave them (x [N, H, d], the
+    codebook before its update, mask [N]) and the indices the path got."""
+    from msmctts_tpu_torch.ops.masking import sequence_mask
+
+    rows = []
+
+    def pre(m, args, kwargs):
+        x = args[0]
+        B, T, _ = x.shape
+        lengths = kwargs.get("lengths", args[1] if len(args) > 1 else None)
+        mask = (torch.ones(B * T, device=x.device) if lengths is None
+                else sequence_mask(lengths, T, dtype=torch.float32).reshape(B * T))
+        rows.append({"x": x.detach().float().reshape(B * T, m.n_head, m.sub_dim).clone(), "embed": m.embed.clone(),
+                     "mask": mask})
+
+    pre_h = [q.register_forward_pre_hook(pre, with_kwargs=True) for q in ae.quantizer.quantizer]
+    post_h = [q.register_forward_hook(lambda m, a, o: rows[-1].update(idx=o[2].reshape(-1, m.n_head)))
+              for q in ae.quantizer.quantizer]
+    try:
+        run()
+    finally:
+        for h in pre_h + post_h:
+            h.remove()
+    return rows
+
+
+def _hold_stats(rows, what):
+    """The statistics kernel against its plain version on each stage's inputs
+    from the path, as phase 3 holds it: idx, quant and counts exact, sums
+    within ``VQS_TOL``; with device, event and plain times and the bound."""
+    from msmctts_tpu_torch.ops import vq
+
+    out = []
+    for stage, r in enumerate(rows):
+        x, e, mask = r["x"], r["embed"], r["mask"]
+        N, valid = x.shape[0], int(mask.sum())
+        if tuple(e.shape) != (VQ_H, VQ_D, VQ_K):
+            raise AssertionError(f"{what} stage {stage}: codebook {tuple(e.shape)}, the bound assumes {(VQ_H, VQ_D, VQ_K)}")
+        idx, quant, counts, sums = vq.vq_nearest_stats(x, e, mask)
+        p_idx, p_quant, p_counts, p_sums = vq.vq_nearest_stats_plain(x, e, mask)
+        torch.cuda.synchronize()
+        if not torch.equal(idx, r["idx"].to(idx.dtype)):
+            raise AssertionError(f"{what} stage {stage}: the path's indices differ from a second launch")
+        if not (torch.equal(idx, p_idx) and torch.equal(quant, p_quant)):
+            raise AssertionError(f"{what} stage {stage}: idx/quant differ from the plain version "
+                                 f"({int((idx != p_idx).sum())} indices)")
+        if not torch.equal(counts, p_counts) or float(counts.sum()) != valid * VQ_H:
+            raise AssertionError(f"{what} stage {stage}: counts differ from the plain version or the valid rows")
+        err = float((sums - p_sums).abs().max())
+        if not torch.allclose(sums, p_sums, **VQS_TOL):
+            raise AssertionError(f"{what} stage {stage}: sums differ by {err}")
+        b = _stats_bound(N, valid)
+        out.append({"stage": stage, "N": N, "valid": valid, "walkers": vq.stats_plan(N, VQ_D, VQ_K).walkers,
+                    "sums_max_abs_err": err,
+                    "device_ms": device_profile(lambda: vq.vq_nearest_stats(x, e, mask))["ms"],
+                    "ms": time_ms(lambda: vq.vq_nearest_stats(x, e, mask), runs=20),
+                    "plain_ms": time_ms(lambda: vq.vq_nearest_stats_plain(x, e, mask), runs=20),
+                    "bound_ms": b[0], "bound_by": b[1]})
+        log(f"[14] {what} statistics stage {stage}: {json.dumps(out[-1])}")
+    return out
+
+
+def _audible(module, seed):
+    """Weight-norm gains drawn from U(0.5, 1.5): a seeded HiFi-GAN whose
+    kernels keep their N(0, 0.01) directions decodes to ~1e-4, where a
+    card-vs-CPU difference in absolute terms says nothing; with unit-scale
+    kernels the waveform is O(0.1)."""
+    from msmctts_tpu_torch.ops.convs import refold
+
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            if name.endswith("weight_g"):
+                p.copy_((torch.rand(p.shape, generator=gen) + 0.5).to(p.device))
+    refold(module)
+
+
+def phase_qs_analysis_synthesis(gen, card, with_profile=False):
+    """(a) The synthesizer recipe's analysis-synthesis on seeded weights."""
+    from msmctts_tpu_torch.config import Config
+    from msmctts_tpu_torch.tasks import build_task
+    from msmctts_tpu_torch.weights import init_random, load_numpy_state, state_dict_numpy
+
+    cfg = Config(SYN_YAML)
+    task = build_task(cfg, device="cuda")
+    ae = task.networks["autoencoder"]
+    init_random(ae, 1234)
+    _audible(ae.decoder, 1234)
+    ae.eval()
+    ratio, sr = ae.frameshift_ratio, task.samplerate
+    n_params = sum(p.numel() for p in ae.parameters())
+    rng = np.random.default_rng(14)
+
+    # small input: the card against the same weights on the CPU
+    cpu = build_task(cfg, device="cpu")
+    load_numpy_state(cpu.networks["autoencoder"], state_dict_numpy(ae))
+    small = _qs_emb_batch(rng, [64], 64)
+    small = {k: small[k] for k in ("emb", "emb_length")}
+    got, want = task.analysis_synthesis(small), cpu.analysis_synthesis(small)
+    err = float(np.abs(got["wav"][0] - want["wav"][0]).max())
+    with torch.inference_mode():
+        gi = ae.analysis(torch.as_tensor(small["emb"], device="cuda"), torch.tensor([64], device="cuda"))
+        ci = cpu.networks["autoencoder"].analysis(torch.as_tensor(small["emb"]), torch.tensor([64]))
+    idx_equal = all(torch.equal(a.cpu(), b) for a, b in zip(gi["quantizer_indices"], ci["quantizer_indices"]))
+    log(f"[14] QS-TTS synthesizer {n_params / 1e6:.1f}M parameters (seeded); analysis-synthesis T=64, card vs CPU: "
+        f"indices equal {idx_equal}, wav max abs err {err:.3g} (|wav| max {np.abs(want['wav'][0]).max():.3g})")
+    if err > AS_TOL or not idx_equal:
+        raise AssertionError(f"QS-TTS analysis-synthesis disagrees with the CPU: err {err}, indices equal {idx_equal}")
+    del cpu
+
+    batch = _qs_emb_batch(rng, QS_LENGTHS, QS_FRAMES)
+    batch = {k: batch[k] for k in ("emb", "emb_length")}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    task.analysis_synthesis(batch)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    _reset_counts()
+    out = task.analysis_synthesis(batch)
+    torch.cuda.synchronize()
+    counts = _counts()
+    for w, n in zip(out["wav"], QS_LENGTHS):
+        if w.shape != (n * ratio,) or not np.isfinite(w).all() or not np.abs(w).max() > 0:
+            raise AssertionError(f"QS-TTS analysis-synthesis: wav {w.shape} for {n} frames, finite {np.isfinite(w).all()}")
+    log(f"[14] analysis-synthesis B={QS_B} frames {list(QS_LENGTHS)} (bucket {QS_FRAMES}): launches {counts}, "
+        f"|wav| max {max(float(np.abs(w).max()) for w in out['wav']):.3g}")
+    if counts != {"vq_nearest": 2, "vq_nearest_stats": 0, "fused_resblock_layer": 36}:
+        raise AssertionError(f"QS-TTS analysis-synthesis launches {counts}, expected 2 VQ and 36 resblock")
+    warm = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        task.analysis_synthesis(batch)
+        torch.cuda.synchronize()
+        warm.append((time.perf_counter() - t0) * 1e3)
+    warm_ms = statistics.median(warm)
+    audio_s = sum(QS_LENGTHS) * ratio / sr
+    log(f"[14] analysis-synthesis per batch on {card}: first {first_ms:.1f} ms, warm median {warm_ms:.1f} ms "
+        f"(runs {[round(w, 1) for w in warm]}), {audio_s:.2f} s of audio, {audio_s / warm_ms * 1e3:.1f}x real time")
+    profile = profile_call(lambda: task.analysis_synthesis(batch), "[14]", "analysis-synthesis") if with_profile else None
+
+    # kernels 1 and 5 at this path's shapes, against their plain versions
+    snaps = _snap_rows(ae, lambda: task.analysis_synthesis(batch))
+    snap_rows = _hold_snaps(snaps, "analysis-synthesis")
+    rows, worst = _resblock_layers(gen, QS_B, QS_FRAMES, "qs-tts decode", library=True, stages=QS_STAGES)
+    keys = ("ms", "plain_ms", "library_ms", "bound_fp32_ms")
+    rb_total = {key: sum(r[key] for r in rows) for key in keys}
+    rb_total["bound_ms"] = sum(r["bound"][0] for r in rows)
+    rb_total["max_abs_err"] = worst
+    rb_total["shapes"] = sorted({(r["C"], r["T"]) for r in rows}, reverse=True)
+    log(f"[14] resblock, all 36 layers of one x200 decode (B={QS_B}, {QS_FRAMES} frames): {json.dumps(rb_total)}")
+    return {"params": n_params, "cpu_wav_err": err, "launches": counts, "first_ms": first_ms, "warm_ms": warm_ms,
+            "warm_runs_ms": warm, "audio_s": audio_s, "rtf_x": audio_s / warm_ms * 1e3, "snap": snap_rows,
+            "resblock": rb_total, "resblock_rows": rows, "profile": profile}
+
+
+def phase_qs_training(card, with_profile=False):
+    """(b) ``EmbVQGANTrainer`` at the synthesizer recipe's width, batch 16,
+    through its three phases; the trained synthesizer saved as a checkpoint."""
+    from msmctts_tpu_torch.data.loader import to_device
+    from msmctts_tpu_torch.training.base_trainer import metrics_to_host
+
+    torch.cuda.empty_cache()
+    base_gib = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    trainer = _qs_trainer(_qs_syn_config(os.path.join(SMOKE_DIR, "ckpt_qs_syn")), "cuda")
+    ae, disc = trainer.ae, trainer.disc
+    rng = np.random.default_rng(15)
+    lengths = rng.integers(QS_TRAIN_LENGTHS[0], QS_TRAIN_LENGTHS[1] + 1, size=QS_TRAIN_B)
+    lengths[0] = QS_TRAIN_LENGTHS[1]
+    batch = to_device(_qs_emb_batch(rng, lengths, QS_TRAIN_FRAMES), "cuda")
+    log(f"[14] QS-TTS synthesizer training: {sum(p.numel() for p in ae.parameters()) / 1e6:.1f}M + discriminator "
+        f"{sum(p.numel() for p in disc.parameters()) / 1e6:.1f}M parameters; batch {QS_TRAIN_B}, frames "
+        f"{lengths.min()}-{lengths.max()} (bucket {QS_TRAIN_FRAMES}), {trainer.sample_batch_size} windows of "
+        f"{trainer.sample_lengths} samples")
+    steps = []
+    for it in range(1, QS_STEPS + 1):
+        ae_before = [p.detach().clone() for p in ae.parameters()]
+        d_before = [p.detach().clone() for p in disc.parameters()]
+        cb_before = [q.embed.clone() for q in ae.quantizer.quantizer]
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        metrics = trainer.train_step(batch, it)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = _counts()
+        host = metrics_to_host(metrics)
+        bad = [k for k, v in host.items() if not np.isfinite(v)]
+        if bad:
+            raise AssertionError(f"QS-TTS train step {it}: non-finite metrics {bad}")
+        if counts != {"vq_nearest": 0, "vq_nearest_stats": 2, "fused_resblock_layer": 0}:
+            raise AssertionError(f"QS-TTS train step {it}: launches {counts}, expected 2 vq_nearest_stats only")
+        phase = QS_PHASES[it]
+        ae_moved, d_moved = _moved(ae, ae_before), _moved(disc, d_before)
+        dec_moved = _moved(ae.decoder, [b for (n, _), b in zip(ae.named_parameters(), ae_before) if n.startswith("decoder.")])
+        cb_moved = sum(int(not torch.equal(q.embed, b)) for q, b in zip(ae.quantizer.quantizer, cb_before))
+        # the decoder runs from the decode phase on; at a seeded init its waveform can sit below the log-mel
+        # loss's clamp (no gradient there), so only the GAN phase's adversarial terms must move it
+        if (ae_moved == 0 or (phase == "gan") != (d_moved > 0) or (phase == "supervised" and dec_moved)
+                or (phase == "gan" and not dec_moved) or cb_moved != 2):
+            raise AssertionError(f"QS-TTS step {it} ({phase}): moved ae {ae_moved} (decoder {dec_moved}), "
+                                 f"discriminator {d_moved}, codebooks {cb_moved}")
+        steps.append({"iteration": it, "phase": phase, "ms": ms, "launches": counts, "metrics": host,
+                      "ae_tensors_moved": ae_moved, "decoder_tensors_moved": dec_moved, "d_tensors_moved": d_moved})
+        shown = {k: round(host[k], 4) for k in ("g_loss", "vq_loss", "frame_loss", "stft_loss", "d_loss", "fm_loss") if k in host}
+        log(f"[14] QS-TTS step {it} ({phase}): {ms:.1f} ms, launches {counts}, moved ae {ae_moved} (decoder "
+            f"{dec_moved}) d {d_moved} codebooks {cb_moved}, {shown}")
+
+    def timed(it):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(batch, it)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    warm = {phase: [timed(it) for _ in range(3)] for phase, it in (("supervised", 1), ("decode", 2), ("gan", 5))}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    # kernel 2 at this path's shapes (walkers and partials follow N), against its plain version
+    stats = _stats_rows(ae, lambda: trainer.train_step(batch, QS_STEPS + 1))
+    if len(stats) != 2:
+        raise AssertionError(f"QS-TTS train step: {len(stats)} quantizer calls, expected 2")
+    result = {"steps": steps, "warm_ms": {k: statistics.median(v) for k, v in warm.items()}, "warm_runs_ms": warm,
+              "peak_memory_gib": peak_gib, "peak_above_start_gib": peak_gib - base_gib,
+              "launches_per_step": steps[-1]["launches"], "stats": _hold_stats(stats, "QS-TTS train step")}
+    log(f"[14] QS-TTS per train step on {card}: first {[round(st['ms'], 1) for st in steps]} ms; warm median "
+        f"{json.dumps({k: round(v, 1) for k, v in result['warm_ms'].items()})} ms; peak memory {peak_gib:.2f} GiB")
+    if with_profile:
+        result["profile"] = profile_call(lambda: trainer.train_step(batch, 6), "[14]", "QS-TTS GAN step")
+    trainer.iteration = QS_STEPS
+    result["checkpoint"] = trainer.save()
+    log(f"[14] trained synthesizer -> {os.path.relpath(result['checkpoint'], ROOT)}")
+    return result
+
+
+def _flat_tree(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        out.update(_flat_tree(v, f"{prefix}{k}/") if isinstance(v, dict) else {prefix + k: np.asarray(v)})
+    return out
+
+
+def _adam_step_bound(lr, betas, t):
+    """The largest move of a weight at Adam's ``t``-th step, for any
+    gradients: with the bias-corrected moments m = sum(w_i g_i) and v =
+    sum(u_i g_i^2), Cauchy-Schwarz gives |m| / sqrt(v) <= sqrt(sum(w_i^2 / u_i));
+    lr at the first step, a little more after it."""
+    b1, b2 = (float(b) for b in betas)
+    w = [(1 - b1) * b1 ** (t - i) / (1 - b1 ** t) for i in range(1, t + 1)]
+    u = [(1 - b2) * b2 ** (t - i) / (1 - b2 ** t) for i in range(1, t + 1)]
+    return lr * math.sqrt(sum(a * a / c for a, c in zip(w, u)))
+
+
+def phase_qs_step_card_vs_cpu():
+    """One step of each phase from equal state on the card and on the CPU:
+    the small config (ECAPA, pitch / energy, prosody estimator on), 2
+    utterances, dropout 0, the same windows."""
+    from msmctts_tpu_torch.data.loader import to_device
+    from msmctts_tpu_torch.training.base_trainer import metrics_to_host
+
+    rng = np.random.default_rng(16)
+    batch = _qs_emb_batch(rng, [64, 48], 64)
+    batch["pitch"] = (rng.normal(size=(2, 64, 1)) * (np.arange(64)[None, :, None] < batch["emb_length"][:, None, None])).astype(np.float32)
+    batch["energy"] = (rng.normal(size=(2, 64, 1)) * (np.arange(64)[None, :, None] < batch["emb_length"][:, None, None])).astype(np.float32)
+    windows = {2: (np.array([0, 1]), np.array([7, 20])), 3: (np.array([0, 1]), np.array([30, 2]))}
+    card = _qs_trainer(_qs_syn_config(os.path.join(SMOKE_DIR, "ckpt_qs_small"), small=True), "cuda")
+    cpu = _qs_trainer(_qs_syn_config(os.path.join(SMOKE_DIR, "ckpt_qs_small"), small=True), "cpu")
+    # an Adam step moves a weight by up to _adam_step_bound whatever its gradient's size, so where the two
+    # gradients are at rounding level the two weights may part by twice that
+    opt = card.config["optimizer"]["_default"]
+    param_atol = 2 * max(_adam_step_bound(float(opt["learning_rate"]), opt["betas"], t) for t in (1, 2, 3)) + 1e-6
+    worst = {"loss_rel": 0.0, "codebook_abs": 0.0, "batch_stats_abs": 0.0, "param_abs": 0.0}
+    far = total = 0
+    same = True
+    steps = {}
+    for it in (1, 2, 3):
+        cpu.load_state_tree(card.state_tree())  # equal state before each phase's step
+        out = {}
+        for name, tr in (("card", card), ("cpu", cpu)):
+            idx = []
+            hooks = [q.register_forward_hook(lambda m, a, o: idx.append(o[2].cpu())) for q in tr.ae.quantizer.quantizer]
+            m = metrics_to_host(tr.train_step(to_device(batch, tr.device), it, windows=windows.get(it)))
+            for h in hooks:
+                h.remove()
+            out[name] = {"metrics": m, "indices": idx, "state": tr.state_tree()}
+        for k, want in out["cpu"]["metrics"].items():
+            got = out["card"]["metrics"][k]
+            rel = abs(got - want) / max(abs(want), 1e-3)
+            worst["loss_rel"] = max(worst["loss_rel"], rel)
+            if rel > STEP_TOL["loss_rtol"]:
+                raise AssertionError(f"QS-TTS {QS_PHASES[it]} step, {k}: card {got} vs CPU {want}")
+        same = same and all(torch.equal(a, b) for a, b in zip(out["card"]["indices"], out["cpu"]["indices"]))
+        for key, tag in (("codebook", "codebook_abs"), ("model_state", "batch_stats_abs")):
+            a, b = _flat_tree(out["card"]["state"][key]), _flat_tree(out["cpu"]["state"][key])
+            # a codeword no frame chose holds its sum over a cluster size near 0: relative there
+            worst[tag] = max(worst[tag], max(float(np.max(np.abs(a[k] - b[k]) / np.maximum(1.0, np.abs(b[k])))) for k in b))
+        a, b = _flat_tree(out["card"]["state"]["params"]), _flat_tree(out["cpu"]["state"]["params"])
+        if sorted(a) != sorted(b):
+            raise AssertionError(f"QS-TTS {QS_PHASES[it]} step: the card's and the CPU's parameter trees differ")
+        for k in b:
+            gap = np.abs(a[k] - b[k])
+            worst["param_abs"] = max(worst["param_abs"], float(gap.max()))
+            far += int((gap > 1e-5).sum())
+            total += gap.size
+        steps[QS_PHASES[it]] = {k: out[k]["metrics"] for k in ("card", "cpu")}
+    log(f"[14] one step of each phase from equal state, card vs CPU (ECAPA, pitch / energy, prosody estimator on; "
+        f"B=2, 64 frames): indices equal {same}, worst loss rel diff {worst['loss_rel']:.3g}, codebook "
+        f"{worst['codebook_abs']:.3g}, BN statistics {worst['batch_stats_abs']:.3g}, parameters after the step "
+        f"{worst['param_abs']:.3g} (bound {param_atol:.3g}; {far} of {total} entries further than 1e-5 apart); "
+        f"metrics {sorted(steps['gan']['cpu'])}")
+    if (not same or worst["codebook_abs"] > STEP_TOL["codebook_atol"] or worst["batch_stats_abs"] > BN_STATS_RTOL
+            or worst["param_abs"] > param_atol):
+        raise AssertionError(f"QS-TTS train step disagrees with the CPU: indices equal {same}, {worst}")
+    return {**worst, "param_atol": param_atol, "params_far": far, "params_total": total, "indices_equal": same,
+            "steps": steps}
+
+
+def _qs_pred_config(syn_ckpt, save_dir):
+    from msmctts_tpu_torch.config import Config
+
+    cfg = Config(PRED_YAML)
+    cfg.task["autoencoder"]["_checkpoint"] = syn_ckpt
+    cfg.task["autoencoder"].pop("_config", None)  # the checkpoint's embedded config
+    cfg["save_checkpoint_dir"] = save_dir
+    return cfg
+
+
+def _qs_am_batch(rng, n_symbols, B, Lt, T, phones, frames):
+    b = _am_batch(rng, n_symbols, B, Lt, T, phones, frames, n_mel=1024)
+    valid = np.arange(T)[None, :] < b["mel_length"][:, None]
+    emb = np.where(valid[..., None], b.pop("mel"), 0.0).astype(np.float32)
+    return {**b, "emb": emb, "emb_length": b.pop("mel_length")}
+
+
+def phase_qs_predictor_training(card, syn_ckpt, with_profile=False):
+    """(c) ``NASynEmbFSTrainer`` at the predictor recipe's width, batch 64,
+    dropout on, the synthesizer of (b) as its teacher."""
+    from msmctts_tpu_torch.data.loader import to_device
+    from msmctts_tpu_torch.training.base_trainer import metrics_to_host
+
+    torch.cuda.empty_cache()
+    base_gib = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    trainer = _qs_trainer(_qs_pred_config(syn_ckpt, os.path.join(SMOKE_DIR, "ckpt_qs_pred")), "cuda")
+    predictor, ae = trainer.predictor, trainer.frozen_autoencoder()
+    n_symbols = list(trainer.config.task["predictor"]["n_symbols"])
+    batch_np = _qs_am_batch(np.random.default_rng(17), n_symbols, AM_B, AM_TEXT, AM_FRAMES, AM_PHONES, AM_LENGTHS)
+    batch = to_device(batch_np, "cuda")
+    teacher0 = {k: v.clone() for k, v in ae.state_dict().items()}
+    log(f"[14] QS-TTS predictor {sum(p.numel() for p in predictor.parameters()) / 1e6:.1f}M parameters, streams "
+        f"{n_symbols}; batch {AM_B}, phones {batch_np['text_length'].min()}-{batch_np['text_length'].max()} (bucket "
+        f"{AM_TEXT}), emb frames {batch_np['emb_length'].min()}-{batch_np['emb_length'].max()} (bucket {AM_FRAMES}), dropout on")
+    steps, snaps = [], []
+    for it in range(1, AM_STEPS + 1):
+        before = [p.detach().clone() for p in predictor.parameters()]
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        metrics = trainer.train_step(batch, it)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = _counts()
+        host = metrics_to_host(metrics)
+        if not all(np.isfinite(v) for v in host.values()):
+            raise AssertionError(f"QS-TTS predictor step {it}: non-finite metrics {host}")
+        if counts != {"vq_nearest": 2, "vq_nearest_stats": 0, "fused_resblock_layer": 0}:
+            raise AssertionError(f"QS-TTS predictor step {it}: launches {counts}, expected the teacher's 2 vq_nearest")
+        moved = _moved(predictor, before)
+        if moved < 0.9 * len(before):
+            raise AssertionError(f"QS-TTS predictor step {it}: only {moved} of {len(before)} tensors moved")
+        steps.append({"iteration": it, "ms": ms, "launches": counts, "metrics": host, "tensors_moved": moved})
+        log(f"[14] QS-TTS predictor step {it}: {ms:.1f} ms, launches {counts}, moved {moved}/{len(before)}, "
+            f"{ {k: round(v, 4) for k, v in sorted(host.items())} }")
+    snaps = _snap_rows(ae, lambda: trainer.train_step(batch, AM_STEPS + 1))
+    snap_rows = _hold_snaps(snaps, "QS-TTS teacher")
+    changed = [k for k, v in ae.state_dict().items() if not torch.equal(v, teacher0[k])]
+    if changed or ae.training:
+        raise AssertionError(f"the QS-TTS teacher changed: {changed[:5]} (training mode {ae.training})")
+
+    def timed(it):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(batch, it)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    warm = [timed(AM_STEPS + 2 + i) for i in range(3)]
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    result = {"steps": steps, "first_ms": steps[0]["ms"], "warm_ms": statistics.median(warm), "warm_runs_ms": warm,
+              "peak_memory_gib": peak_gib, "peak_above_start_gib": peak_gib - base_gib, "snap": snap_rows,
+              "launches_per_step": steps[-1]["launches"]}
+    log(f"[14] QS-TTS predictor per step on {card}: first {result['first_ms']:.1f} ms, warm median "
+        f"{result['warm_ms']:.1f} ms (runs {[round(w, 1) for w in warm]}); peak memory {peak_gib:.2f} GiB; the "
+        f"teacher's 2 snaps {sum(r['device_ms'] for r in snap_rows):.4f} ms on the device; teacher bit-equal after the steps")
+    if with_profile:
+        result["profile"] = profile_call(lambda: trainer.train_step(batch, 20), "[14]", "QS-TTS predictor step")
+    return result
+
+
+def _write_qs_corpus(d, n_symbols, n_utts=12, seed=18):
+    """A small corpus of both recipes: emb/*.npy [T, 1024], mel/*.npy,
+    wav/*.wav at 16 kHz, phone.txt / dur.txt books, train.list."""
+    from msmctts_tpu_torch.data.datasets import save_wav
+
+    rng = np.random.default_rng(seed)
+    b = _am_batch(rng, n_symbols, n_utts, 48, 192, (12, 48), (60, 190), n_mel=80)
+    for sub in ("emb", "mel", "wav"):
+        os.makedirs(os.path.join(d, sub), exist_ok=True)
+    ids, phones, durs = [], [], []
+    for i in range(n_utts):
+        uid = f"qs{i:03d}"
+        n, f = int(b["text_length"][i]), int(b["mel_length"][i])
+        ids.append(uid)
+        phones.append(uid + "|" + " ".join("_".join(str(v) for v in row) for row in b["text"][i, :n]))
+        durs.append(uid + "|" + " ".join(str(int(v)) for v in b["dur"][i, :n]))
+        np.save(os.path.join(d, "emb", f"{uid}.npy"), rng.normal(size=(f, 1024)).astype(np.float32))
+        np.save(os.path.join(d, "mel", f"{uid}.npy"), b["mel"][i, :f])
+        save_wav(os.path.join(d, "wav", f"{uid}.wav"), rng.normal(size=f * 200) * 0.1, 16000)
+    for name, lines in (("train.list", ids), ("phone.txt", phones), ("dur.txt", durs)):
+        with open(os.path.join(d, name), "w") as fh:
+            fh.write("\n".join(lines) + "\n")
+    return ids, b["mel_length"]
+
+
+def phase_qs_entry_points(card):
+    """(d) Both recipes through ``python -m msmctts_tpu_torch.train`` on a
+    corpus written here, and the synthesizer through ``infer``."""
+    import shutil
+
+    import yaml
+
+    from msmctts_tpu_torch.config import Config
+
+    d = os.path.join(SMOKE_DIR, "qs_corpus")
+    n_symbols = list(Config(PRED_YAML).task["predictor"]["n_symbols"])
+    ids, frames = _write_qs_corpus(d, n_symbols)
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+
+    def run(what, *args):
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", *args], cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if res.returncode != 0:
+            raise AssertionError(f"{what} failed ({res.returncode}):\n{res.stdout[-4000:]}\n{res.stderr[-4000:]}")
+        return res, wall
+
+    syn = Config(SYN_YAML)
+    syn["save_checkpoint_dir"] = os.path.join(SMOKE_DIR, "ckpt_qs_syn_cli")
+    shutil.rmtree(syn["save_checkpoint_dir"], ignore_errors=True)
+    syn["dataloader"] = {"batch_size": 4, "num_workers": 2}
+    syn.dataset["id_list"] = os.path.join(d, "train.list")
+    syn.dataset["feature_path"] = [os.path.join(d, sub, "{}" + ext) for sub, ext in (("emb", ".npy"), ("mel", ".npy"), ("wav", ".wav"))]
+    syn_path = os.path.join(SMOKE_DIR, "qs_syn_cli.yaml")
+    with open(syn_path, "w") as fh:
+        yaml.safe_dump(syn.to_dict(), fh)
+    res, wall = run("train (synthesizer recipe)", "msmctts_tpu_torch.train", "-c", syn_path, "--max-steps", "2", "--log-every", "1")
+    syn_ckpt = os.path.join(syn["save_checkpoint_dir"], "model_2")
+    last = [line for line in res.stdout.splitlines() if "step 2" in line]
+    if not last or not os.path.exists(syn_ckpt):
+        raise AssertionError(f"the synthesizer recipe's train run wrote no model_2:\n{res.stdout[-3000:]}")
+    log(f"[14] train entry point, synthesizer recipe, 2 steps at batch 4 ({wall:.1f}s): {last[-1].strip()}")
+
+    test_list = os.path.join(SMOKE_DIR, "qs_test.yaml")
+    with open(test_list, "w") as fh:
+        yaml.safe_dump({u: {"emb": os.path.join(d, "emb", f"{u}.npy"), "mel": os.path.join(d, "mel", f"{u}.npy")}
+                        for u in ids[:3]}, fh)
+    out_dir = os.path.join(SMOKE_DIR, "qs_infer")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    res, infer_wall = run("infer (synthesizer)", "msmctts_tpu_torch.infer", "-m", syn_ckpt, "-t", test_list, "-o", out_dir)
+    from scipy.io import wavfile
+
+    lengths = {u: wavfile.read(os.path.join(out_dir, f"{u}_wav.wav"))[1].shape[0] for u in ids[:3]}
+    want = {u: int(n) * 200 for u, n in zip(ids[:3], frames[:3])}
+    if lengths != want or len(set(lengths.values())) < 2:
+        raise AssertionError(f"infer wrote wavs of {lengths} samples, expected {want}, distinct")
+    log(f"[14] infer entry point ({infer_wall:.1f}s): {res.stdout.strip().splitlines()[-1]}; wav samples {lengths}")
+
+    pred = _qs_pred_config(syn_ckpt, os.path.join(SMOKE_DIR, "ckpt_qs_pred_cli"))
+    shutil.rmtree(pred["save_checkpoint_dir"], ignore_errors=True)
+    pred["dataloader"] = {"batch_size": 8, "num_workers": 2}
+    pred.dataset["id_list"] = os.path.join(d, "train.list")
+    pred.dataset["feature_path"] = [os.path.join(d, "phone.txt"), os.path.join(d, "dur.txt"), os.path.join(d, "emb", "{}.npy")]
+    pred_path = os.path.join(SMOKE_DIR, "qs_pred_cli.yaml")
+    with open(pred_path, "w") as fh:
+        yaml.safe_dump(pred.to_dict(), fh)
+    res, pred_wall = run("train (predictor recipe)", "msmctts_tpu_torch.train", "-c", pred_path, "--max-steps", "2", "--log-every", "1")
+    last_p = [line for line in res.stdout.splitlines() if "step 2" in line]
+    if not last_p or not os.path.exists(os.path.join(pred["save_checkpoint_dir"], "model_2")):
+        raise AssertionError(f"the predictor recipe's train run wrote no model_2:\n{res.stdout[-3000:]}")
+    log(f"[14] train entry point, predictor recipe against that checkpoint, 2 steps at batch 8 ({pred_wall:.1f}s): "
+        f"{last_p[-1].strip()}")
+    return {"train_wall_s": wall, "infer_wall_s": infer_wall, "predictor_train_wall_s": pred_wall,
+            "wav_samples": lengths, "last_lines": [last[-1].strip(), last_p[-1].strip()]}
+
+
+def phase_qs_tts(gen, card, with_profile=False):
+    """Phase 14, (a) to (d); ``with_profile`` adds the profiles of one
+    analysis-synthesis, one GAN step and one predictor step."""
+    t0 = time.perf_counter()
+    result = {"analysis_synthesis": phase_qs_analysis_synthesis(gen, card, with_profile)}
+    result["training"] = phase_qs_training(card, with_profile)
+    result["step_card_vs_cpu"] = phase_qs_step_card_vs_cpu()
+    result["predictor_training"] = phase_qs_predictor_training(card, result["training"]["checkpoint"], with_profile)
+    result["entry_points"] = phase_qs_entry_points(card)
+    result["phase_s"] = time.perf_counter() - t0
+    log(f"[14] QS-TTS phase {result['phase_s']:.1f}s")
+    return result
+
+
 def _device_rows(prof):
     """[{name, count, device_ms}] of a profile's kernels, the longest first."""
     from torch.autograd import DeviceType
@@ -1924,7 +2557,8 @@ def profile_call(fn, tag, what):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
-                    help="also profile one predict, one GAN step and one AM step, and write every measurement to this JSON file")
+                    help="also profile one predict, one GAN step, one AM step, a streamed batch and phase 14's "
+                         "analysis-synthesis, GAN step and predictor step, and write every measurement to this JSON file")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on a GPU", file=sys.stderr)
@@ -1959,6 +2593,11 @@ def main(argv=None):
     serving = phase_serving(env["nvidia_smi"], tts_ref["am_path"], with_profile=bool(args.out))
     serving["phase_s"] = time.perf_counter() - t_serving
     log(f"[13] serving phase {serving['phase_s']:.1f}s")
+    qs = phase_qs_tts(gen, env["nvidia_smi"], with_profile=bool(args.out))
+    qs_snap = lambda rows: [{k: r[k] for k in ("N", "device_ms", "ms", "plain_ms", "bound_ms", "bound_by", "index_mismatches",
+                                              "max_abs_err")} for r in rows]
+    qs_as, qs_pred = qs["analysis_synthesis"], qs["predictor_training"]
+    qs_stats_n = f"N={QS_TRAIN_B * QS_TRAIN_FRAMES // 4} + N={QS_TRAIN_B * QS_TRAIN_FRAMES}"
 
     kernels = [
         {
@@ -1975,6 +2614,11 @@ def main(argv=None):
             # serving: one streamed batch (predict_features), and the kernel at its N
             "launches_serving": serving["stream"]["launches"]["vq_nearest"],
             "serving": {**serving["snap"], "frame_bucket": serving["stream"]["frame_bucket"]},
+            # QS-TTS: the synthesizer's analysis-synthesis (per batch of 4 at bucket 512) and
+            # the predictor step's frozen teacher (batch 64, bucket 768)
+            "launches_qs_tts": {"analysis_synthesis_batch": qs_as["launches"]["vq_nearest"],
+                                "predictor_step": qs_pred["launches_per_step"]["vq_nearest"]},
+            "qs_tts": {"analysis_synthesis": qs_snap(qs_as["snap"]), "predictor_step": qs_snap(qs_pred["snap"])},
         },
         {
             "name": "vq_nearest_stats", "route": "cuda", "source": "msmctts_tpu_torch/csrc/vq_stats.cu",
@@ -1985,6 +2629,11 @@ def main(argv=None):
             "tolerance": {"idx_quant_counts": "exact", "sums": VQS_TOL},
             "shapes": f"per train step: N={TRAIN_B * TRAIN_FRAMES // 4} + N={TRAIN_B * TRAIN_FRAMES}, H=4, d=64, K=64; "
                       "launches over 2 warmup + 2 GAN steps",
+            "launches_qs_tts": qs["training"]["launches_per_step"]["vq_nearest_stats"],
+            "qs_tts_shapes": f"per QS-TTS synthesizer train step (batch 16, bucket 384): {qs_stats_n}, H=4, d=64, K=64",
+            # both calls of one QS-TTS train step on the inputs the path gave them, against the plain version
+            "qs_tts": [{k: r[k] for k in ("N", "valid", "walkers", "device_ms", "ms", "plain_ms", "bound_ms", "bound_by",
+                                          "sums_max_abs_err")} for r in qs["training"]["stats"]],
         },
         {
             "name": "vq_nearest_stats_sharded", "route": "cuda", "source": "msmctts_tpu_torch/csrc/vq_stats.cu",
@@ -2001,6 +2650,9 @@ def main(argv=None):
             "shapes": f"per train step per rank of {WORLD} sharing one card: n={shard_res['stats_rows']} rows, H=4, d=64, K=64, each "
                       "followed by one all-reduce; ms is kernel + collective on the host clock; the bound adds the two "
                       "all-reduces over one NVLink direction (not measured: one card); launches per rank over 2 warmup + 2 GAN steps",
+            # the QS-TTS synthesizer's quantizer calls this function; on one card with no group
+            "launches_qs_tts": qs["training"]["launches_per_step"]["vq_nearest_stats"],
+            "qs_tts_shapes": f"per QS-TTS synthesizer train step on one rank, no group (no all-reduce): {qs_stats_n}",
         },
         {
             "name": "vq_nearest_sharded", "route": "cuda", "source": "msmctts_tpu_torch/csrc/vq_nearest.cu",
@@ -2012,6 +2664,11 @@ def main(argv=None):
             "index_mismatches": shard_res["snap_index_mismatches"],
             "shapes": f"per predict per rank of {WORLD}: 2 x n={shard_res['snap_rows'][0]} + 2 x n={shard_res['snap_rows'][1]} rows, "
                       "H=4, d=64, K=64; launches per rank in one predict of the batch of 4",
+            # every QS-TTS snap calls this function; on one card with no group
+            "launches_qs_tts": {"analysis_synthesis_batch": qs_as["launches"]["vq_nearest"],
+                                "predictor_step": qs_pred["launches_per_step"]["vq_nearest"]},
+            "qs_tts_shapes": f"one rank: N={QS_B * QS_FRAMES // 4} + {QS_B * QS_FRAMES} per analysis-synthesis batch, "
+                             f"N={AM_B * AM_FRAMES // 4} + {AM_B * AM_FRAMES} per predictor step",
         },
         {
             "name": "fused_resblock_layer", "route": "cuda", "source": "msmctts_tpu_torch/csrc/resblock.cu",
@@ -2025,6 +2682,10 @@ def main(argv=None):
             "launches_serving": serving["stream"]["launches"]["fused_resblock_layer"],
             "window_shapes": serving["window"]["shapes"],
             "window": {k: serving["window"][k] for k in ("ms", "plain_ms", "bound_ms", "max_abs_err")},
+            # QS-TTS: the x200 generator's 36 layers per analysis-synthesis batch (B=4, 512 frames)
+            "launches_qs_tts": qs_as["launches"]["fused_resblock_layer"],
+            "qs_tts": {k: qs_as["resblock"][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_fp32_ms",
+                                                          "max_abs_err", "shapes")},
             "tolerance": {**RB_TOL, "max_abs": RB_MAX_ABS},
             "shapes": f"per decode: the 36 CSMSC MRF layers at B={B}, {FRAMES} frames; bound_ms counts the kernel's operations, "
                       "three TF32 tensor-core products per fp32 product at 495 TFLOP/s; bound_fp32_ms the same products as "
@@ -2042,9 +2703,9 @@ def main(argv=None):
                        "training": train_res, "step_card_vs_cpu": step_res,
                        "sharded_kernels": shard_res, "nccl_world_1": nccl_res, "dp_training": dp_train,
                        "dp_inference": dp_infer, "am_training": am_res, "am_step_card_vs_cpu": am_cpu,
-                       "am_entry_point": am_cli, "serving": serving,
+                       "am_entry_point": am_cli, "serving": serving, "qs_tts": qs,
                        "wall_s": time.perf_counter() - t_start}, f, indent=1)
-    log(f"[14] wall {time.perf_counter() - t_start:.1f}s on {env['nvidia_smi']}")
+    log(f"[15] wall {time.perf_counter() - t_start:.1f}s on {env['nvidia_smi']}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": env["name"], "count": env["count"]}}))
     return 0

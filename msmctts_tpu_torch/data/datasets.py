@@ -1,7 +1,8 @@
 """Config-driven datasets on the host, in numpy (the port's own copy of
-``msmctts_tpu/data/datasets.py:39-431,478-554``): shape buckets, WAV I/O,
-``BaseDataset``, the ``MelDataset`` that autoencoder training reads and the
-``TTSDataset`` (text, durations, mel) that acoustic-model training reads, with
+``msmctts_tpu/data/datasets.py:39-554``): shape buckets, WAV I/O,
+``BaseDataset``, the ``MelDataset`` that autoencoder training reads, the
+``EmbDataset`` (SSL embeddings) that QS-TTS synthesizer training reads and the
+``TTSDataset`` (text, durations, mel or emb) that acoustic-model training reads, with
 the same YAML contract (parallel ``feature`` / ``dimension`` / ``frameshift``
 / ``padding_value`` lists, ``feature_path`` templates, book files, test-list
 YAMLs, ``feature_stat`` normalization, random segment cropping) and the same
@@ -356,6 +357,50 @@ class MelDataset(BaseDataset):
             ).astype(np.float32)
             out["wav"] = wav
             out["wav_length"] = lengths * mel_fs
+        if "_id" in batch[0]:
+            out["_id"] = np.array([b["_id"] for b in batch])
+        return out
+
+
+@register_dataset("EmbDataset")
+class EmbDataset(BaseDataset):
+    """SSL embeddings (+ mel / wav / pitch / energy) for QS-TTS synthesizer
+    training and analysis-synthesis (``msmctts_tpu/data/datasets.py:433-478``):
+    features aligned on their frameshifts; ``emb``, ``mel``, ``pitch`` and
+    ``energy`` padded to the emb axis's frame bucket, ``wav`` to that
+    bucket x the emb frameshift."""
+
+    frame_buckets = FRAME_BUCKETS
+
+    def parse_case(self, index):
+        data = super().parse_case(index)
+        return align_features(data, self.frameshift)
+
+    def collate_fn(self, batch):
+        emb_fs = self.frameshift.get("emb", 1)
+        lengths = np.array([b["emb"].shape[0] for b in batch], np.int32)
+        T = bucket_length(int(lengths.max()), self.frame_buckets)
+        out = {
+            "emb": np.stack(
+                [self._pad_to(b["emb"], T, self.padding_value.get("emb", 0)) for b in batch]
+            ).astype(np.float32),
+            "emb_length": lengths,
+        }
+        for name in ("mel", "pitch", "energy"):
+            if name in batch[0]:
+                arrs = [np.atleast_2d(b[name].reshape(b[name].shape[0], -1)) for b in batch]
+                out[name] = np.stack(
+                    [self._pad_to(a, T, self.padding_value.get(name, 0)) for a in arrs]
+                ).astype(np.float32)
+        if "wav" in batch[0]:
+            Tw = T * emb_fs
+            out["wav"] = np.stack(
+                [
+                    self._pad_to(np.squeeze(b["wav"], -1) if b["wav"].ndim == 2 else b["wav"], Tw, 0.0)
+                    for b in batch
+                ]
+            ).astype(np.float32)
+            out["wav_length"] = lengths * emb_fs
         if "_id" in batch[0]:
             out["_id"] = np.array([b["_id"] for b in batch])
         return out

@@ -292,6 +292,10 @@ class MSMCVQGAN(nn.Module):
     def frameshift_ratio(self) -> int:
         return generator_upsample_ratio(self.decoder_config)
 
+    def set_group(self, group):
+        """Train data-parallel over ``group`` (the quantizer's statistics)."""
+        self.quantizer.set_group(group)
+
     def _frame_decode(self, decoder_inputs, lengths):
         if self.frame_decoder is None:
             return decoder_inputs

@@ -43,6 +43,7 @@ def avg_pool_ceil(x, scale: int):
 
 
 @register_network("MultiStagePredictor")
+@register_network("NASynCascadeFastSpeech")  # the QS-TTS predictor recipe's name for it
 class MultiStagePredictor(nn.Module):
     def __init__(
         self,

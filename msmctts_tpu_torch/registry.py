@@ -47,9 +47,11 @@ def _populate():
     from msmctts_tpu_torch.models import (  # noqa: F401
         hifigan as _hifigan,
         msmc_vqgan as _msmc_vqgan,
+        msmc_vqgan_emb as _msmc_vqgan_emb,
         predictor as _predictor,
     )
     from msmctts_tpu_torch.training import (  # noqa: F401
+        emb_vqgan_trainer as _emb_vqgan_trainer,
         predictor_trainer as _predictor_trainer,
         vqgan_trainer as _vqgan_trainer,
     )

@@ -3,10 +3,15 @@ build the networks from the ``task:`` config subtree, load their weights,
 and run inference.
 
 ``MSMCTTS.infer_step`` keeps the JAX package's two modes:
-``train_autoencoder`` -> analysis-synthesis round trip, ``train_predictor``
+``train_autoencoder`` -> analysis-synthesis round trip (mel, or for the
+QS-TTS family SSL embeddings), ``train_predictor``
 -> text -> predictor -> snapped MSMCR -> ``autoencoder.synthesis`` ->
 waveform, with the frozen autoencoder loaded from
-``task.autoencoder._checkpoint`` / ``_config``. Prediction keeps its two
+``task.autoencoder._checkpoint`` / ``_config``. The task is also registered
+under the QS-TTS recipes' names ``NASynTTSEmb`` and ``NASynTTSv2``; over
+an SSL-embedding autoencoder ``predict`` runs its ``synthesis`` (no speaker
+reference), as the JAX package does, and ``predict_stream`` is refused, as
+the JAX package has no such path. Prediction keeps its two
 phases: durations first, then one frame bucket for the batch, then
 expansion and synthesis.
 
@@ -32,7 +37,7 @@ every utterance's frame total (the serving cap that makes the reachable
 frame bucket, so that nothing returns to the host before the waveform.
 ``shapes`` records every shape the task has run, keyed like the JAX
 package's ``_jit_cache``: ``("dur", Lt)``, ``("syn", Lt, F)``,
-``("stream", chunk, Lt, F)`` and ``("ae", T)``; it is the eager port's
+``("stream", chunk, Lt, F)``, ``("ae", T)`` and ``("ae_emb", T, inputs)``; it is the eager port's
 counterpart of "this graph is compiled", and serving counts the shapes first
 run after its warmup (``serving.py``).
 
@@ -50,24 +55,37 @@ import torch
 
 from msmctts_tpu_torch.config import Config, component_kwargs
 from msmctts_tpu_torch.data.datasets import FRAME_BUCKETS, bucket_length
+from msmctts_tpu_torch.models.msmc_vqgan import MSMCVQGAN
 from msmctts_tpu_torch.parallel import mesh
 from msmctts_tpu_torch.registry import get_network, get_task, register_task
 from msmctts_tpu_torch.streaming import StreamingDecoder
 from msmctts_tpu_torch.utils.checkpoint import load_checkpoint
 from msmctts_tpu_torch.utils.device import exact_fp32, resolve_device
 from msmctts_tpu_torch.weights import (
+    attr_predictor_from_jax,
+    emb_autoencoder_from_jax,
     load_numpy_state,
     msmc_vqgan_from_jax,
     multi_stage_predictor_from_jax,
     univnet_discriminator_from_jax,
 )
 
+
+def _autoencoder_variables(state: dict, name: str) -> dict:
+    """The autoencoder's variables in a JAX checkpoint state: its params and
+    the state's codebook and batch-stats collections."""
+    return {"params": state["params"][name], "codebook": state.get("codebook") or {},
+            "batch_stats": state.get("model_state", {}).get("batch_stats")}
+
+
 _FROM_JAX = {
-    "MSMCVQGAN": lambda state, name, module: msmc_vqgan_from_jax(
-        {"params": state["params"][name], "codebook": state["codebook"],
-         "batch_stats": state.get("model_state", {}).get("batch_stats")}
-    ),
+    "MSMCVQGAN": lambda state, name, module: msmc_vqgan_from_jax(_autoencoder_variables(state, name)),
+    "MSMCVQGANEmb": lambda state, name, module: emb_autoencoder_from_jax(_autoencoder_variables(state, name)),
+    "KMeansVQGANEmb": lambda state, name, module: emb_autoencoder_from_jax(_autoencoder_variables(state, name)),
+    "EmbVC": lambda state, name, module: emb_autoencoder_from_jax(_autoencoder_variables(state, name)),
     "MultiStagePredictor": lambda state, name, module: multi_stage_predictor_from_jax(state["params"][name]),
+    "NASynCascadeFastSpeech": lambda state, name, module: multi_stage_predictor_from_jax(state["params"][name]),
+    "AttrPredictor": lambda state, name, module: attr_predictor_from_jax(state["params"][name]),
     "UnivNetDiscriminator": lambda state, name, module: univnet_discriminator_from_jax(
         state["params"][name], periods=module.mpd.periods
     ),
@@ -118,8 +136,10 @@ def build_task(config, device=None, mode: str = "infer"):
 
 
 def load_frozen_autoencoder(checkpoint_path: str, config_path: Optional[str] = None, device=None):
-    """Load a frozen MSMCVQGAN (module with weights, config) from a
-    checkpoint, using its embedded config when no config file is given."""
+    """Load a frozen autoencoder, any registered network with a weight
+    mapping (``MSMCVQGAN``, ``MSMCVQGANEmb``, ...), in ``eval()`` mode
+    (module with weights, config) from a checkpoint, using its embedded
+    config when no config file is given."""
     ckpt = load_checkpoint(checkpoint_path)
     cfg = Config(config_path) if config_path else Config(ckpt["config"])
     node = cfg.task["autoencoder"]
@@ -136,6 +156,8 @@ def extract_codebooks(autoencoder) -> list:
 
 
 @register_task("MSMCTTS")
+@register_task("NASynTTSEmb")  # the QS-TTS recipes' names for the same task
+@register_task("NASynTTSv2")
 class MSMCTTS(BaseTask):
     def __init__(self, config, device=None, mode: str = "infer"):
         super().__init__(config, device, mode)
@@ -199,12 +221,13 @@ class MSMCTTS(BaseTask):
 
     @torch.inference_mode()
     def analysis_synthesis(self, batch: dict) -> dict:
-        """Full AE round trip: mel [B, T, n_mel] -> wav per utterance."""
-        if "emb" in batch:
-            raise NotImplementedError("SSL-embedding autoencoders are not ported")
+        """Full AE round trip: mel [B, T, n_mel] -> wav per utterance; an
+        ``emb`` batch goes to :meth:`_analysis_synthesis_emb`."""
         ae = self.networks["autoencoder"]
         if ae.training:
             raise RuntimeError("analysis_synthesis needs the autoencoder in eval() mode")
+        if "emb" in batch:
+            return self._analysis_synthesis_emb(batch)
         T = int(batch["mel"].shape[1])
         self.shapes.add(("ae", T))
         local = self._local_rows(batch)
@@ -214,6 +237,26 @@ class MSMCTTS(BaseTask):
         return {
             "wav": [w[: int(l) * ratio] for w, l in zip(wav, batch["mel_length"])],
             "mel_length": batch["mel_length"],
+        }
+
+    def _analysis_synthesis_emb(self, batch: dict) -> dict:
+        """The round trip of an SSL-embedding autoencoder (``MSMCVQGANEmb``
+        and its family): emb [B, T, d] with ``pitch`` / ``energy`` (pitch
+        conditioning) and ``mel`` (the global speaker encoder's reference)
+        where the batch has them -> wav per utterance, trimmed to
+        ``emb_length`` x the decoder's ratio (``msmctts_tpu/tasks.py:446-484``)."""
+        ae = self.networks["autoencoder"]
+        T = int(batch["emb"].shape[1])
+        opt = tuple(k for k in ("pitch", "energy", "mel") if k in batch)
+        self.shapes.add(("ae_emb", T, opt))
+        local = self._local_rows({k: batch[k] for k in ("emb", "emb_length", *opt)})
+        kw = {k: self._tensor(local[k], torch.float32) for k in opt}
+        out = ae(self._tensor(local["emb"], torch.float32), self._tensor(local["emb_length"], torch.long), **kw)
+        wav = self._gather(out["decoder_outputs"][..., 0])
+        ratio = wav.shape[1] // T
+        return {
+            "wav": [w[: int(l) * ratio] for w, l in zip(wav, batch["emb_length"])],
+            "mel_length": batch["emb_length"],
         }
 
     @torch.inference_mode()
@@ -326,6 +369,12 @@ class MSMCTTS(BaseTask):
         step), in whichever thread consumes it."""
         if mesh.world(self._group) > 1:
             raise NotImplementedError("streaming over an inference group is not ported (ROADMAP A12c)")
+        ae = self.networks.get("autoencoder")
+        if ae is not None and not isinstance(ae, MSMCVQGAN):
+            raise NotImplementedError(
+                f"streaming over a {type(ae).__name__} autoencoder: the JAX package has no such path either "
+                "(its predict_stream runs the autoencoder's synthesis_features, which the SSL-embedding family lacks)"
+            )
         p1, _, feats = self.predict_features(batch)
         sd = self._streaming_decoder(chunk_frames)
         self.shapes.add(("stream", chunk_frames, p1["Lt"], p1["max_frames"]))

@@ -20,6 +20,14 @@ denominator (``lengths`` summed over ranks); a ``torch.mean`` over equal
 shards is divided by the number of ranks; the spectral convergence, a ratio
 of global norms, is formed on every rank from the summed squared norms and
 shared out in equal parts. Without a group the shares are the terms.
+
+A mean over the batch rows is ``sum(weights * term) / (n_windows * elements
+per row)`` for ``windows=(weights, n_windows)``; by default every row weighs
+1 among the ``b * world`` rows of equal shards. The QS-TTS trainer passes
+its own: a rank's rows are some of the ``n_windows`` decoded windows of the
+global batch, as many as it holds, and not the same number on every rank.
+A rank that holds no window decodes one stand-in row with weight 0, so that
+it runs the same operations and collectives as the others and adds nothing.
 """
 
 from __future__ import annotations
@@ -31,6 +39,27 @@ import torch
 from msmctts_tpu_torch.ops.masking import sequence_mask
 from msmctts_tpu_torch.parallel.mesh import all_reduce_sum, sum_over_ranks, world
 from msmctts_tpu_torch.ops.stft import _constant, mel_spectrogram_hifigan, stft_magnitude
+
+
+def _windows(term, group, windows):
+    """``windows``, or those of equal shards: every one of the ``b`` rows of
+    ``term`` [b, ...] weighs 1 among the ``b * world`` rows of all ranks."""
+    if windows is None:
+        return torch.ones(term.shape[0], device=term.device), term.shape[0] * world(group)
+    return windows
+
+
+def _row_weights(weights, term):
+    """``weights`` [b] shaped to broadcast over ``term`` [b, ...]."""
+    return weights.reshape(-1, *([1] * (term.dim() - 1)))
+
+
+def _mean(term, group, windows):
+    """This rank's share of the mean of ``term`` [b, ...] over the rows of
+    every rank: ``sum(weights * term) / (n_windows * elements per row)``."""
+    weights, n_windows = _windows(term, group, windows)
+    term = term.float()
+    return torch.sum(term * _row_weights(weights, term)) / (term[0].numel() * n_windows)
 
 
 def global_length_sum(lengths, group=None):
@@ -76,30 +105,28 @@ def duration_loss(dur_pred, dur_target, text_lengths, group=None):
 
 
 def mel_loss(pred_wav, target_wav, sample_rate, fft_size=None, hop_size=None, win_size=None, num_mels=128,
-             group=None):
+             group=None, windows=None):
     """HiFi-GAN-style log-mel L1; defaults derived from the sample rate."""
     win_size = win_size or sample_rate // 20
     hop_size = hop_size or sample_rate // 80
     fft_size = fft_size or (2048 if win_size > 1024 else 1024)
     p = mel_spectrogram_hifigan(pred_wav, sample_rate, fft_size, hop_size, win_size, num_mels)
     t = mel_spectrogram_hifigan(target_wav, sample_rate, fft_size, hop_size, win_size, num_mels)
-    return torch.mean(torch.abs(p - t)) / world(group)
+    return _mean(torch.abs(p - t), group, windows)
 
 
-def _sc_and_mag(p, t, group=None):
-    W = world(group)
-    if W == 1:
-        sc = torch.linalg.norm(t - p) / torch.clamp(torch.linalg.norm(t), min=1e-8)
-    else:  # |t - p| / |t| over every rank's rows, from the summed squared norms
-        sq = sum_over_ranks(torch.stack([torch.sum(torch.square(t - p)), torch.sum(torch.square(t))]), group)
-        sc = torch.sqrt(sq[0]) / torch.clamp(torch.sqrt(sq[1]), min=1e-8) / W
+def _sc_and_mag(p, t, group=None, windows=None):
     logp = torch.log(torch.clamp(p, 1e-5, 10.0))
     logt = torch.log(torch.clamp(t, 1e-5, 10.0))
-    return sc, torch.mean(torch.abs(logp - logt)) / W
+    mag = _mean(torch.abs(logp - logt), group, windows)
+    # |t - p| / |t| over every rank's weighted rows, from the summed squared norms
+    w = _row_weights(_windows(t, group, windows)[0], t)
+    sq = sum_over_ranks(torch.stack([torch.sum(w * torch.square(t - p)), torch.sum(w * torch.square(t))]), group)
+    return torch.sqrt(sq[0]) / torch.clamp(torch.sqrt(sq[1]), min=1e-8) / world(group), mag
 
 
 def stft_loss(pred_wav, target_wav, fft_size: int = 1024, win_size: int = 600, hop_size: int = 120,
-              mel_scale: bool = False, sample_rate: int = 24000, num_mels: int = 80, group=None):
+              mel_scale: bool = False, sample_rate: int = 24000, num_mels: int = 80, group=None, windows=None):
     """Single-resolution STFT loss: spectral convergence + log-magnitude
     L1, with an optional mel warp. Returns {sc_loss, mag_loss}."""
     p = stft_magnitude(pred_wav, fft_size, hop_size, win_size)
@@ -108,17 +135,18 @@ def stft_loss(pred_wav, target_wav, fft_size: int = 1024, win_size: int = 600, h
         fb = _constant("mel", (sample_rate, fft_size, num_mels), str(p.device))
         p = torch.einsum("mf,bft->bmt", fb, p)
         t = torch.einsum("mf,bft->bmt", fb, t)
-    sc, mag = _sc_and_mag(p, t, group)
+    sc, mag = _sc_and_mag(p, t, group, windows)
     return {"sc_loss": sc, "mag_loss": mag}
 
 
 def multi_resolution_stft_loss(pred_wav, target_wav, fft_sizes: Sequence[int] = (1024, 2048, 512),
                                win_sizes: Sequence[int] = (600, 1200, 300),
-                               hop_sizes: Sequence[int] = (120, 240, 60), group=None):
+                               hop_sizes: Sequence[int] = (120, 240, 60), group=None, windows=None):
     """Returns dict {sc_loss, mag_loss} averaged over resolutions."""
     sc, mag = [], []
     for n_fft, win, hop in zip(fft_sizes, win_sizes, hop_sizes):
-        s, m = _sc_and_mag(stft_magnitude(pred_wav, n_fft, hop, win), stft_magnitude(target_wav, n_fft, hop, win), group)
+        s, m = _sc_and_mag(stft_magnitude(pred_wav, n_fft, hop, win), stft_magnitude(target_wav, n_fft, hop, win),
+                           group, windows)
         sc.append(s)
         mag.append(m)
     n = len(sc)
@@ -133,20 +161,20 @@ def paired_disc_apply(disc, fake, real):
     return fs, ff, rs, rf
 
 
-def lsgan_d_loss(real_scores, fake_scores, group=None):
+def lsgan_d_loss(real_scores, fake_scores, group=None, windows=None):
     """Sum over discriminators of MSE-to-1 (real) and MSE-to-0 (fake)."""
-    real = sum(torch.mean(torch.square(s.float() - 1.0)) for s in real_scores)
-    fake = sum(torch.mean(torch.square(s.float())) for s in fake_scores)
-    return real / world(group), fake / world(group)
+    real = sum(_mean(torch.square(s.float() - 1.0), group, windows) for s in real_scores)
+    fake = sum(_mean(torch.square(s.float()), group, windows) for s in fake_scores)
+    return real, fake
 
 
-def lsgan_g_loss(fake_scores, group=None):
-    return sum(torch.mean(torch.square(s.float() - 1.0)) for s in fake_scores) / world(group)
+def lsgan_g_loss(fake_scores, group=None, windows=None):
+    return sum(_mean(torch.square(s.float() - 1.0), group, windows) for s in fake_scores)
 
 
-def feature_matching_loss(fake_feats, real_feats, group=None):
+def feature_matching_loss(fake_feats, real_feats, group=None, windows=None):
     total = 0.0
     for ff, rf in zip(fake_feats, real_feats):
         for f, r in zip(ff, rf):
-            total = total + torch.mean(torch.abs(f.float() - r.float()))
-    return total / world(group)
+            total = total + _mean(torch.abs(f.float() - r.float()), group, windows)
+    return total

@@ -94,12 +94,16 @@ class PredictorTrainer(BaseTrainer):
         load_numpy_state(self.predictor, multi_stage_predictor_from_jax(state["params"]["predictor"]))
 
     # ------------------------------------------------------------------ api
+    def teacher_states(self, batch):
+        """The frozen teacher's quantizer states of the batch's features."""
+        return self.frozen_autoencoder().analysis(batch["mel"], batch["mel_length"])
+
     def train_step(self, batch, iteration):
         """One step on a device batch {'text', 'text_length', 'dur', 'mel',
         'mel_length'} (under a group, this rank's rows). Returns 0-d metric
         tensors, detached: the global values."""
         with torch.no_grad():  # the teacher's quantizer states
-            q = self.frozen_autoencoder().analysis(batch["mel"], batch["mel_length"])
+            q = self.teacher_states(batch)
         self.predictor.train()
         self.opt.zero_grad()
         text_length, dur = batch["text_length"], batch["dur"]

@@ -118,7 +118,7 @@ class VQGANTrainer(BaseTrainer):
         self.d_opt = build_optimizer(
             self.disc.named_parameters(), optimizer_config_for(config, "discriminator"), lr_cfg, None, group=group
         )
-        self.ae.quantizer.set_group(group)
+        self.ae.set_group(group)
         self.optimizers = {"autoencoder": self.ae_opt, "discriminator": self.d_opt}
 
     # ----------------------------------------------------------------- state
@@ -136,7 +136,8 @@ class VQGANTrainer(BaseTrainer):
         self.d_opt.count = max(iteration - self.warmup_steps, 0)  # it steps in the GAN phase only
 
     # ------------------------------------------------------------ loss parts
-    def _stft_loss(self, fake, target):
+    def _stft_loss(self, fake, target, windows=None):
+        """The waveform terms; ``windows`` as in ``training/losses.py``."""
         if self.stft_loss_func == "mel_loss":
             kwargs = dict(
                 sample_rate=self.samplerate, win_size=self.samplerate // 20,
@@ -148,9 +149,9 @@ class VQGANTrainer(BaseTrainer):
             return {"mel_loss": mel_loss(
                 fake, target, kwargs["sample_rate"], fft_size=kwargs["fft_size"],
                 hop_size=kwargs["hop_size"], win_size=kwargs["win_size"], num_mels=kwargs["num_mels"],
-                group=self.group,
+                group=self.group, windows=windows,
             )}
-        return multi_resolution_stft_loss(fake, target, **self.stft_loss_config, group=self.group)
+        return multi_resolution_stft_loss(fake, target, **self.stft_loss_config, group=self.group, windows=windows)
 
     def _codebook_health(self):
         """Per-stage codeword usage perplexity from the EMA cluster sizes

@@ -30,7 +30,7 @@ LayerNorm scale, bias      [d]                    weight, bias [d]
 from __future__ import annotations
 
 import re
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -275,6 +275,136 @@ def univnet_discriminator_from_jax(params: dict, prefix: str = "", periods=(2, 3
     return out
 
 
+def batch_norm_from_jax(p: dict, stats: Optional[dict], prefix: str) -> StateDict:
+    """flax BatchNorm params {scale, bias} and its ``batch_stats`` {mean,
+    var} -> ``tdnn.BatchNorm`` (no stats: flax's initial 0 / 1)."""
+    scale = _np(p["scale"])
+    out = {f"{prefix}.weight": scale, f"{prefix}.bias": _np(p["bias"])}
+    out[f"{prefix}.running_mean"] = _np(stats["mean"]) if stats else np.zeros_like(scale)
+    out[f"{prefix}.running_var"] = _np(stats["var"]) if stats else np.ones_like(scale)
+    return out
+
+
+def conv_relu_bn_from_jax(p: dict, stats: Optional[dict], prefix: str) -> StateDict:
+    out = conv1d_from_jax(p["Conv_0"], f"{prefix}.conv")
+    out.update(batch_norm_from_jax(p["BatchNorm_0"], (stats or {}).get("BatchNorm_0"), f"{prefix}.bn"))
+    return out
+
+
+def res2_conv_relu_bn_from_jax(p: dict, stats: Optional[dict], prefix: str) -> StateDict:
+    out: StateDict = {}
+    for name in p:
+        if name.startswith("conv_"):
+            i = name.split("_")[-1]
+            out.update(conv1d_from_jax(p[name], f"{prefix}.convs.{i}"))
+            out.update(batch_norm_from_jax(p[f"bn_{i}"], (stats or {}).get(f"bn_{i}"), f"{prefix}.bns.{i}"))
+    return out
+
+
+def se_connect_from_jax(p: dict, prefix: str) -> StateDict:
+    out = dense_from_jax(p["Dense_0"], f"{prefix}.linear1")
+    out.update(dense_from_jax(p["Dense_1"], f"{prefix}.linear2"))
+    return out
+
+
+def se_res2_block_from_jax(p: dict, stats: Optional[dict], prefix: str) -> StateDict:
+    """An SE-Res2Block's ``in`` / ``res2`` / ``out`` / ``se`` are the port's
+    ``0`` / ``1`` / ``2`` / ``3``."""
+    stats = stats or {}
+    out = conv_relu_bn_from_jax(p["in"], stats.get("in"), f"{prefix}.0")
+    out.update(res2_conv_relu_bn_from_jax(p["res2"], stats.get("res2"), f"{prefix}.1"))
+    out.update(conv_relu_bn_from_jax(p["out"], stats.get("out"), f"{prefix}.2"))
+    out.update(se_connect_from_jax(p["se"], f"{prefix}.3"))
+    return out
+
+
+def attentive_stats_pool_from_jax(p: dict, prefix: str) -> StateDict:
+    out = conv1x1_from_jax(p["Dense_0"], f"{prefix}.linear1")
+    out.update(conv1x1_from_jax(p["Dense_1"], f"{prefix}.linear2"))
+    return out
+
+
+def ecapa_tdnn_from_jax(params: dict, stats: Optional[dict], prefix: str = "") -> StateDict:
+    """JAX ECAPA_TDNN params and ``batch_stats`` -> port state_dict."""
+    pre = _pre(prefix)
+    stats = stats or {}
+    out = conv_relu_bn_from_jax(params["layer1"], stats.get("layer1"), f"{pre}layer1")
+    for n in (2, 3, 4):
+        out.update(se_res2_block_from_jax(params[f"layer{n}"], stats.get(f"layer{n}"), f"{pre}layer{n}"))
+    out.update(conv1x1_from_jax(params["conv"], f"{pre}conv"))
+    out.update(attentive_stats_pool_from_jax(params["pooling"], f"{pre}pooling"))
+    out.update(batch_norm_from_jax(params["bn1"], stats.get("bn1"), f"{pre}bn1"))
+    out.update(dense_from_jax(params["linear"], f"{pre}linear"))
+    out.update(batch_norm_from_jax(params["bn2"], stats.get("bn2"), f"{pre}bn2"))
+    return out
+
+
+def xvector_tdnn_from_jax(params: dict, stats: Optional[dict], prefix: str = "") -> StateDict:
+    """JAX XVectorTDNN params and ``batch_stats`` -> port state_dict
+    (``tdnn{i}`` / ``bn{i}`` / ``fc{i}`` / ``bn_fc{i}``, 1-based, are the
+    port's ``tdnn.i`` / ``bn.i`` / ``fc.i`` / ``bn_fc.i``)."""
+    pre = _pre(prefix)
+    stats = stats or {}
+    out: StateDict = {}
+    for name, p in params.items():
+        kind, i = re.match(r"([a-z_]+?)(\d+)$", name).groups()
+        i = int(i) - 1
+        if kind == "tdnn":
+            out.update(conv1d_from_jax(p, f"{pre}tdnn.{i}"))
+        elif kind == "fc":
+            out.update(dense_from_jax(p, f"{pre}fc.{i}"))
+        else:
+            out.update(batch_norm_from_jax(p, stats.get(name), f"{pre}{kind}.{i}"))
+    return out
+
+
+def mams_encoder_from_jax(params: dict, prefix: str = "") -> StateDict:
+    """JAX MAMSEncoder params -> port state_dict (``pitch_encoder`` c0-c3
+    at the port's ``Sequential`` indices 0 / 2 / 4 / 6)."""
+    pre = _pre(prefix)
+    out: StateDict = {}
+    for name, block in params.items():
+        if name == "pitch_encoder":
+            for j in range(4):
+                out.update(conv1d_from_jax(block[f"c{j}"], f"{pre}pitch_encoder.{2 * j}"))
+        else:
+            out.update(fft_blocks_from_jax(block, f"{pre}encoders.{int(name.split('_')[-1])}"))
+    return out
+
+
+def attr_predictor_from_jax(params: dict, prefix: str = "") -> StateDict:
+    """JAX AttrPredictor params -> port state_dict."""
+    pre = _pre(prefix)
+    out = res_stack_from_jax(params["enc"], f"{pre}enc")
+    out.update(dense_from_jax(params["proj"], f"{pre}proj"))
+    return out
+
+
+def emb_autoencoder_from_jax(variables: dict, prefix: str = "") -> StateDict:
+    """JAX variables {'params', 'codebook', 'batch_stats'} of any network of
+    the QS-TTS family (``MSMCVQGANEmb``, ``KMeansVQGANEmb``, ``EmbVC``) ->
+    port state_dict; what a network has decides which parts map."""
+    pre = _pre(prefix)
+    params = variables["params"]
+    codebook = variables.get("codebook") or {}
+    stats = variables.get("batch_stats") or {}
+    out = dense_from_jax(params["in_linear"], f"{pre}in_linear")
+    if "encoder" in params:
+        out.update(mams_encoder_from_jax(params["encoder"], f"{pre}encoder"))
+    if "quantizer" in params:
+        out.update(multi_stage_quantizer_from_jax(params["quantizer"], codebook["quantizer"], f"{pre}quantizer"))
+    elif "embed" in codebook.get("quantizer", {}):  # the frozen k-means codebook [1, d, K]
+        out[f"{pre}quantizer.embed"] = _np(codebook["quantizer"]["embed"])
+    if "global_encoder" in params:
+        out.update(ecapa_tdnn_from_jax(params["global_encoder"], stats.get("global_encoder"), f"{pre}global_encoder"))
+    out.update(hifigan_generator_from_jax(params["decoder"], f"{pre}decoder"))
+    if "frame_decoder" in params:
+        out.update(fft_blocks_from_jax(params["frame_decoder"], f"{pre}frame_decoder"))
+    if "mel_predictor" in params:
+        out.update(dense_from_jax(params["mel_predictor"], f"{pre}mel_predictor"))
+    return out
+
+
 # ------------------------------------------------------------ port -> JAX
 
 
@@ -485,6 +615,75 @@ def univnet_discriminator_to_jax(sd: StateDict, prefix: str = "", periods=(2, 3,
     return {"mrd": mrd, "mpd": mpd}
 
 
+def batch_norm_to_jax(sd: StateDict, prefix: str):
+    """-> (params {scale, bias}, batch_stats {mean, var})."""
+    s = _sub(sd, prefix)
+    return ({"scale": _np(s["weight"]), "bias": _np(s["bias"])},
+            {"mean": _np(s["running_mean"]), "var": _np(s["running_var"])})
+
+
+def _conv_relu_bn_to_jax(sd: StateDict, prefix: str):
+    bn_p, bn_s = batch_norm_to_jax(sd, f"{prefix}.bn")
+    return {"Conv_0": conv1d_to_jax(sd, f"{prefix}.conv"), "BatchNorm_0": bn_p}, {"BatchNorm_0": bn_s}
+
+
+def ecapa_tdnn_to_jax(sd: StateDict, prefix: str = ""):
+    """Port ECAPA_TDNN state_dict -> (params, batch_stats) of the JAX module."""
+    s = _sub(sd, prefix)
+    params, stats = {}, {}
+    params["layer1"], stats["layer1"] = _conv_relu_bn_to_jax(s, "layer1")
+    for n in (2, 3, 4):
+        base = f"layer{n}"
+        p, st = {}, {}
+        p["in"], st["in"] = _conv_relu_bn_to_jax(s, f"{base}.0")
+        res2, res2_stats = {}, {}
+        for i in _layer_indices(s, rf"{base}\.1\.convs\.(\d+)\."):
+            res2[f"conv_{i}"] = conv1d_to_jax(s, f"{base}.1.convs.{i}")
+            res2[f"bn_{i}"], res2_stats[f"bn_{i}"] = batch_norm_to_jax(s, f"{base}.1.bns.{i}")
+        p["res2"], st["res2"] = res2, res2_stats
+        p["out"], st["out"] = _conv_relu_bn_to_jax(s, f"{base}.2")
+        p["se"] = {"Dense_0": dense_to_jax(s, f"{base}.3.linear1"), "Dense_1": dense_to_jax(s, f"{base}.3.linear2")}
+        params[base], stats[base] = p, st
+    params["conv"] = conv1x1_to_jax(s, "conv")
+    params["pooling"] = {"Dense_0": conv1x1_to_jax(s, "pooling.linear1"),
+                         "Dense_1": conv1x1_to_jax(s, "pooling.linear2")}
+    params["bn1"], stats["bn1"] = batch_norm_to_jax(s, "bn1")
+    params["linear"] = dense_to_jax(s, "linear")
+    params["bn2"], stats["bn2"] = batch_norm_to_jax(s, "bn2")
+    return params, stats
+
+
+def attr_predictor_to_jax(sd: StateDict, prefix: str = "") -> dict:
+    s = _sub(sd, prefix)
+    return {"enc": res_stack_to_jax(s, "enc"), "proj": dense_to_jax(s, "proj")}
+
+
+def emb_autoencoder_to_jax(sd: StateDict, prefix: str = "") -> dict:
+    """Port state_dict of a QS-TTS network -> JAX variables {'params',
+    'codebook', 'batch_stats'}."""
+    s = _sub(sd, prefix)
+    has = lambda p: any(k.startswith(p) for k in s)
+    params = {"in_linear": dense_to_jax(s, "in_linear"), "decoder": hifigan_generator_to_jax(s, "decoder")}
+    codebook, stats = {}, {}
+    if has("encoder."):
+        enc = {f"encoder_{i}": fft_blocks_to_jax(s, f"encoder.encoders.{i}")
+               for i in _layer_indices(s, r"encoder\.encoders\.(\d+)\.")}
+        if has("encoder.pitch_encoder."):
+            enc["pitch_encoder"] = {f"c{j}": conv1d_to_jax(s, f"encoder.pitch_encoder.{2 * j}") for j in range(4)}
+        params["encoder"] = enc
+    if has("quantizer.quantizer."):
+        params["quantizer"], codebook["quantizer"] = multi_stage_quantizer_to_jax(s, "quantizer")
+    elif "quantizer.embed" in s:
+        codebook["quantizer"] = {"embed": _np(s["quantizer.embed"])}
+    if has("global_encoder."):
+        params["global_encoder"], stats["global_encoder"] = ecapa_tdnn_to_jax(s, "global_encoder")
+    if has("frame_decoder."):
+        params["frame_decoder"] = fft_blocks_to_jax(s, "frame_decoder")
+    if has("mel_predictor."):
+        params["mel_predictor"] = dense_to_jax(s, "mel_predictor")
+    return {"params": params, "codebook": codebook, "batch_stats": stats}
+
+
 # ------------------------------------------------------------ train state
 
 
@@ -533,7 +732,8 @@ def init_random(module: nn.Module, seed: int):
     N(0, 1/fan_in), except N(0, 0.01) for the convs the JAX package draws so
     (``hifigan_init``); biases 0, LayerNorm scales 1, weight-norm scales =
     |v| (the kernel equals v), codebooks N(0, 1) with ``embed_avg`` = the
-    codebook and ``cluster_size`` 0. Unlike flax's ``init``, which runs one
+    codebook and ``cluster_size`` 0 (frozen k-means centroids and BN
+    running statistics are left as built). Unlike flax's ``init``, which runs one
     training forward and so leaves one EMA update in the codebook, this takes
     no batch and makes no update."""
     gen = torch.Generator().manual_seed(seed)
@@ -554,8 +754,10 @@ def init_random(module: nn.Module, seed: int):
         if name.endswith("weight_g"):
             v = module.get_parameter(name[: -len("g")] + "v")
             p.copy_(torch.sqrt(torch.sum(v * v, dim=tuple(range(1, v.dim())), keepdim=True)))
-    for name, b in module.named_buffers():
-        if name.endswith(".embed"):
+    buffers = dict(module.named_buffers())
+    for name, b in buffers.items():
+        # an EMA codebook; a frozen one (k-means centroids, no embed_avg) keeps its values
+        if name.endswith(".embed") and name[: -len("embed")] + "embed_avg" in buffers:
             b.copy_(torch.randn(b.shape, generator=gen))
             module.get_buffer(name[: -len("embed")] + "embed_avg").copy_(b)
             module.get_buffer(name[: -len("embed")] + "cluster_size").zero_()

@@ -1,5 +1,5 @@
-"""What each rank runs in ``tests/test_torch_parallel.py`` and
-``tests/test_torch_am_train.py``.
+"""What each rank runs in ``tests/test_torch_parallel.py``,
+``tests/test_torch_am_train.py`` and ``tests/test_torch_emb_train.py``.
 
 The ranks are fresh processes (``msmctts_tpu_torch.parallel.launch.run_ranks``)
 that import this module to find their function, so it imports torch and the
@@ -155,6 +155,47 @@ def run_am_steps(trainer, batches, group=None):
 def am_steps_rank(group, device, config_dict, state, batches):
     torch.set_num_threads(2)
     return run_am_steps(build_trainer(config_dict, state, group), batches, group)
+
+
+def _network_state(trainer):
+    return {n: W.state_dict_numpy(m) for n, m in trainer.task.networks.items()}
+
+
+def run_emb_steps(trainer, batch, steps, group=None, starts=None):
+    """An ``EmbVQGANTrainer``'s iterations 1..``steps`` on this rank's rows
+    of the global ``batch``, windows drawn by the trainer. With ``starts``
+    (a list of network states), iteration i begins from ``starts[i - 1]``.
+    Returns the state each iteration began from, and per decoding iteration
+    the number of real (weight 1) windows this rank decoded."""
+    rank, world = mesh.rank(group), mesh.world(group)
+    local = to_device(mesh.shard_rows(batch, rank, world), "cpu")
+    windows, current = {}, [0]
+    draw = trainer.local_windows
+
+    def recording(*args, **kwargs):
+        out = draw(*args, **kwargs)
+        windows[current[0]] = int(out[2].sum())
+        return out
+
+    trainer.local_windows = recording
+    metrics, began = [], []
+    for it in range(1, steps + 1):
+        current[0] = it
+        if starts is not None:
+            for name, sd in starts[it - 1].items():
+                W.load_numpy_state(trainer.task.networks[name], sd)
+        began.append(_network_state(trainer))
+        metrics.append({k: float(v) for k, v in trainer.train_step(local, it).items()})
+    modules = list(trainer.task.networks.values())
+    deviation = mesh.max_deviation_from_rank0(modules, group)
+    W.assert_replicated(modules, group)
+    return dict(metrics=metrics, windows=windows, deviation=deviation, began=began, state=_network_state(trainer),
+                rng=trainer.generator.get_state().numpy().copy())
+
+
+def emb_steps_rank(group, device, config_dict, state, batch, steps, starts):
+    torch.set_num_threads(2)
+    return run_emb_steps(build_trainer(config_dict, state, group), batch, steps, group, starts)
 
 
 def build_inference_task(am_checkpoint):
