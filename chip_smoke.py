@@ -82,8 +82,34 @@ Phases, each of which raises on failure:
      teacher unchanged); (d) both recipes through ``python -m
      msmctts_tpu_torch.train`` on a corpus written here, and ``infer`` from
      the synthesizer's checkpoint;
- 15. one JSON line describing each kernel;
- 16. last line: {"ok": true, "device": {...}}.
+ 15. the ISTFT recipe (``examples/csmsc/configs/msmc_vq_gan_istft.yaml``) at
+     full width and depth on seeded weights: (a) analysis-synthesis of a batch
+     of 4 (bucket 512) with launches (2 ``vq_nearest``, 18
+     ``fused_resblock_layer``), wav lengths of exactly 300 samples a frame,
+     first and warm times, real-time factor, both kernels held against their
+     plain versions at this path's shapes (kernel 5 at C = 256 / T = 3 072 and
+     C = 128 / T = 15 360, with cuDNN's time and the 3xTF32 bound), a small
+     input against the CPU; (b) ``VQGANTrainer`` at batch 16 (bucket 400,
+     windows of 12 000 samples, which the decoder must emit exactly), 2
+     warmup + 2 GAN steps, per-phase times, peak memory, 2
+     ``vq_nearest_stats`` per step held against plain on one step's inputs;
+     one warmup and one GAN step from equal state against the CPU; (c)
+     ``predict`` through the CSMSC AM recipe (seeded) over (b)'s autoencoder
+     (4 ``vq_nearest``, 18 MRF launches), ``predict_stream`` refused; (d) the
+     recipe through ``python -m msmctts_tpu_torch.train`` (2 steps, into the
+     GAN phase) on a corpus written here, and ``infer`` from its checkpoint;
+ 16. the int8 HiFi-GAN decoder on the trained fixture: (a) calibrated on the
+     first batch it decodes; analysis-synthesis of a batch of 4 (bucket 512)
+     against the fp32 decode (relative L2 below the JAX package's 0.05), 77
+     int8 products per decode, each held bit-equal (int32) against its plain
+     version at its site's shapes with its time beside cuDNN's fp32 conv and
+     the int8 bound, int8 and fp32 decode times, the same int8 state on the
+     CPU; (b) ``predict`` with the int8 decoder (phase 5's seeded AM) and one
+     streamed batch at chunk 64 held against it; (c) ``python -m
+     msmctts_tpu_torch.serve --int8`` as a subprocess under 8 clients (no
+     cold shape, no kernel build, no error) and ``infer --int8`` on 3 lines;
+ 17. one JSON line describing each kernel;
+ 18. last line: {"ok": true, "device": {...}}.
 
 NCCL refuses two ranks on one device, so the two-rank phases use gloo, which
 moves CUDA tensors through host memory; the log names the backend. Their
@@ -92,9 +118,10 @@ card: no scaling figure. A rank that fails, dies or hangs fails the run.
 
 It exits non-zero, printing no result, without a CUDA device or without
 the rest of the repository. ``--out`` also profiles one warm ``predict``,
-one warm GAN step, one warm AM step, one streamed batch and phase 14's
-analysis-synthesis, GAN step and predictor step (device time by kernel, busy
-share) and writes every measurement to a JSON file.
+one warm GAN step, one warm AM step, one streamed batch, phase 14's
+analysis-synthesis, GAN step and predictor step, phase 15's
+analysis-synthesis and GAN step and phase 16's int8 decode (device time by
+kernel, busy share) and writes every measurement to a JSON file.
 """
 
 import argparse
@@ -1645,7 +1672,7 @@ def _hold_window_layers(gen, window, batch):
     return {"max_abs_err": worst, "shapes": [{"B": batch, "T": T, "C": C} for C, T in shapes], **total}
 
 
-def _wait_for_line(lines, prefix, proc, timeout):
+def _wait_for_line(lines, prefix, proc, timeout, tag="[13]"):
     """The first line of the daemon's output that starts with ``prefix``."""
     import queue
 
@@ -1657,7 +1684,7 @@ def _wait_for_line(lines, prefix, proc, timeout):
             if proc.poll() is not None:
                 raise AssertionError(f"the serving daemon exited with {proc.returncode} before '{prefix}'")
             continue
-        log(f"[13] daemon: {line.rstrip()}")
+        log(f"{tag} daemon: {line.rstrip()}")
         if line.startswith(prefix):
             return line
     raise AssertionError(f"the serving daemon printed no '{prefix}' within {timeout:.0f}s")
@@ -1981,7 +2008,7 @@ def _snap_rows(ae, run):
     return snaps
 
 
-def _hold_snaps(snaps, what):
+def _hold_snaps(snaps, what, tag="[14]"):
     """The snap kernel against its plain version at each stage's N, with
     device, event and plain times and the bound."""
     from msmctts_tpu_torch.ops import vq
@@ -2000,7 +2027,7 @@ def _hold_snaps(snaps, what):
                      "device_ms": device_profile(lambda: vq.vq_nearest(x, e))["ms"],
                      "ms": time_ms(lambda: vq.vq_nearest(x, e), runs=20),
                      "plain_ms": time_ms(lambda: vq.vq_nearest_plain(x, e), runs=20), "bound_ms": b[0], "bound_by": b[1]})
-        log(f"[14] {what} snap stage {stage}: {json.dumps(rows[-1])}")
+        log(f"{tag} {what} snap stage {stage}: {json.dumps(rows[-1])}")
     return rows
 
 
@@ -2032,7 +2059,7 @@ def _stats_rows(ae, run):
     return rows
 
 
-def _hold_stats(rows, what):
+def _hold_stats(rows, what, tag="[14]"):
     """The statistics kernel against its plain version on each stage's inputs
     from the path, as phase 3 holds it: idx, quant and counts exact, sums
     within ``VQS_TOL``; with device, event and plain times and the bound."""
@@ -2064,7 +2091,7 @@ def _hold_stats(rows, what):
                     "ms": time_ms(lambda: vq.vq_nearest_stats(x, e, mask), runs=20),
                     "plain_ms": time_ms(lambda: vq.vq_nearest_stats_plain(x, e, mask), runs=20),
                     "bound_ms": b[0], "bound_by": b[1]})
-        log(f"[14] {what} statistics stage {stage}: {json.dumps(out[-1])}")
+        log(f"{tag} {what} statistics stage {stage}: {json.dumps(out[-1])}")
     return out
 
 
@@ -2515,6 +2542,707 @@ def phase_qs_tts(gen, card, with_profile=False):
     return result
 
 
+# ------------------------------------------------------------- the ISTFT recipe
+# Phase 15: examples/csmsc/configs/msmc_vq_gan_istft.yaml at full width and
+# depth on seeded weights (the repository holds no trained ISTFT checkpoint):
+# the HiFi-GAN trunk's two stages (x6, x5: 18 MRF layers through kernel 5),
+# then the spectral head and the inverse STFT (hop 10, n_fft 40), x300 in all.
+ISTFT_YAML = os.path.join(ROOT, "examples", "csmsc", "configs", "msmc_vq_gan_istft.yaml")
+ISTFT_STAGES = [(256, 6), (128, 5)]  # the trunk: T = 6F / 30F
+ISTFT_LENGTHS = (512, 448, 389, 300)  # analysis-synthesis batch of 4, bucket 512
+ISTFT_LAYERS = 18  # 2 stages x 3 blocks x 3 dilations
+
+
+def _istft_config(save_dir, warmup_steps=2, dropout=None, seed=1234):
+    from msmctts_tpu_torch.config import Config
+
+    cfg = Config(ISTFT_YAML)
+    cfg.trainer["warmup_steps"] = warmup_steps
+    cfg["save_checkpoint_dir"] = save_dir
+    cfg["seed"] = seed
+    if dropout is not None:
+        ae = cfg.task["autoencoder"]
+        for node in (ae["encoder_config"], ae["frame_decoder_config"]):
+            node["dropout"] = node["attn_dropout"] = dropout
+        ae["quantizer_config"]["dropout"] = dropout
+        ae["quantizer_config"]["prior_config"]["p_dropout"] = dropout
+    return cfg
+
+
+def _istft_trainer(cfg, device):
+    from msmctts_tpu_torch.config import component_kwargs
+    from msmctts_tpu_torch.registry import get_trainer
+    from msmctts_tpu_torch.tasks import build_task
+
+    task = build_task(cfg, device=device, mode="train")
+    trainer = get_trainer(cfg.trainer["_name"])(cfg, task, **component_kwargs(cfg.trainer))
+    trainer.init_state()
+    _audible(trainer.ae.decoder, cfg["seed"])
+    return trainer
+
+
+def phase_istft_analysis_synthesis(gen, card, with_profile=False):
+    """(a) The ISTFT recipe's analysis-synthesis on seeded weights (decoder
+    gains in [0.5, 1.5])."""
+    from msmctts_tpu_torch.config import Config
+    from msmctts_tpu_torch.tasks import build_task
+    from msmctts_tpu_torch.weights import init_random, load_numpy_state, state_dict_numpy
+
+    cfg = Config(ISTFT_YAML)
+    task = build_task(cfg, device="cuda")
+    ae = task.networks["autoencoder"]
+    init_random(ae, 1234)
+    _audible(ae.decoder, 1234)
+    ae.eval()
+    ratio, sr = ae.frameshift_ratio, task.samplerate
+    if ratio != 300 or type(ae.decoder).__name__ != "ISTFTGenerator":
+        raise AssertionError(f"ISTFT recipe: decoder {type(ae.decoder).__name__}, {ratio} samples per frame")
+    n_params = sum(p.numel() for p in ae.parameters())
+    rng = np.random.default_rng(15)
+
+    cpu = build_task(cfg, device="cpu")
+    load_numpy_state(cpu.networks["autoencoder"], state_dict_numpy(ae))
+    small = {"mel": rng.normal(size=(1, 64, 80)).astype(np.float32) * 0.5, "mel_length": np.array([64])}
+    got, want = task.analysis_synthesis(small), cpu.analysis_synthesis(small)
+    err = float(np.abs(got["wav"][0] - want["wav"][0]).max())
+    with torch.inference_mode():
+        gi = ae.analysis(torch.as_tensor(small["mel"], device="cuda"), torch.tensor([64], device="cuda"))
+        ci = cpu.networks["autoencoder"].analysis(torch.as_tensor(small["mel"]), torch.tensor([64]))
+    idx_equal = all(torch.equal(a.cpu(), b) for a, b in zip(gi["quantizer_indices"], ci["quantizer_indices"]))
+    log(f"[15] ISTFT autoencoder {n_params / 1e6:.1f}M parameters (seeded); analysis-synthesis T=64, card vs CPU: "
+        f"indices equal {idx_equal}, wav max abs err {err:.3g} (|wav| max {np.abs(want['wav'][0]).max():.3g})")
+    if err > AS_TOL or not idx_equal or got["wav"][0].shape != (64 * ratio,):
+        raise AssertionError(f"ISTFT analysis-synthesis disagrees with the CPU: err {err}, indices equal {idx_equal}")
+    del cpu
+
+    lengths = np.array(ISTFT_LENGTHS)
+    mel = rng.normal(size=(len(lengths), FRAMES, 80)).astype(np.float32) * 0.5
+    mel *= (np.arange(FRAMES)[None, :] < lengths[:, None])[..., None]
+    batch = {"mel": mel, "mel_length": lengths}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    task.analysis_synthesis(batch)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    _reset_counts()
+    out = task.analysis_synthesis(batch)
+    torch.cuda.synchronize()
+    counts = _counts()
+    _check_wavs(out["wav"], lengths, 300, "ISTFT analysis-synthesis")
+    log(f"[15] analysis-synthesis B={len(lengths)} frames {lengths.tolist()} (bucket {FRAMES}): launches {counts}, "
+        f"wav samples {[w.shape[0] for w in out['wav']]}, |wav| max {max(float(np.abs(w).max()) for w in out['wav']):.3g}")
+    if counts != {"vq_nearest": 2, "vq_nearest_stats": 0, "fused_resblock_layer": ISTFT_LAYERS}:
+        raise AssertionError(f"ISTFT analysis-synthesis launches {counts}, expected 2 VQ and {ISTFT_LAYERS} resblock")
+    warm = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        task.analysis_synthesis(batch)
+        torch.cuda.synchronize()
+        warm.append((time.perf_counter() - t0) * 1e3)
+    warm_ms = statistics.median(warm)
+    audio_s = float(lengths.sum()) * ratio / sr
+    log(f"[15] ISTFT analysis-synthesis per batch on {card}: first {first_ms:.1f} ms, warm median {warm_ms:.1f} ms "
+        f"(runs {[round(w, 1) for w in warm]}), {audio_s:.2f} s of audio, {audio_s / warm_ms * 1e3:.1f}x real time")
+    profile = profile_call(lambda: task.analysis_synthesis(batch), "[15]", "ISTFT analysis-synthesis") if with_profile else None
+
+    snap_rows = _hold_snaps(_snap_rows(ae, lambda: task.analysis_synthesis(batch)), "ISTFT analysis-synthesis", "[15]")
+    rows, worst = _resblock_layers(gen, len(lengths), FRAMES, "istft decode", library=True, stages=ISTFT_STAGES)
+    keys = ("ms", "plain_ms", "library_ms", "bound_fp32_ms")
+    rb_total = {key: sum(r[key] for r in rows) for key in keys}
+    rb_total["bound_ms"] = sum(r["bound"][0] for r in rows)
+    rb_total["max_abs_err"] = worst
+    rb_total["shapes"] = sorted({(r["C"], r["T"]) for r in rows}, reverse=True)
+    rb_total["per_width"] = {C: {k: sum(r[k] for r in rows if r["C"] == C) for k in ("ms", "library_ms", "plain_ms")}
+                             for C, _ in ISTFT_STAGES}
+    log(f"[15] resblock, all {ISTFT_LAYERS} layers of one ISTFT decode (B={len(lengths)}, {FRAMES} frames; kernel / "
+        f"plain / cuDNN fp32 / 3xTF32 bound): {json.dumps(rb_total)}")
+    return {"params": n_params, "cpu_wav_err": err, "launches": counts, "first_ms": first_ms, "warm_ms": warm_ms,
+            "warm_runs_ms": warm, "audio_s": audio_s, "rtf_x": audio_s / warm_ms * 1e3, "snap": snap_rows,
+            "resblock": rb_total, "resblock_rows": rows, "profile": profile}
+
+
+def phase_istft_training(card, with_profile=False):
+    """(b) ``VQGANTrainer`` on the ISTFT recipe: 2 warmup + 2 GAN steps at
+    batch 16 (bucket 400, windows of 12 000 samples = 40 frames, which the
+    decoder must turn into exactly 12 000 samples); the trained autoencoder
+    saved as a checkpoint."""
+    from msmctts_tpu_torch.data.loader import to_device
+    from msmctts_tpu_torch.training.base_trainer import metrics_to_host
+
+    torch.cuda.empty_cache()
+    base_gib = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    trainer = _istft_trainer(_istft_config(os.path.join(SMOKE_DIR, "ckpt_istft")), "cuda")
+    ae, disc = trainer.ae, trainer.disc
+    batch_np, lengths, _ = _training_batch()
+    batch = to_device(batch_np, "cuda")
+    window = trainer.sample_lengths
+    emitted = []
+    hook = ae.decoder.register_forward_hook(lambda m, a, o: emitted.append(tuple(o.shape)))
+    log(f"[15] ISTFT recipe training: {sum(p.numel() for p in ae.parameters()) / 1e6:.1f}M + discriminator "
+        f"{sum(p.numel() for p in disc.parameters()) / 1e6:.1f}M parameters; batch {TRAIN_B}, frames "
+        f"{lengths.min()}-{lengths.max()} (bucket {TRAIN_FRAMES}), windows of {window} samples "
+        f"({trainer.frame_lengths} frames)")
+    steps = []
+    for it in range(1, 5):
+        phase = "warmup" if it <= trainer.warmup_steps else "gan"
+        ae_before = [p.detach().clone() for p in ae.parameters()]
+        d_before = [p.detach().clone() for p in disc.parameters()]
+        emitted.clear()
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        metrics = trainer.train_step(batch, it)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = _counts()
+        host = metrics_to_host(metrics)
+        bad = [k for k, v in host.items() if not np.isfinite(v)]
+        if bad:
+            raise AssertionError(f"ISTFT train step {it}: non-finite metrics {bad}")
+        if counts != {"vq_nearest": 0, "vq_nearest_stats": 2, "fused_resblock_layer": 0}:
+            raise AssertionError(f"ISTFT train step {it}: launches {counts}, expected 2 vq_nearest_stats only")
+        if emitted != ([] if phase == "warmup" else [(TRAIN_B, window, 1)]):
+            raise AssertionError(f"ISTFT train step {it} ({phase}): the decoder emitted {emitted}, "
+                                 f"expected {TRAIN_B} windows of {window} samples")
+        ae_moved, d_moved = _moved(ae, ae_before), _moved(disc, d_before)
+        if ae_moved == 0 or (phase == "warmup") != (d_moved == 0):
+            raise AssertionError(f"ISTFT train step {it} ({phase}): moved ae {ae_moved}, discriminator {d_moved}")
+        steps.append({"iteration": it, "phase": phase, "ms": ms, "launches": counts, "metrics": host,
+                      "ae_tensors_moved": ae_moved, "d_tensors_moved": d_moved})
+        shown = {k: round(host[k], 4) for k in ("g_loss", "vq_loss", "frame_loss", "d_loss", "stft_loss", "fm_loss") if k in host}
+        log(f"[15] ISTFT step {it} ({phase}): {ms:.1f} ms, launches {counts}, moved ae {ae_moved} d {d_moved}, {shown}")
+    hook.remove()
+
+    def timed(it):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(batch, it)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    warm = {"warmup": [timed(1) for _ in range(3)], "gan": [timed(5 + i) for i in range(3)]}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    stats = _stats_rows(ae, lambda: trainer.train_step(batch, 8))
+    if len(stats) != 2:
+        raise AssertionError(f"ISTFT train step: {len(stats)} quantizer calls, expected 2")
+    result = {"steps": steps, "warm_ms": {k: statistics.median(v) for k, v in warm.items()}, "warm_runs_ms": warm,
+              "peak_memory_gib": peak_gib, "peak_above_start_gib": peak_gib - base_gib,
+              "launches_per_step": steps[-1]["launches"], "stats": _hold_stats(stats, "ISTFT train step", "[15]")}
+    log(f"[15] ISTFT per train step on {card}: first {[round(st['ms'], 1) for st in steps]} ms; warm median "
+        f"{json.dumps({k: round(v, 1) for k, v in result['warm_ms'].items()})} ms; peak memory {peak_gib:.2f} GiB")
+    if with_profile:
+        result["profile"] = profile_call(lambda: trainer.train_step(batch, 9), "[15]", "ISTFT GAN step")
+    trainer.iteration = 4
+    result["checkpoint"] = trainer.save()
+    log(f"[15] trained ISTFT autoencoder -> {os.path.relpath(result['checkpoint'], ROOT)}")
+    return result
+
+
+def phase_istft_step_card_vs_cpu():
+    """One warmup and one GAN step of the ISTFT recipe from equal state on the
+    card and on the CPU (2 short utterances, dropout 0, given window starts).
+    The state is the seeded ISTFT decoder and discriminator with the trained
+    fixture's encoder, quantizer and codebook (the recipe shares their
+    shapes): a seeded codebook has codewords with a cluster size near 0, where
+    the EMA's division magnifies the sums' rounding past any absolute bound."""
+    from msmctts_tpu_torch.data.loader import to_device
+    from msmctts_tpu_torch.training.base_trainer import metrics_to_host
+    from msmctts_tpu_torch.utils.checkpoint import load_checkpoint
+    from msmctts_tpu_torch.weights import train_state_from_jax, train_state_to_jax
+
+    rng = np.random.default_rng(16)
+    batch = _train_batch(rng, [64, 48], 64)
+    starts = np.array([11, 3])
+    out, state = {}, None
+    for device in ("cuda", "cpu"):
+        trainer = _istft_trainer(_istft_config(os.path.join(SMOKE_DIR, "ckpt_istft_step"), warmup_steps=1, dropout=0.0),
+                                 device)
+        if state is None:
+            state = train_state_to_jax(trainer.ae, trainer.disc)
+            fixture = load_checkpoint(FIXTURE)["state"]
+            state["params"]["autoencoder"].update(
+                {k: v for k, v in fixture["params"]["autoencoder"].items() if k != "decoder"})
+            state["codebook"] = fixture["codebook"]
+        train_state_from_jax(state, trainer.ae, trainer.disc)
+        indices = []
+        hooks = [q.register_forward_hook(lambda m, a, o: indices.append(o[2].cpu())) for q in trainer.ae.quantizer.quantizer]
+        dev_batch = to_device(batch, device)
+        m1 = metrics_to_host(trainer.train_step(dev_batch, 1))
+        m2 = metrics_to_host(trainer.train_step(dev_batch, 2, starts=torch.as_tensor(starts, device=device)))
+        for h in hooks:
+            h.remove()
+        out[device] = {"warmup": m1, "gan": m2, "indices": indices,
+                       "codebook": [(q.embed.cpu(), q.cluster_size.cpu(), q.embed_avg.cpu()) for q in trainer.ae.quantizer.quantizer]}
+        del trainer
+    worst = {"loss_rel": 0.0, "codebook_abs": 0.0}
+    for phase in ("warmup", "gan"):
+        for k, want in out["cpu"][phase].items():
+            got = out["cuda"][phase][k]
+            rel = abs(got - want) / max(abs(want), 1e-3)
+            worst["loss_rel"] = max(worst["loss_rel"], rel)
+            if rel > STEP_TOL["loss_rtol"]:
+                raise AssertionError(f"ISTFT {phase} step, {k}: card {got} vs CPU {want}")
+    same = all(torch.equal(a, b) for a, b in zip(out["cuda"]["indices"], out["cpu"]["indices"]))
+    for a, b in zip(out["cuda"]["codebook"], out["cpu"]["codebook"]):
+        for x, y in zip(a, b):
+            worst["codebook_abs"] = max(worst["codebook_abs"], float((x - y).abs().max()))
+    log(f"[15] one ISTFT warmup + one GAN step, card vs CPU (B=2, 64 frames): indices equal {same} "
+        f"({len(out['cuda']['indices'])} stage passes), worst loss rel diff {worst['loss_rel']:.3g}, "
+        f"worst codebook abs diff {worst['codebook_abs']:.3g}")
+    if not same or worst["codebook_abs"] > STEP_TOL["codebook_atol"]:
+        raise AssertionError(f"ISTFT train step disagrees with the CPU: indices equal {same}, {worst}")
+    return {**worst, "indices_equal": same, "card": {k: out["cuda"][k] for k in ("warmup", "gan")},
+            "cpu": {k: out["cpu"][k] for k in ("warmup", "gan")}}
+
+
+def phase_istft_predict(card, ae_ckpt, seed=1234):
+    """(c) Text -> wav through the CSMSC AM recipe (seeded predictor) over the
+    ISTFT autoencoder of (b): 4 snaps and 18 MRF launches per batch; the
+    streaming decode is refused, as in the JAX package."""
+    from msmctts_tpu_torch.config import Config
+    from msmctts_tpu_torch.data.datasets import TEXT_BUCKETS, bucket_length
+    from msmctts_tpu_torch.tasks import build_task
+    from msmctts_tpu_torch.utils.checkpoint import save_checkpoint
+    from msmctts_tpu_torch.weights import init_random, multi_stage_predictor_to_jax, state_dict_numpy
+
+    cfg = Config(AM_YAML)
+    cfg.task["autoencoder"]["_checkpoint"] = ae_ckpt
+    cfg.task["autoencoder"].pop("_config", None)
+    task = build_task(cfg, device="cuda")
+    predictor = task.networks["predictor"]
+    init_random(predictor, seed)
+    predictor.bias_durations(4.2)
+    am_path = os.path.join(SMOKE_DIR, "am_istft_seeded.ckpt")
+    save_checkpoint(am_path, {"params": {"predictor": multi_stage_predictor_to_jax(state_dict_numpy(predictor))}}, 0,
+                    cfg.to_dict())
+    task.pre_infer()
+    ae = task.networks["autoencoder"]
+    if type(ae.decoder).__name__ != "ISTFTGenerator" or ae.frameshift_ratio != 300:
+        raise AssertionError(f"the AM's autoencoder: decoder {type(ae.decoder).__name__}, ratio {ae.frameshift_ratio}")
+    rng = np.random.default_rng(seed)
+    n_symbols = list(cfg.task["predictor"]["n_symbols"])
+    n_phones = [24, 57, 96, 128]
+    Lt = bucket_length(max(n_phones), TEXT_BUCKETS)
+    batch = {"text": _text(rng, n_phones, n_symbols, Lt), "text_length": np.array(n_phones)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    task.predict(batch)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    _reset_counts()
+    out = task.predict(batch)
+    torch.cuda.synchronize()
+    counts = _counts()
+    _check_wavs(out["wav"], out["mel_length"], 300, "predict over the ISTFT autoencoder")
+    if counts != {"vq_nearest": 4, "vq_nearest_stats": 0, "fused_resblock_layer": ISTFT_LAYERS}:
+        raise AssertionError(f"predict over the ISTFT autoencoder: launches {counts}, expected 4 VQ and {ISTFT_LAYERS} resblock")
+    warm = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        task.predict(batch)
+        torch.cuda.synchronize()
+        warm.append((time.perf_counter() - t0) * 1e3)
+    try:
+        task.predict_stream(batch, chunk_frames=SERVE_CHUNK)
+    except NotImplementedError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("predict_stream over an ISTFT decoder was not refused")
+    warm_ms = statistics.median(warm)
+    audio_s = float(np.sum(out["mel_length"])) * 300 / task.samplerate
+    log(f"[15] predict over the ISTFT autoencoder, B={len(n_phones)} phones {n_phones} (text bucket {Lt}), frames "
+        f"{out['mel_length'].tolist()}: launches {counts}; on {card}: first {first_ms:.1f} ms, warm median "
+        f"{warm_ms:.1f} ms (runs {[round(w, 1) for w in warm]}), {audio_s / warm_ms * 1e3:.1f}x real time; "
+        f"predict_stream refused: {refused}")
+    return {"launches": counts, "frames": out["mel_length"].tolist(), "first_ms": first_ms, "warm_ms": warm_ms,
+            "warm_runs_ms": warm, "audio_s": audio_s, "stream_refused": refused, "am_path": am_path}
+
+
+def _write_mel_corpus(d, n_utts=12, seed=17, frameshift=300, sr=24000):
+    """A small MelDataset corpus: mel/*.npy [T, 80], wav/*.wav (T x 300 samples at 24 kHz), train.list."""
+    from msmctts_tpu_torch.data.datasets import save_wav
+
+    rng = np.random.default_rng(seed)
+    for sub in ("mel", "wav"):
+        os.makedirs(os.path.join(d, sub), exist_ok=True)
+    ids, frames = [], []
+    for i in range(n_utts):
+        uid, f = f"ae{i:03d}", int(rng.integers(60, 200))
+        np.save(os.path.join(d, "mel", f"{uid}.npy"), (rng.normal(size=(f, 80)) * 0.5).astype(np.float32))
+        save_wav(os.path.join(d, "wav", f"{uid}.wav"), rng.normal(size=f * frameshift) * 0.1, sr)
+        ids.append(uid)
+        frames.append(f)
+    with open(os.path.join(d, "train.list"), "w") as fh:
+        fh.write("\n".join(ids) + "\n")
+    return ids, frames
+
+
+def phase_istft_entry_points(card):
+    """(d) ``python -m msmctts_tpu_torch.train`` on the ISTFT recipe for 2
+    steps (warmup, then GAN) over a corpus written here, then ``infer`` from
+    its checkpoint on 3 utterances."""
+    import shutil
+
+    import yaml
+
+    d = os.path.join(SMOKE_DIR, "istft_corpus")
+    ids, frames = _write_mel_corpus(d)
+    cfg = _istft_config(os.path.join(SMOKE_DIR, "ckpt_istft_cli"), warmup_steps=1)
+    shutil.rmtree(cfg["save_checkpoint_dir"], ignore_errors=True)
+    cfg["dataloader"] = {"batch_size": 4, "num_workers": 2}
+    cfg.dataset["id_list"] = os.path.join(d, "train.list")
+    cfg.dataset["feature_path"] = [os.path.join(d, "mel", "{}.npy"), os.path.join(d, "wav", "{}.wav")]
+    cfg_path = os.path.join(SMOKE_DIR, "istft_cli.yaml")
+    with open(cfg_path, "w") as fh:
+        yaml.safe_dump(cfg.to_dict(), fh)
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+
+    def run(what, *args):
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", *args], cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if res.returncode != 0:
+            raise AssertionError(f"{what} failed ({res.returncode}):\n{res.stdout[-4000:]}\n{res.stderr[-4000:]}")
+        return res, wall
+
+    res, wall = run("train (ISTFT recipe)", "msmctts_tpu_torch.train", "-c", cfg_path, "--max-steps", "2", "--log-every", "1")
+    ckpt = os.path.join(cfg["save_checkpoint_dir"], "model_2")
+    last = [line for line in res.stdout.splitlines() if "step 2" in line]
+    if not last or not os.path.exists(ckpt) or "d_loss" not in last[-1]:
+        raise AssertionError(f"the ISTFT recipe's train run wrote no GAN step 2 / model_2:\n{res.stdout[-3000:]}")
+    log(f"[15] train entry point, ISTFT recipe, 2 steps at batch 4 ({wall:.1f}s): {last[-1].strip()}")
+    test_list = os.path.join(SMOKE_DIR, "istft_test.yaml")
+    with open(test_list, "w") as fh:
+        yaml.safe_dump({u: {"mel": os.path.join(d, "mel", f"{u}.npy")} for u in ids[:3]}, fh)
+    out_dir = os.path.join(SMOKE_DIR, "istft_infer")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    res, infer_wall = run("infer (ISTFT)", "msmctts_tpu_torch.infer", "-m", ckpt, "-t", test_list, "-o", out_dir)
+    from scipy.io import wavfile
+
+    lengths = {u: wavfile.read(os.path.join(out_dir, f"{u}_wav.wav"))[1].shape[0] for u in ids[:3]}
+    want = {u: f * 300 for u, f in zip(ids[:3], frames[:3])}
+    if lengths != want:
+        raise AssertionError(f"infer wrote wavs of {lengths} samples, expected {want}")
+    log(f"[15] infer entry point ({infer_wall:.1f}s): {res.stdout.strip().splitlines()[-1]}; wav samples {lengths}")
+    return {"train_wall_s": wall, "infer_wall_s": infer_wall, "wav_samples": lengths, "last_line": last[-1].strip()}
+
+
+def phase_istft(gen, card, with_profile=False):
+    """Phase 15, (a) to (d)."""
+    t0 = time.perf_counter()
+    result = {"analysis_synthesis": phase_istft_analysis_synthesis(gen, card, with_profile)}
+    result["training"] = phase_istft_training(card, with_profile)
+    result["step_card_vs_cpu"] = phase_istft_step_card_vs_cpu()
+    result["predict"] = phase_istft_predict(card, result["training"]["checkpoint"])
+    result["entry_points"] = phase_istft_entry_points(card)
+    result["phase_s"] = time.perf_counter() - t0
+    log(f"[15] ISTFT phase {result['phase_s']:.1f}s")
+    return result
+
+
+# ------------------------------------------------------------- the int8 decoder
+# Phase 16: the int8 HiFi-GAN decoder (ops/int8_generator.py) over the trained
+# fixture: calibrated on the first batch it decodes; every conv site but
+# conv_post an s8 x s8 -> s32 product (torch._int_mm on the card) against its
+# plain version (fp64 per-tap sums), int8 against fp32, then predict, a
+# streamed batch, the daemon and infer with --int8.
+PEAK_INT8 = 1979e12  # dense int8 tensor-core operations per second (published, 700 W)
+INT8_REL = 0.05  # int8 vs fp32 decode, relative L2: the JAX package's own generator bound
+INT8_TASK_REL = 0.25  # int8 vs fp32 through a task, the JAX package's own bound
+INT8_SITES = 77  # conv_pre, 4 transposed convs, 72 MRF convs (conv_post stays fp32)
+
+
+def _rel_l2(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-12))
+
+
+def _int8_sites(run):
+    """Run ``run()`` and return every int8 product it launched: (xq, w_q,
+    padding, dilation)."""
+    from msmctts_tpu_torch.ops import int8_generator as i8
+
+    calls, launch = [], i8.int8_conv1d
+
+    def record(xq, w_q, padding, dilation=1):
+        calls.append((xq, w_q, padding, dilation))
+        return launch(xq, w_q, padding, dilation)
+
+    i8.int8_conv1d = record
+    try:
+        run()
+    finally:
+        i8.int8_conv1d = launch
+    return calls
+
+
+def phase_int8_decoder(card, with_profile=False):
+    """(a) The fixture's analysis-synthesis through the int8 decoder."""
+    import copy
+
+    import torch.nn.functional as F
+
+    from msmctts_tpu_torch.config import Config
+    from msmctts_tpu_torch.ops import int8_generator as i8
+    from msmctts_tpu_torch.tasks import build_task
+    from msmctts_tpu_torch.utils.checkpoint import load_checkpoint
+
+    ckpt = load_checkpoint(FIXTURE)
+    task = build_task(Config(ckpt["config"]), device="cuda")
+    task.load_variables(ckpt["state"])
+    ae = task.networks["autoencoder"]
+    rng = np.random.default_rng(16)
+    lengths = np.array(ISTFT_LENGTHS)
+    mel = rng.normal(size=(len(lengths), FRAMES, 80)).astype(np.float32) * 0.5
+    mel *= (np.arange(FRAMES)[None, :] < lengths[:, None])[..., None]
+    batch = {"mel": mel, "mel_length": lengths}
+    fp32 = task.analysis_synthesis(batch)
+    task.int8_decoder = True
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    task.analysis_synthesis(batch)  # the first batch: quantize, calibrate, decode
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    dec = task._int8_state
+    _reset_counts()
+    i8.LAUNCHES["int8_conv1d"] = 0
+    out = task.analysis_synthesis(batch)
+    torch.cuda.synchronize()
+    counts = {**_counts(), "int8_conv1d": i8.LAUNCHES["int8_conv1d"]}
+    _check_wavs(out["wav"], lengths, ae.frameshift_ratio, "int8 analysis-synthesis")
+    if counts != {"vq_nearest": 2, "vq_nearest_stats": 0, "fused_resblock_layer": 0, "int8_conv1d": INT8_SITES}:
+        raise AssertionError(f"int8 analysis-synthesis launches {counts}, expected 2 VQ and {INT8_SITES} int8 products")
+    rel = [_rel_l2(a, b) for a, b in zip(out["wav"], fp32["wav"])]
+    log(f"[16] int8 analysis-synthesis of the fixture, B={len(lengths)} frames {lengths.tolist()}: launches {counts}; "
+        f"int8 vs fp32 relative L2 per utterance {[round(r, 4) for r in rel]} (bound {INT8_REL}); "
+        f"{len(dec.scales)} static scales, SmoothQuant alpha {dec.smooth_alpha}")
+    if max(rel) > INT8_REL:
+        raise AssertionError(f"int8 decode vs fp32: relative L2 {max(rel)} > {INT8_REL}")
+
+    with torch.inference_mode():
+        feats = ae.encode_features(torch.as_tensor(mel, device="cuda"), torch.as_tensor(lengths, device="cuda"))
+    # every product at its site's shapes against its plain version, bit-equal int32, with times
+    calls = _int8_sites(lambda: dec.apply(feats))
+    if len(calls) != INT8_SITES:
+        raise AssertionError(f"{len(calls)} int8 products in one decode, expected {INT8_SITES}")
+    sites, agg = [], {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    for n, (xq, w_q, padding, dilation) in enumerate(calls):
+        y = i8.int8_conv1d(xq, w_q, padding, dilation)
+        ref = i8.int8_conv1d_plain(xq, w_q, padding, dilation)
+        torch.cuda.synchronize()
+        if y.dtype != torch.int32 or not torch.equal(y, ref):
+            raise AssertionError(f"int8 product {n} {tuple(xq.shape)} x {tuple(w_q.shape)} d={dilation}: "
+                                 f"{int((y != ref).sum())} sums differ from the plain version")
+        Bx, T_out, C_out = y.shape
+        k, C_in, _ = w_q.shape
+        ops = 2 * Bx * T_out * C_out * k * C_in
+        nbytes = xq.numel() + w_q.numel() + 4 * y.numel()
+        b = bound(nbytes, ops, PEAK_INT8)
+        xf, wf = xq.float().transpose(1, 2).contiguous(), w_q.float().permute(2, 1, 0).contiguous()
+        row = {"site": n, "x": list(xq.shape), "w": list(w_q.shape), "dilation": dilation, "padding": padding,
+               "ms": time_ms(lambda: i8.int8_conv1d(xq, w_q, padding, dilation), runs=3, reps=3, warmup=1),
+               "plain_ms": time_ms(lambda: i8.int8_conv1d_plain(xq, w_q, padding, dilation), runs=2, reps=3, warmup=1),
+               "library_ms": time_ms(lambda: F.conv1d(xf, wf, padding=padding, dilation=dilation), runs=3, reps=3, warmup=1),
+               "bound_ms": b[0], "bound_by": b[1]}
+        sites.append(row)
+        for key in agg:
+            agg[key] += row[key]
+    log(f"[16] int8 products, all {len(sites)} sites of one decode (B={len(lengths)}, {FRAMES} frames): int32 sums "
+        f"bit-equal to the plain version at every site; per decode: _int_mm {agg['ms']:.3f} ms, plain fp64 "
+        f"{agg['plain_ms']:.3f} ms, cuDNN fp32 conv at the same shapes {agg['library_ms']:.3f} ms, int8 bound "
+        f"{agg['bound_ms']:.4f} ms")
+    for row in sorted(sites, key=lambda r: -r["ms"])[:6]:
+        log(f"[16]   int8 product {json.dumps(row)}")
+
+    # int8 and fp32 decode of the same features, device time by events
+    int8_ms = time_ms(lambda: dec.apply(feats), runs=3, reps=3, warmup=1)
+    with torch.inference_mode():
+        fp32_ms = time_ms(lambda: ae.decoder(feats), runs=3, reps=3, warmup=1)
+    log(f"[16] decode of B={len(lengths)} x {FRAMES} frames on {card}: int8 {int8_ms:.2f} ms, fp32 {fp32_ms:.2f} ms "
+        f"(CUDA events, whole decoder)")
+    profile = profile_call(lambda: dec.apply(feats), "[16]", "int8 decode") if with_profile else None
+
+    # the same int8 state on the CPU (the plain products) on the card's features, T = 64
+    small = feats[:1, :64].contiguous()
+    cpu_dec = copy.copy(dec)
+    cpu_dec._device = {}
+    card_wav = dec.apply(small).cpu().numpy()
+    cpu_wav = cpu_dec.apply(small.cpu()).numpy()
+    cpu_err = float(np.abs(card_wav - cpu_wav).max())
+    log(f"[16] int8 decode T=64, card vs CPU (plain products, the same int8 state and features): max abs err {cpu_err:.3g}")
+    if cpu_err > AS_TOL:
+        raise AssertionError(f"int8 decode on the card vs the CPU: {cpu_err}")
+    return {"launches": counts, "rel_l2_vs_fp32": rel, "first_ms": first_ms, "int8_decode_ms": int8_ms,
+            "fp32_decode_ms": fp32_ms, "products": agg, "sites": sites, "cpu_err": cpu_err, "profile": profile}
+
+
+def phase_int8_serving(card, am_path):
+    """(b) ``predict`` with the int8 decoder and one streamed batch at chunk
+    64 against it; (c) ``serve --int8`` as a subprocess under 8 clients and
+    ``infer --int8`` on 3 lines."""
+    import queue
+    import shutil
+    import threading
+
+    import yaml
+
+    from msmctts_tpu_torch.ops import cuda_build
+    from msmctts_tpu_torch.ops import int8_generator as i8
+    from msmctts_tpu_torch.serving import BatchingEngine
+
+    task = _load_tts_task(am_path, "cuda")
+    n_symbols = list(task.networks["predictor"].n_symbols)
+    rng = np.random.default_rng(16)
+    n_phones = [64, 57, 40, 33]
+    Lt = max(SERVE_TEXT_BUCKETS)
+    dur = rng.integers(4, 7, size=(SERVE_B, Lt)).astype(np.float32) * (np.arange(Lt)[None] < np.array(n_phones)[:, None])
+    batch = {"text": _text(rng, n_phones, n_symbols, Lt), "text_length": np.array(n_phones), "dur": dur}
+    fp32 = task.predict(batch)
+    task.int8_decoder = True
+    task.predict(batch)  # calibrates
+    _reset_counts()
+    i8.LAUNCHES["int8_conv1d"] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = task.predict(batch)
+    torch.cuda.synchronize()
+    predict_ms = (time.perf_counter() - t0) * 1e3
+    counts = {**_counts(), "int8_conv1d": i8.LAUNCHES["int8_conv1d"]}
+    if counts != {"vq_nearest": 4, "vq_nearest_stats": 0, "fused_resblock_layer": 0, "int8_conv1d": INT8_SITES}:
+        raise AssertionError(f"predict --int8: launches {counts}")
+    rel = [_rel_l2(a, b) for a, b in zip(out["wav"], fp32["wav"])]
+    if max(rel) > INT8_TASK_REL:
+        raise AssertionError(f"predict --int8 vs fp32: relative L2 {max(rel)}")
+    _reset_counts()
+    i8.LAUNCHES["int8_conv1d"] = 0
+    t0 = time.perf_counter()
+    meta, chunks = task.predict_stream(batch, chunk_frames=SERVE_CHUNK)
+    pieces, first_ms = [], None
+    for c in chunks:
+        pieces.append(c)
+        if first_ms is None:
+            first_ms = (time.perf_counter() - t0) * 1e3
+    stream_ms = (time.perf_counter() - t0) * 1e3
+    stream_counts = {**_counts(), "int8_conv1d": i8.LAUNCHES["int8_conv1d"]}
+    want_counts = {"vq_nearest": 4, "vq_nearest_stats": 0, "fused_resblock_layer": 0,
+                   "int8_conv1d": INT8_SITES * len(pieces)}
+    if stream_counts != want_counts or len(pieces) < 4:
+        raise AssertionError(f"int8 streamed batch: {len(pieces)} windows, launches {stream_counts}, expected {want_counts}")
+    streamed = np.concatenate(pieces, axis=1)
+    diff = max(float(np.abs(streamed[i, : w.shape[0]] - w).max()) for i, w in enumerate(out["wav"]))
+    log(f"[16] predict --int8, B={SERVE_B} phones {n_phones} (forced durations): launches {counts}, {predict_ms:.1f} ms "
+        f"on {card}; int8 vs fp32 relative L2 {[round(r, 4) for r in rel]} (bound {INT8_TASK_REL}); streamed at chunk "
+        f"{SERVE_CHUNK}: {len(pieces)} windows, launches {stream_counts}, first chunk {first_ms:.1f} ms, whole "
+        f"{stream_ms:.1f} ms, stream vs int8 predict max abs diff {diff:.3g}")
+    if diff > AS_TOL:
+        raise AssertionError(f"int8 stream vs int8 predict: {diff}")
+
+    # the daemon with --int8 under 8 clients
+    eng = BatchingEngine(_load_tts_task(am_path, "cuda"), sample_rate=task.samplerate, batch_size=SERVE_B, window_ms=0.0,
+                         max_frames=SERVE_MAX_FRAMES, stream_chunk_frames=SERVE_CHUNK)
+    eng.task.int8_decoder = True
+    texts = [_phone_string(_text(rng, [int(n)], n_symbols, int(n))[0])
+             for n in rng.integers(SERVE_PHONES[0], SERVE_PHONES[1] + 1, 12)]
+    requests = [(t, False) for t in texts] + [(t, True) for t in texts[:SERVE_REQUESTS // 4]]
+    eng.start(warmup={"text_lengths": SERVE_DAEMON_WARM})  # the daemon's warmup: its first batch calibrates
+    try:
+        alone = {t: eng.synthesize(t, timeout=SERVE_TIMEOUT_S) for t in texts}
+    finally:
+        eng.stop()
+    builds_before = cuda_build.build_count()
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    cmd = [sys.executable, "-m", "msmctts_tpu_torch.serve", "-m", am_path, "--port", "0", "--batch-size", str(SERVE_B),
+           "--max-frames", str(SERVE_MAX_FRAMES), "--int8", "--warmup-lengths", *map(str, SERVE_DAEMON_WARM)]
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(line) for line in proc.stdout], daemon=True).start()
+    try:
+        warm_line = _wait_for_line(lines, "warmup:", proc, SERVE_TIMEOUT_S, "[16]")
+        port = int(_wait_for_line(lines, "serving on", proc, 60, "[16]").rsplit(":", 1)[1])
+        results = [None] * len(requests)
+
+        def client(worker):
+            for i in range(worker, len(requests), SERVE_CLIENTS):
+                t, stream = requests[i]
+                results[i] = _http(port, "POST", "/synthesize", {"text": t, "stream": stream})
+
+        threads = [threading.Thread(target=client, args=(w,)) for w in range(SERVE_CLIENTS)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(SERVE_TIMEOUT_S)
+        load_s = time.perf_counter() - t0
+        if any(r is None for r in results):
+            raise AssertionError("the int8 daemon's load did not finish")
+        stats = json.loads(_http(port, "GET", "/stats")[1])
+        # one request at a time: each batch is the request alone, as in-process
+        one_by_one = [_http(port, "POST", "/synthesize", {"text": t}) for t in texts]
+        if proc.poll() is not None:
+            raise AssertionError(f"the int8 daemon died with {proc.returncode}")
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(30)
+    # under load a request shares its batch (and text bucket) with others, which can move a
+    # predicted duration across its rounding boundary; alone, it must decode as in-process
+    rels = []
+    for (t, stream), (status, data, _, _) in list(zip(requests, results)) + [((t, False), r) for t, r in zip(texts, one_by_one)]:
+        if status != 200:
+            raise AssertionError(f"int8 daemon, {len(t.split())} phones (stream {stream}): {status} {data[:300]!r}")
+        pcm = _pcm(data, stream) / 32767.0
+        if pcm.shape != alone[t].shape or not np.isfinite(pcm).all() or not np.abs(pcm).max() > 1e-3:
+            raise AssertionError(f"int8 daemon: {pcm.shape} samples, in-process {alone[t].shape}")
+        rels.append((len(t.split()), stream, round(_rel_l2(pcm, alone[t]), 5)))
+    log(f"[16] int8 daemon vs in-process int8 engine, (phones, streamed, relative L2) under load then one at a "
+        f"time: {rels}")
+    worst = max(r[2] for r in rels[len(requests):])
+    if stats["cold_shapes"] != 0 or stats["kernel_builds"] != 0 or stats["errors"] != 0:
+        raise AssertionError(f"int8 daemon /stats: {stats}")
+    if worst > 1e-2 or cuda_build.build_count() != builds_before:
+        raise AssertionError(f"int8 daemon, one request at a time, vs in-process int8 engine: relative L2 {worst}")
+    lat = sorted(r[3] for (_, s), r in zip(requests, results) if not s)
+    log(f"[16] int8 daemon on {card}: {warm_line.strip()}; {len(requests)} requests from {SERVE_CLIENTS} clients in "
+        f"{load_s:.2f}s, blocking p50 {statistics.median(lat) * 1e3:.1f} ms; served one at a time vs in-process int8 "
+        f"engine relative L2 at most {worst:.3g}; /stats cold_shapes {stats['cold_shapes']}, kernel_builds {stats['kernel_builds']}, "
+        f"errors {stats['errors']}, mean batch {stats['mean_batch_size']:.2f}")
+
+    test_list = os.path.join(SMOKE_DIR, "int8_test.yaml")
+    with open(test_list, "w") as fh:
+        yaml.safe_dump({f"i8_{i}": {"text": t} for i, t in enumerate(texts[:3])}, fh)
+    out_dir = os.path.join(SMOKE_DIR, "int8_infer")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "msmctts_tpu_torch.infer", "-m", am_path, "-t", test_list, "-o", out_dir,
+                          "--int8"], cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    infer_wall = time.perf_counter() - t0
+    wavs = sorted(f for f in os.listdir(out_dir) if f.endswith("_wav.wav")) if os.path.isdir(out_dir) else []
+    if res.returncode != 0 or len(wavs) != 3:
+        raise AssertionError(f"infer --int8 failed ({res.returncode}), wrote {wavs}:\n{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+    log(f"[16] infer --int8 on 3 lines ({infer_wall:.1f}s): {res.stdout.strip().splitlines()[-1]}")
+    return {"predict": {"launches": counts, "ms": predict_ms, "rel_l2_vs_fp32": rel},
+            "stream": {"windows": len(pieces), "launches": stream_counts, "first_chunk_ms": first_ms,
+                       "stream_ms": stream_ms, "max_abs_diff_vs_predict": diff},
+            "daemon": {"warmup_line": warm_line.strip(), "load_s": load_s, "latency_p50_ms": statistics.median(lat) * 1e3,
+                       "served_rel_l2": worst, "per_request": rels, "stats": stats},
+            "infer_wall_s": infer_wall}
+
+
+def phase_int8(card, am_path, with_profile=False):
+    """Phase 16, (a) to (c); ``with_profile`` adds the profile of one int8 decode."""
+    t0 = time.perf_counter()
+    result = {"decoder": phase_int8_decoder(card, with_profile), "serving": phase_int8_serving(card, am_path)}
+    result["phase_s"] = time.perf_counter() - t0
+    log(f"[16] int8 phase {result['phase_s']:.1f}s")
+    return result
+
+
 def _device_rows(prof):
     """[{name, count, device_ms}] of a profile's kernels, the longest first."""
     from torch.autograd import DeviceType
@@ -2557,8 +3285,9 @@ def profile_call(fn, tag, what):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
-                    help="also profile one predict, one GAN step, one AM step, a streamed batch and phase 14's "
-                         "analysis-synthesis, GAN step and predictor step, and write every measurement to this JSON file")
+                    help="also profile one predict, one GAN step, one AM step, a streamed batch, phase 14's "
+                         "analysis-synthesis, GAN step and predictor step, phase 15's analysis-synthesis and GAN step "
+                         "and phase 16's int8 decode, and write every measurement to this JSON file")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on a GPU", file=sys.stderr)
@@ -2594,6 +3323,11 @@ def main(argv=None):
     serving["phase_s"] = time.perf_counter() - t_serving
     log(f"[13] serving phase {serving['phase_s']:.1f}s")
     qs = phase_qs_tts(gen, env["nvidia_smi"], with_profile=bool(args.out))
+    istft = phase_istft(gen, env["nvidia_smi"], with_profile=bool(args.out))
+    int8 = phase_int8(env["nvidia_smi"], tts_ref["am_path"], with_profile=bool(args.out))
+    ist_as, ist_tr, ist_pr = istft["analysis_synthesis"], istft["training"], istft["predict"]
+    ist_snap = lambda rows: [{k: r[k] for k in ("N", "device_ms", "ms", "plain_ms", "bound_ms", "bound_by", "index_mismatches",
+                                               "max_abs_err")} for r in rows]
     qs_snap = lambda rows: [{k: r[k] for k in ("N", "device_ms", "ms", "plain_ms", "bound_ms", "bound_by", "index_mismatches",
                                               "max_abs_err")} for r in rows]
     qs_as, qs_pred = qs["analysis_synthesis"], qs["predictor_training"]
@@ -2619,6 +3353,13 @@ def main(argv=None):
             "launches_qs_tts": {"analysis_synthesis_batch": qs_as["launches"]["vq_nearest"],
                                 "predictor_step": qs_pred["launches_per_step"]["vq_nearest"]},
             "qs_tts": {"analysis_synthesis": qs_snap(qs_as["snap"]), "predictor_step": qs_snap(qs_pred["snap"])},
+            # the ISTFT recipe: analysis-synthesis (B=4, bucket 512) and predict over its autoencoder;
+            # the int8 decoder's predict (the decoder runs no VQ: the same 4 snaps)
+            "launches_istft": {"analysis_synthesis_batch": ist_as["launches"]["vq_nearest"],
+                               "predict_batch": ist_pr["launches"]["vq_nearest"]},
+            "istft": {"analysis_synthesis": ist_snap(ist_as["snap"])},
+            "launches_int8": {"analysis_synthesis_batch": int8["decoder"]["launches"]["vq_nearest"],
+                              "predict_batch": int8["serving"]["predict"]["launches"]["vq_nearest"]},
         },
         {
             "name": "vq_nearest_stats", "route": "cuda", "source": "msmctts_tpu_torch/csrc/vq_stats.cu",
@@ -2634,6 +3375,10 @@ def main(argv=None):
             # both calls of one QS-TTS train step on the inputs the path gave them, against the plain version
             "qs_tts": [{k: r[k] for k in ("N", "valid", "walkers", "device_ms", "ms", "plain_ms", "bound_ms", "bound_by",
                                           "sums_max_abs_err")} for r in qs["training"]["stats"]],
+            # the ISTFT recipe's train step (batch 16, bucket 400), both calls on the path's inputs
+            "launches_istft": ist_tr["launches_per_step"]["vq_nearest_stats"],
+            "istft": [{k: r[k] for k in ("N", "valid", "walkers", "device_ms", "ms", "plain_ms", "bound_ms", "bound_by",
+                                         "sums_max_abs_err")} for r in ist_tr["stats"]],
         },
         {
             "name": "vq_nearest_stats_sharded", "route": "cuda", "source": "msmctts_tpu_torch/csrc/vq_stats.cu",
@@ -2653,6 +3398,8 @@ def main(argv=None):
             # the QS-TTS synthesizer's quantizer calls this function; on one card with no group
             "launches_qs_tts": qs["training"]["launches_per_step"]["vq_nearest_stats"],
             "qs_tts_shapes": f"per QS-TTS synthesizer train step on one rank, no group (no all-reduce): {qs_stats_n}",
+            # the ISTFT recipe's quantizer calls this function too, with no group
+            "launches_istft": ist_tr["launches_per_step"]["vq_nearest_stats"],
         },
         {
             "name": "vq_nearest_sharded", "route": "cuda", "source": "msmctts_tpu_torch/csrc/vq_nearest.cu",
@@ -2669,6 +3416,10 @@ def main(argv=None):
                                 "predictor_step": qs_pred["launches_per_step"]["vq_nearest"]},
             "qs_tts_shapes": f"one rank: N={QS_B * QS_FRAMES // 4} + {QS_B * QS_FRAMES} per analysis-synthesis batch, "
                              f"N={AM_B * AM_FRAMES // 4} + {AM_B * AM_FRAMES} per predictor step",
+            "launches_istft": {"analysis_synthesis_batch": ist_as["launches"]["vq_nearest"],
+                               "predict_batch": ist_pr["launches"]["vq_nearest"]},
+            "launches_int8": {"analysis_synthesis_batch": int8["decoder"]["launches"]["vq_nearest"],
+                              "predict_batch": int8["serving"]["predict"]["launches"]["vq_nearest"]},
         },
         {
             "name": "fused_resblock_layer", "route": "cuda", "source": "msmctts_tpu_torch/csrc/resblock.cu",
@@ -2686,6 +3437,14 @@ def main(argv=None):
             "launches_qs_tts": qs_as["launches"]["fused_resblock_layer"],
             "qs_tts": {k: qs_as["resblock"][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_fp32_ms",
                                                           "max_abs_err", "shapes")},
+            # the ISTFT recipe's trunk: 18 per analysis-synthesis batch (B=4, 512 frames) and per predict;
+            # none under the int8 decoder, whose every trunk conv is an int8 product
+            "launches_istft": {"analysis_synthesis_batch": ist_as["launches"]["fused_resblock_layer"],
+                               "predict_batch": ist_pr["launches"]["fused_resblock_layer"]},
+            "istft": {k: ist_as["resblock"][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_fp32_ms",
+                                                         "max_abs_err", "shapes", "per_width")},
+            "launches_int8": {"analysis_synthesis_batch": int8["decoder"]["launches"]["fused_resblock_layer"],
+                              "predict_batch": int8["serving"]["predict"]["launches"]["fused_resblock_layer"]},
             "tolerance": {**RB_TOL, "max_abs": RB_MAX_ABS},
             "shapes": f"per decode: the 36 CSMSC MRF layers at B={B}, {FRAMES} frames; bound_ms counts the kernel's operations, "
                       "three TF32 tensor-core products per fp32 product at 495 TFLOP/s; bound_fp32_ms the same products as "
@@ -2703,9 +3462,9 @@ def main(argv=None):
                        "training": train_res, "step_card_vs_cpu": step_res,
                        "sharded_kernels": shard_res, "nccl_world_1": nccl_res, "dp_training": dp_train,
                        "dp_inference": dp_infer, "am_training": am_res, "am_step_card_vs_cpu": am_cpu,
-                       "am_entry_point": am_cli, "serving": serving, "qs_tts": qs,
+                       "am_entry_point": am_cli, "serving": serving, "qs_tts": qs, "istft": istft, "int8": int8,
                        "wall_s": time.perf_counter() - t_start}, f, indent=1)
-    log(f"[15] wall {time.perf_counter() - t_start:.1f}s on {env['nvidia_smi']}")
+    log(f"[17] wall {time.perf_counter() - t_start:.1f}s on {env['nvidia_smi']}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": env["name"], "count": env["count"]}}))
     return 0

@@ -2,7 +2,7 @@
 ``infer.py``):
 
     python -m msmctts_tpu_torch.infer -m <checkpoint> [-c config.yaml] \\
-        -t testlist.yaml -o outdir [-b 1] [--static-frames N] [--device cpu]
+        -t testlist.yaml -o outdir [-b 1] [--static-frames N] [--int8] [--device cpu]
 
 Loads the task from the checkpoint's embedded config (or ``-c``), builds the
 test dataset (the config's ``testset``, else its ``dataset``) with
@@ -12,7 +12,9 @@ test dataset (the config's ``testset``, else its ``dataset``) with
 ``save_features`` as .wav / .npy / .txt / .dat, or .png heatmaps where
 matplotlib is installed (skipped where it is not). The output directory
 defaults to ``eval-<iteration>`` beside the checkpoint. Runs on ``cuda``
-unless ``--device cpu`` is given; without a GPU it refuses to run.
+unless ``--device cpu`` is given; without a GPU it refuses to run. ``--int8``
+decodes with the int8 HiFi-GAN decoder (``ops/int8_generator.py``),
+calibrated on the first batch.
 """
 
 from __future__ import annotations
@@ -34,7 +36,6 @@ from msmctts_tpu_torch.utils.checkpoint import load_checkpoint
 # the ROADMAP item that brings each
 NOT_PORTED = {
     "--debug": "debug_step is not ported (ROADMAP A7)",
-    "--int8": "the int8 decoder is not ported (ROADMAP A14)",
     "--mesh-devices": "inference over a group from infer is not ported (ROADMAP A12c); use --mesh-devices 1",
 }
 
@@ -73,10 +74,11 @@ def main(argv=None):
                    help="TTS: one fixed frame bucket, nothing read back before the waveform")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--debug", action="store_true", help="not ported (ROADMAP A7)")
-    p.add_argument("--int8", action="store_true", help="not ported (ROADMAP A14)")
+    p.add_argument("--int8", action="store_true",
+                   help="int8 post-training-quantized HiFi-GAN decoder, calibrated on the first batch")
     p.add_argument("--mesh-devices", type=int, default=1, metavar="N", help="only 1 (ROADMAP A12c)")
     args = p.parse_args(argv)
-    for flag, on in (("--debug", args.debug), ("--int8", args.int8), ("--mesh-devices", args.mesh_devices != 1)):
+    for flag, on in (("--debug", args.debug), ("--mesh-devices", args.mesh_devices != 1)):
         if on:
             p.error(NOT_PORTED[flag])
 
@@ -89,6 +91,7 @@ def main(argv=None):
     task.load_variables(ckpt["state"])
     if args.static_frames is not None:
         task.static_max_frames = args.static_frames
+    task.int8_decoder = args.int8
 
     test_config = Config(config.to_dict())
     test_config["dataset"] = config.get("testset", config.dataset)

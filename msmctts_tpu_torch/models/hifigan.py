@@ -3,12 +3,17 @@
 
 Generator, ``eval()`` mode: every ResBlock1 dilation layer runs through
 ``ops/resblock.py`` (row 5 of the kernel table, on the card): 4 stages x 3
-blocks x 3 dilations = 36 launches per CSMSC decode. ``train()`` mode: the same layers
+blocks x 3 dilations = 36 launches per CSMSC decode, 18 for the ISTFT
+recipe's two-stage trunk. ``train()`` mode: the same layers
 run as weight-normalised ``F.conv1d`` under autograd, as the JAX package's
 training graph runs them as XLA convs (its fused kernel has no gradient and
 is reached at inference only). The upsampling transposed convs and the
 pre/post convs are plain PyTorch convs in both modes. Names follow the
 reference (``conv_pre``, ``ups.i``, ``resblocks.r.convs1.m``, ``conv_post``).
+The decoder family (``decoder_config._name``): ``HifiGANGenerator`` (tanh
+head), ``ISTFTGenerator`` (the same trunk with a spectral head and
+``ops/stft.istft_real_imag``) and ``MSGenerator`` (a speaker embedding
+concatenated to the input of a ``HifiGANGenerator``).
 
 Discriminators (``hifigan.py:194-348``): MultiResolutionDiscriminator (per
 hop length an STFT image, 'double' domain, HTK mel warp, seven 3x3 conv2d
@@ -30,7 +35,7 @@ import torch.nn.functional as F
 
 from msmctts_tpu_torch.ops.convs import WNConv1d, WNConv2d, WNConvTranspose1d, fold_weight_norm
 from msmctts_tpu_torch.ops.resblock import LRELU_SLOPE, fused_resblock_layer, prepare_taps
-from msmctts_tpu_torch.ops.stft import mel_filterbank_htk, stft_real_imag
+from msmctts_tpu_torch.ops.stft import istft_real_imag, mel_filterbank_htk, stft_real_imag
 from msmctts_tpu_torch.registry import register_network
 
 DISC_LRELU = 0.2
@@ -173,8 +178,9 @@ class HifiGANGenerator(nn.Module):
         self.resblocks = nn.ModuleList(blocks)
         self.conv_post = WNConv1d(c0 // (2 ** len(ups)), 1, 7, padding=3, hifigan_init=True)
 
-    def _forward_train(self, x):
-        """The differentiable graph: [B, C, T] throughout, no kernel."""
+    def _trunk_train(self, x):
+        """The differentiable graph up to ``conv_post``'s output [B, C, T'],
+        no kernel."""
         x = self.conv_pre(x.transpose(1, 2))
         for i, up in enumerate(self.ups):
             x = up(F.leaky_relu(x, LRELU_SLOPE))
@@ -183,12 +189,11 @@ class HifiGANGenerator(nn.Module):
                 r = self.resblocks[i * self.num_kernels + j].forward_ncl(x)
                 acc = r if acc is None else acc + r
             x = acc / self.num_kernels
-        x = self.conv_post(F.leaky_relu(x, 0.01))
-        return torch.tanh(x).transpose(1, 2)
+        return self.conv_post(F.leaky_relu(x, 0.01))
 
-    def forward(self, x):
-        if self.training:
-            return self._forward_train(x)
+    def _trunk_eval(self, x):
+        """The inference graph up to ``conv_post``'s output [B, C, T'], every
+        MRF layer through the fused kernel."""
         x = self.conv_pre(x.transpose(1, 2))
         for i, up in enumerate(self.ups):
             x = up(F.leaky_relu(x, LRELU_SLOPE)).transpose(1, 2).contiguous()  # [B, T, C]
@@ -199,13 +204,92 @@ class HifiGANGenerator(nn.Module):
             x = (acc / self.num_kernels).transpose(1, 2)
         # the reference's final activation uses torch's DEFAULT slope 0.01
         # (generator.py:52), not the resblock slope
-        x = self.conv_post(F.leaky_relu(x, 0.01))
-        return torch.tanh(x).transpose(1, 2)
+        return self.conv_post(F.leaky_relu(x, 0.01))
+
+    def _head(self, y):
+        """``conv_post``'s output [B, 1, T'] -> waveform [B, T', 1]."""
+        return torch.tanh(y).transpose(1, 2)
+
+    def forward(self, x):
+        return self._head(self._trunk_train(x) if self.training else self._trunk_eval(x))
+
+
+@register_network("ISTFTGenerator")
+class ISTFTGenerator(HifiGANGenerator):
+    """HiFi-GAN trunk with an inverse-STFT head
+    (``msmctts_tpu/models/hifigan.py:351-419``): ``conv_post`` projects to
+    2 * (n_fft // 2 + 1) channels, read as log-magnitude (clipped to
+    [-11.5, 4]) and phase per bin, and ``ops/stft.istft_real_imag``
+    (``center=False``) turns the frames into samples at hop ``istft_hop``;
+    (n_fft - hop) // 2 samples of lead are trimmed and F * hop kept. There is
+    no tanh. The trunk's names and modes are ``HifiGANGenerator``'s: in
+    ``eval()`` every ResBlock1 layer runs through the fused kernel, in
+    ``train()`` as live weight-normalised convs under autograd.
+    [B, T, num_mels] -> [B, T * prod(upsample_rates) * istft_hop, 1]."""
+
+    def __init__(
+        self,
+        resblock_kernel_sizes: Sequence[int],
+        resblock_dilation_sizes: Sequence[Sequence[int]],
+        upsample_rates: Sequence[int],
+        upsample_initial_channel: int,
+        upsample_kernel_sizes: Sequence[int],
+        istft_hop: int = 10,
+        istft_n_fft: int = 40,
+        num_mels: int = 80,
+    ):
+        super().__init__(resblock_kernel_sizes, resblock_dilation_sizes, upsample_rates,
+                         upsample_initial_channel, upsample_kernel_sizes, num_mels)
+        self.istft_hop = int(istft_hop)
+        self.istft_n_fft = int(istft_n_fft)
+        self.n_bins = self.istft_n_fft // 2 + 1
+        c_last = upsample_initial_channel // (2 ** len(upsample_rates))
+        self.conv_post = WNConv1d(c_last, 2 * self.n_bins, 7, padding=3, hifigan_init=True)
+
+    def _head(self, spec):
+        """[B, 2 * bins, F] -> waveform [B, F * hop, 1]."""
+        logmag, phase = spec[:, : self.n_bins], spec[:, self.n_bins:]
+        mag = torch.exp(torch.clamp(logmag, -11.5, 4.0))  # bounded away from inf
+        n_fft, hop = self.istft_n_fft, self.istft_hop
+        wav = istft_real_imag(mag * torch.cos(phase), mag * torch.sin(phase), n_fft, hop, n_fft, center=False)
+        lead = (n_fft - hop) // 2
+        return wav[:, lead: lead + spec.shape[-1] * hop, None]
+
+
+@register_network("MSGenerator")
+class MSGenerator(nn.Module):
+    """Speaker-conditioned HiFi-GAN (``msmctts_tpu/models/hifigan.py:160-191``):
+    ``spk`` [B, spk_dim] is broadcast over time and concatenated to the input
+    of an inner ``HifiGANGenerator`` named ``generator``
+    (``num_mels + spk_dim`` inputs). x [B, T, num_mels] -> [B, T * prod(rates), 1]."""
+
+    def __init__(
+        self,
+        resblock_kernel_sizes: Sequence[int],
+        resblock_dilation_sizes: Sequence[Sequence[int]],
+        upsample_rates: Sequence[int],
+        upsample_initial_channel: int,
+        upsample_kernel_sizes: Sequence[int],
+        num_mels: int = 80,
+        spk_dim: int = 256,
+    ):
+        super().__init__()
+        self.generator = HifiGANGenerator(resblock_kernel_sizes, resblock_dilation_sizes, upsample_rates,
+                                          upsample_initial_channel, upsample_kernel_sizes, num_mels + spk_dim)
+
+    def forward(self, x, spk):
+        spk_t = spk[:, None, :].expand(x.shape[0], x.shape[1], spk.shape[-1]).to(x.dtype)
+        return self.generator(torch.cat([x, spk_t], dim=-1))
 
 
 def generator_upsample_ratio(decoder_config) -> int:
-    """Samples per input frame: prod(upsample_rates)."""
-    return math.prod(int(u) for u in decoder_config["upsample_rates"])
+    """Samples per input frame for a decoder_config, decoder-family aware
+    (``msmctts_tpu/models/hifigan.py:422-430``): prod(upsample_rates), times
+    ``istft_hop`` for the ISTFTGenerator head."""
+    ratio = math.prod(int(u) for u in decoder_config["upsample_rates"])
+    if decoder_config.get("_name") == "ISTFTGenerator" or "istft_hop" in decoder_config:
+        ratio *= int(decoder_config.get("istft_hop", 10))
+    return ratio
 
 
 class ReflectPad2d(nn.Module):

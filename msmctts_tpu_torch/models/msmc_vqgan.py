@@ -278,10 +278,9 @@ class MSMCVQGAN(nn.Module):
         self.decoder_config = dict(decoder_config or {})
         dec_cfg = dict(self.decoder_config)
         dec_cfg["num_mels"] = n_model_size
-        dec_name = dec_cfg.pop("_name", "HifiGANGenerator")
-        if dec_name != "HifiGANGenerator":
-            raise NotImplementedError(f"decoder '{dec_name}' is not ported (only HifiGANGenerator)")
-        self.decoder = get_network(dec_name)(**dec_cfg)
+        # the decoder family by ``decoder_config._name`` (msmc_vqgan.py:366-374):
+        # HifiGANGenerator or ISTFTGenerator
+        self.decoder = get_network(dec_cfg.pop("_name", "HifiGANGenerator"))(**dec_cfg)
         self.frame_decoder = (
             FFTBlocks(d_model=n_model_size, **dict(frame_decoder_config))
             if frame_decoder_config is not None else None

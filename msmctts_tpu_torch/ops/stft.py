@@ -1,4 +1,5 @@
-"""STFT and mel filterbanks (counterpart of ``msmctts_tpu/ops/stft.py:32-190``).
+"""STFT, its inverse and mel filterbanks (counterpart of
+``msmctts_tpu/ops/stft.py:32-270``).
 
 The STFT is a framed matrix product against a windowed DFT basis, as in the
 JAX package (which runs it as a strided convolution): frames of ``n_fft``
@@ -7,6 +8,12 @@ windowed cos and -sin rows. It is differentiable, runs in full fp32, and
 follows ``torch.stft``'s conventions: a periodic Hann window centre-padded
 to ``n_fft``, reflect padding of ``n_fft // 2`` when ``center``, and
 ``normalized`` dividing by sqrt(n_fft).
+
+The inverse (``istft_real_imag``) is one transposed convolution of the
+[B, 2 * bins, frames] spectral frames with the windowed inverse-DFT basis at
+stride ``hop_length``, divided by the window-square overlap-add normalizer,
+as the JAX package computes it (an XLA ``conv_transpose`` outside any Pallas
+kernel); here ``F.conv_transpose1d`` on both devices, in fp32.
 
 Two mel filterbanks, both from their published formulas: the librosa-style
 Slaney bank of the mel loss, and the torchaudio-style HTK matrix of the MRD
@@ -109,19 +116,51 @@ def _dft_basis(n_fft: int, win_length: int) -> np.ndarray:
     t = np.arange(n_fft)[None, :]
     k = np.arange(n_bins)[:, None]
     angle = 2.0 * np.pi * k * t / n_fft
+    basis = np.concatenate([np.cos(angle), -np.sin(angle)], axis=0)
+    return (basis * _padded_window(n_fft, win_length)[None, :]).astype(np.float32)
+
+
+def _padded_window(n_fft: int, win_length: int) -> np.ndarray:
+    """The Hann window centre-padded to ``n_fft`` (librosa / torch)."""
     window = hann_window(win_length)
-    if win_length < n_fft:  # center-pad window to n_fft (librosa/torch)
+    if win_length < n_fft:
         lpad = (n_fft - win_length) // 2
         window = np.pad(window, (lpad, n_fft - win_length - lpad))
-    basis = np.concatenate([np.cos(angle), -np.sin(angle)], axis=0)
-    return (basis * window[None, :]).astype(np.float32)
+    return window
+
+
+@functools.lru_cache(maxsize=None)
+def _idft_kernels(n_fft: int, win_length: int) -> np.ndarray:
+    """Synthesis kernels [2*(n_fft//2+1), 1, n_fft] inverting the analysis
+    basis (``msmctts_tpu/ops/stft.py:193-215``): row k of the cos block is
+    w_k / n_fft * cos(2 pi k t / n_fft) (w_k = 2 but for DC and Nyquist), the
+    sin block the matching -sin, both times the window."""
+    n_bins = n_fft // 2 + 1
+    t = np.arange(n_fft)[None, :]
+    k = np.arange(n_bins)[:, None]
+    angle = 2.0 * np.pi * k * t / n_fft
+    weights = np.full((n_bins, 1), 2.0)
+    weights[0] = 1.0
+    if n_fft % 2 == 0:
+        weights[-1] = 1.0
+    basis = np.concatenate([weights * np.cos(angle), -weights * np.sin(angle)], axis=0) / float(n_fft)
+    return (basis * _padded_window(n_fft, win_length)[None, :]).astype(np.float32)[:, None, :]
+
+
+def _window_square(n_fft: int, win_length: int) -> np.ndarray:
+    """[1, 1, n_fft]: the squared window, the overlap-add normalizer's kernel."""
+    window = _padded_window(n_fft, win_length)
+    return (window * window).astype(np.float32)[None, None, :]
 
 
 @functools.lru_cache(maxsize=None)
 def _constant(kind: str, args: tuple, device: str) -> torch.Tensor:
-    """A host-made constant (DFT basis, filterbank) as a tensor on ``device``."""
-    make = {"dft": _dft_basis, "mel": mel_filterbank}[kind]
-    return torch.from_numpy(make(*args)).to(device)
+    """A host-made constant (DFT bases, window, filterbank) as a tensor on
+    ``device``; made outside inference mode, so that a constant first made by
+    an inference call still serves a training graph."""
+    make = {"dft": _dft_basis, "idft": _idft_kernels, "wsq": _window_square, "mel": mel_filterbank}[kind]
+    with torch.inference_mode(False):
+        return torch.from_numpy(make(*args)).to(device)
 
 
 def stft_real_imag(x, n_fft: int, hop_length: int, win_length: int, center: bool = True,
@@ -139,6 +178,29 @@ def stft_real_imag(x, n_fft: int, hop_length: int, win_length: int, center: bool
         scale = 1.0 / np.sqrt(n_fft)
         real, imag = real * scale, imag * scale
     return real, imag
+
+
+def istft_real_imag(real, imag, n_fft: int, hop_length: int, win_length: int, center: bool = True,
+                    eps: float = 1e-9):
+    """Inverse of ``stft_real_imag`` (``msmctts_tpu/ops/stft.py:218-270``):
+    [B, n_fft//2+1, frames] x 2 -> [B, T], least-squares overlap-add with
+    window-square normalization; T = (frames - 1) * hop + n_fft, less
+    ``n_fft // 2`` at each end when ``center``. Differentiable.
+
+    A transposed convolution with a [in, out, k] weight is the gradient of
+    the forward convolution with that weight, which is what the JAX
+    package's ``conv_transpose(..., transpose_kernel=True)`` over an OIH
+    kernel computes: the same [2 * bins, 1, n_fft] array serves both."""
+    dev = str(real.device)
+    frames = torch.cat([real, imag], dim=1).float()
+    x = F.conv_transpose1d(frames, _constant("idft", (n_fft, win_length), dev), stride=hop_length)[:, 0]
+    ones = torch.ones((1, 1, real.shape[-1]), dtype=torch.float32, device=real.device)
+    norm = F.conv_transpose1d(ones, _constant("wsq", (n_fft, win_length), dev), stride=hop_length)[:, 0]
+    x = x / torch.clamp(norm, min=eps)
+    if center:
+        half = n_fft // 2
+        x = x[:, half: x.shape[1] - half]
+    return x
 
 
 def stft_magnitude(x, n_fft, hop_length, win_length, center=True, normalized=False, eps=1e-7):

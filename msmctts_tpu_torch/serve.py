@@ -2,7 +2,7 @@
 counterpart of the root ``serve.py``).
 
     python -m msmctts_tpu_torch.serve -m <am_checkpoint> [--port 8080 \\
-        --batch-size 8 --window-ms 15 --max-frames 1024 --device cpu]
+        --batch-size 8 --window-ms 15 --max-frames 1024 --int8 --device cpu]
 
 Endpoints
 ---------
@@ -21,7 +21,8 @@ GET  /stats        batching counters, latency percentiles, device real-time
 The engine pins one batch size, a text-bucket ladder and a per-utterance
 frame cap (``--max-frames``) and runs every reachable shape at startup,
 streaming windows included unless ``--no-warmup-streaming``
-(``serving.py``). It runs on ``cuda`` unless ``--device cpu`` is given;
+(``serving.py``). ``--int8`` serves the int8 HiFi-GAN decoder
+(``ops/int8_generator.py``), calibrated on the first batch warmup decodes. It runs on ``cuda`` unless ``--device cpu`` is given;
 without a GPU it refuses to run. It prints ``serving on http://host:port``
 with the bound port once ready, so ``--port 0`` works.
 """
@@ -49,7 +50,6 @@ from msmctts_tpu_torch.utils.checkpoint import load_checkpoint
 # the ROADMAP item that brings each
 NOT_PORTED = {
     "--artifact": "serving an exported artifact is not ported (ROADMAP A13)",
-    "--int8": "the int8 decoder is not ported (ROADMAP A14)",
     "--mesh-devices": "serving over an inference group is not ported (ROADMAP A12c); use --mesh-devices 1",
 }
 
@@ -59,6 +59,8 @@ def build_engine(args) -> BatchingEngine:
     config = Config(args.config) if args.config else Config(ckpt["config"])
     task = build_task(config, device=args.device)
     task.load_variables(ckpt["state"])
+    if args.int8:
+        task.int8_decoder = True
     if args.static_frames:
         task.static_max_frames = args.static_frames
     sr = args.sample_rate or int(config.dataset["samplerate"])
@@ -253,7 +255,8 @@ def main(argv=None):
                    help="skip streaming warmup; cold streaming requests are then refused up front")
     p.add_argument("--warmup-only", action="store_true",
                    help="run the warmup, print its seconds and exit without serving")
-    p.add_argument("--int8", action="store_true", help="not ported (ROADMAP A14)")
+    p.add_argument("--int8", action="store_true",
+                   help="int8 post-training-quantized HiFi-GAN decoder, calibrated on warmup's first batch")
     p.add_argument("--mesh-devices", type=int, default=1, metavar="N",
                    help="only 1 (ROADMAP A12c: serving over an inference group)")
     p.add_argument("--sample-rate", type=int, default=None)
@@ -267,8 +270,6 @@ def main(argv=None):
     args = p.parse_args(argv)
     if args.artifact:
         p.error(NOT_PORTED["--artifact"])
-    if args.int8:
-        p.error(NOT_PORTED["--int8"])
     if args.mesh_devices != 1:
         p.error(NOT_PORTED["--mesh-devices"])
     if not args.model:

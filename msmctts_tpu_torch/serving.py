@@ -360,7 +360,9 @@ class BatchingEngine:
         checkpoint state tree (``load_checkpoint(path)["state"]``). The swap
         happens between batches: a batch in flight finishes on the old
         weights, queued ones run on the new. The fused MRF layers' prepared
-        taps are rebuilt by ``ResBlock1.fold`` on load."""
+        taps are rebuilt by ``ResBlock1.fold`` on load; an int8 decoder is
+        dropped by the load and quantized and calibrated again on the next
+        batch (its shapes stay warm: they are the same shapes)."""
         with self._model_lock:
             self.task.load_variables(state)
 

@@ -17,6 +17,12 @@ through ``ops/resblock.fused_resblock_layer``, so on the card each window
 decode launches ``csrc/resblock.cu`` as the monolithic decode does. Every
 window of one decoder has one shape, ``[B, chunk + 2R, C]``.
 
+The int8 decoder (``ops/int8_generator.Int8Decoder``) streams the same way,
+through :meth:`from_feature_fn` with the fp32 generator's config: the int8
+graph is the generator's with every conv quantized, so it has the same R,
+and its scales are static, so its chunks equal its monolithic decode in the
+interior, as the fp32 chunks equal theirs.
+
 Cost: (chunk + 2R) / chunk of the monolithic decode's work (R = 20 frames
 for the CSMSC recipe, so chunk 64 costs about 1.6x) while the time to the
 first audio drops from decode(T) to decode(chunk + 2R).

@@ -41,8 +41,19 @@ package's ``_jit_cache``: ``("dur", Lt)``, ``("syn", Lt, F)``,
 counterpart of "this graph is compiled", and serving counts the shapes first
 run after its warmup (``serving.py``).
 
-Everything runs in fp32 on ``device`` (``cuda`` unless the caller asks for
-the CPU). No int8 decoder yet (ROADMAP A14).
+``int8_decoder`` (``infer`` / ``serve --int8``) swaps the HiFi-GAN decoder of
+``analysis_synthesis``, ``predict`` and ``predict_stream`` for the int8 one
+of ``ops/int8_generator.py``, built lazily over the autoencoder's decoder and
+calibrated on the first batch the task decodes (under the serving daemon,
+warmup's), as the JAX package's ``_int8`` is (``msmctts_tpu/tasks.py:367-387``);
+its shapes are recorded as ``("ae8", T)``, ``("syn8", Lt, F)`` and
+``("stream8", chunk, Lt, F)``. A weight load drops it. It covers the
+``HifiGANGenerator`` decoder of the mel autoencoder only, and streaming
+covers that decoder only: an ``ISTFTGenerator`` decodes monolithically, as
+in the JAX package.
+
+Everything else runs in fp32 on ``device`` (``cuda`` unless the caller asks
+for the CPU).
 """
 
 from __future__ import annotations
@@ -56,6 +67,7 @@ import torch
 from msmctts_tpu_torch.config import Config, component_kwargs
 from msmctts_tpu_torch.data.datasets import FRAME_BUCKETS, bucket_length
 from msmctts_tpu_torch.models.msmc_vqgan import MSMCVQGAN
+from msmctts_tpu_torch.ops.int8_generator import Int8Decoder
 from msmctts_tpu_torch.parallel import mesh
 from msmctts_tpu_torch.registry import get_network, get_task, register_task
 from msmctts_tpu_torch.streaming import StreamingDecoder
@@ -173,13 +185,21 @@ class MSMCTTS(BaseTask):
         # (audio past it is truncated): the serving cap.
         self.max_frames_cap: Optional[int] = None
         self.shapes: set = set()  # see the module docstring
-        self._streamers: Dict[int, StreamingDecoder] = {}
+        self._streamers: Dict[tuple, StreamingDecoder] = {}
+        # the opt-in int8 HiFi-GAN decoder (see the module docstring), its
+        # SmoothQuant strength (None disables the fold) and the site-name
+        # prefixes it keeps in float
+        self.int8_decoder: bool = False
+        self.int8_smooth_alpha: Optional[float] = 1.0
+        self.int8_float_sites: tuple = ()
+        self._int8_state: Optional[Int8Decoder] = None
 
     # -------------------------------------------------------------- mesh
     def use_mesh(self, group) -> "MSMCTTS":
         """Data-parallel inference over ``group``; batch sizes must divide
         by its size. ``None`` returns to one process."""
         self._group = group
+        self._int8_state = None
         return self
 
     def _local_rows(self, batch: dict) -> dict:
@@ -199,10 +219,13 @@ class MSMCTTS(BaseTask):
 
     # ------------------------------------------------------------ loading
     def load_variables(self, state: dict):
-        """Attach weights from a checkpoint state tree (JAX layout)."""
+        """Attach weights from a checkpoint state tree (JAX layout). The int8
+        decoder built over the previous weights is dropped: the next batch
+        quantizes and calibrates anew (``msmctts_tpu/tasks.py:312-317``)."""
         for name, module in self.networks.items():
             if name in state.get("params", {}):
                 _load_network(module, self.network_configs[name]["_name"], state, name)
+        self._int8_state = None
 
     def pre_infer(self):
         self._loaded_modules = True
@@ -219,6 +242,33 @@ class MSMCTTS(BaseTask):
             self.pre_infer()
         return self.predict(batch)
 
+    def _int8(self) -> Int8Decoder:
+        """The int8 decoder over the autoencoder's trained decoder, built at
+        first use (``msmctts_tpu/tasks.py:367-387``)."""
+        if self._int8_state is None:
+            ae = self.networks["autoencoder"]
+            if not isinstance(ae, MSMCVQGAN):
+                raise NotImplementedError("int8 PTQ is wired for the mel autoencoder path only")
+            name = ae.decoder_config.get("_name", "HifiGANGenerator")
+            if name != "HifiGANGenerator":
+                raise NotImplementedError(f"int8 PTQ kernels cover the HifiGANGenerator decoder only, not {name}")
+            if mesh.world(self._group) > 1:
+                raise NotImplementedError("the int8 decoder over an inference group is not ported (ROADMAP A12c)")
+            self._int8_state = Int8Decoder(ae.decoder, ae.decoder_config, smooth_alpha=self.int8_smooth_alpha,
+                                           float_sites=self.int8_float_sites)
+        return self._int8_state
+
+    def _decode(self, feats):
+        """Decoder input features [B, T, C] -> waveform [B, T * ratio]: the
+        autoencoder's decoder, or the int8 one, calibrated on the first batch
+        it decodes."""
+        if not self.int8_decoder:
+            return self.networks["autoencoder"].decoder(feats)[..., 0]
+        i8 = self._int8()
+        if i8.scales is None:
+            i8.calibrate(feats)
+        return i8.apply(feats)[..., 0]
+
     @torch.inference_mode()
     def analysis_synthesis(self, batch: dict) -> dict:
         """Full AE round trip: mel [B, T, n_mel] -> wav per utterance; an
@@ -229,10 +279,10 @@ class MSMCTTS(BaseTask):
         if "emb" in batch:
             return self._analysis_synthesis_emb(batch)
         T = int(batch["mel"].shape[1])
-        self.shapes.add(("ae", T))
         local = self._local_rows(batch)
-        out = ae(self._tensor(local["mel"], torch.float32), self._tensor(local["mel_length"], torch.long))
-        wav = self._gather(out["decoder_outputs"][..., 0])
+        mel, mel_length = self._tensor(local["mel"], torch.float32), self._tensor(local["mel_length"], torch.long)
+        self.shapes.add(("ae8" if self.int8_decoder else "ae", T))
+        wav = self._gather(self._decode(ae.encode_features(mel, mel_length)))
         ratio = wav.shape[1] // T
         return {
             "wav": [w[: int(l) * ratio] for w, l in zip(wav, batch["mel_length"])],
@@ -245,6 +295,8 @@ class MSMCTTS(BaseTask):
         conditioning) and ``mel`` (the global speaker encoder's reference)
         where the batch has them -> wav per utterance, trimmed to
         ``emb_length`` x the decoder's ratio (``msmctts_tpu/tasks.py:446-484``)."""
+        if self.int8_decoder:
+            raise NotImplementedError("int8 PTQ is wired for the mel autoencoder path only")
         ae = self.networks["autoencoder"]
         T = int(batch["emb"].shape[1])
         opt = tuple(k for k in ("pitch", "energy", "mel") if k in batch)
@@ -330,8 +382,8 @@ class MSMCTTS(BaseTask):
     def predict(self, batch: dict) -> dict:
         """text -> MSMCR -> waveform (msmc_tts.py:109-127)."""
         p1, out, feats = self.predict_features(batch)
-        self.shapes.add(("syn", p1["Lt"], p1["max_frames"]))
-        wav = self._gather(self.networks["autoencoder"].decoder(feats)[..., 0])
+        self.shapes.add(("syn8" if self.int8_decoder else "syn", p1["Lt"], p1["max_frames"]))
+        wav = self._gather(self._decode(feats))
         fine = self._gather(out["feat"][-1])
         total = self._totals(p1)
         ratio = wav.shape[1] // fine.shape[1]
@@ -344,14 +396,26 @@ class MSMCTTS(BaseTask):
         }
 
     def _streaming_decoder(self, chunk_frames: int) -> StreamingDecoder:
-        """The cached StreamingDecoder of the autoencoder's HiFi-GAN decoder
-        (``MSMCVQGAN`` builds no other) for one chunk size. It holds the
-        module itself, so a weight reload reaches it."""
-        sd = self._streamers.get(chunk_frames)
+        """The cached StreamingDecoder of the autoencoder's HiFi-GAN decoder,
+        fp32 or int8, for one chunk size. It reaches the decoder through the
+        module (fp32) or the task's current int8 decoder (int8), so a weight
+        reload reaches it. Only a ``HifiGANGenerator`` streams
+        (``msmctts_tpu/tasks.py:615-620``)."""
+        key = (chunk_frames, bool(self.int8_decoder))
+        sd = self._streamers.get(key)
         if sd is None:
             ae = self.networks["autoencoder"]
-            sd = StreamingDecoder.from_generator(ae.decoder, ae.decoder_config, chunk_frames)
-            self._streamers[chunk_frames] = sd
+            name = ae.decoder_config.get("_name", "HifiGANGenerator")
+            if name != "HifiGANGenerator":
+                raise NotImplementedError(
+                    f"streaming decode implements the HifiGANGenerator receptive-field contract only, not {name}; "
+                    "the ISTFT decoder is already tail-cheap: use the monolithic path"
+                )
+            if self.int8_decoder:
+                sd = StreamingDecoder.from_feature_fn(lambda f: self._int8().apply(f), ae.decoder_config, chunk_frames)
+            else:
+                sd = StreamingDecoder.from_generator(ae.decoder, ae.decoder_config, chunk_frames)
+            self._streamers[key] = sd
         return sd
 
     def predict_stream(self, batch: dict, chunk_frames: int = 64):
@@ -375,9 +439,11 @@ class MSMCTTS(BaseTask):
                 f"streaming over a {type(ae).__name__} autoencoder: the JAX package has no such path either "
                 "(its predict_stream runs the autoencoder's synthesis_features, which the SSL-embedding family lacks)"
             )
-        p1, _, feats = self.predict_features(batch)
         sd = self._streaming_decoder(chunk_frames)
-        self.shapes.add(("stream", chunk_frames, p1["Lt"], p1["max_frames"]))
+        p1, _, feats = self.predict_features(batch)
+        if self.int8_decoder and self._int8().scales is None:
+            self._int8().calibrate(feats)
+        self.shapes.add(("stream8" if self.int8_decoder else "stream", chunk_frames, p1["Lt"], p1["max_frames"]))
         total = self._totals(p1)
         wav_length = total * sd.hop
         meta = {

@@ -164,6 +164,18 @@ def hifigan_generator_from_jax(params: dict, prefix: str = "") -> StateDict:
     return out
 
 
+def ms_generator_from_jax(params: dict, prefix: str = "") -> StateDict:
+    """``MSGenerator``: a ``HifiGANGenerator`` named ``generator``."""
+    return hifigan_generator_from_jax(params["generator"], f"{_pre(prefix)}generator")
+
+
+def generator_from_jax(params: dict, prefix: str = "") -> StateDict:
+    """Any decoder family: ``ISTFTGenerator`` has the HiFi-GAN's names (its
+    ``conv_post`` 2 * bins wide), ``MSGenerator`` nests one under
+    ``generator``."""
+    return (ms_generator_from_jax if "generator" in params else hifigan_generator_from_jax)(params, prefix)
+
+
 def multi_stage_quantizer_from_jax(params: dict, codebook: dict, prefix: str = "") -> StateDict:
     pre = _pre(prefix)
     out: StateDict = {}
@@ -195,7 +207,7 @@ def msmc_vqgan_from_jax(variables: dict, prefix: str = "") -> StateDict:
             params["quantizer"], variables["codebook"]["quantizer"], f"{pre}quantizer"
         )
     )
-    out.update(hifigan_generator_from_jax(params["decoder"], f"{pre}decoder"))
+    out.update(generator_from_jax(params["decoder"], f"{pre}decoder"))
     if "frame_decoder" in params:
         out.update(fft_blocks_from_jax(params["frame_decoder"], f"{pre}frame_decoder"))
     if "mel_predictor" in params:
@@ -397,7 +409,7 @@ def emb_autoencoder_from_jax(variables: dict, prefix: str = "") -> StateDict:
         out[f"{pre}quantizer.embed"] = _np(codebook["quantizer"]["embed"])
     if "global_encoder" in params:
         out.update(ecapa_tdnn_from_jax(params["global_encoder"], stats.get("global_encoder"), f"{pre}global_encoder"))
-    out.update(hifigan_generator_from_jax(params["decoder"], f"{pre}decoder"))
+    out.update(generator_from_jax(params["decoder"], f"{pre}decoder"))
     if "frame_decoder" in params:
         out.update(fft_blocks_from_jax(params["frame_decoder"], f"{pre}frame_decoder"))
     if "mel_predictor" in params:
@@ -523,6 +535,16 @@ def hifigan_generator_to_jax(sd: StateDict, prefix: str = "") -> dict:
     return params
 
 
+def ms_generator_to_jax(sd: StateDict, prefix: str = "") -> dict:
+    return {"generator": hifigan_generator_to_jax(_sub(sd, prefix), "generator")}
+
+
+def generator_to_jax(sd: StateDict, prefix: str = "") -> dict:
+    """Any decoder family (see ``generator_from_jax``)."""
+    nested = any(k.startswith("generator.") for k in _sub(sd, prefix))
+    return (ms_generator_to_jax if nested else hifigan_generator_to_jax)(sd, prefix)
+
+
 def multi_stage_quantizer_to_jax(sd: StateDict, prefix: str = ""):
     """-> (params, codebook) trees of the JAX MultiStageQuantizer."""
     s = _sub(sd, prefix)
@@ -546,7 +568,7 @@ def msmc_vqgan_to_jax(sd: StateDict, prefix: str = "") -> dict:
     params = {
         "in_linear": dense_to_jax(s, "in_linear"),
         "quantizer": q_params,
-        "decoder": hifigan_generator_to_jax(s, "decoder"),
+        "decoder": generator_to_jax(s, "decoder"),
         "encoder": {
             f"encoder_{i}": fft_blocks_to_jax(s, f"encoder.encoders.{i}")
             for i in _layer_indices(s, r"encoder\.encoders\.(\d+)\.")

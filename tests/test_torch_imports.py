@@ -58,6 +58,7 @@ def test_scan_covers_the_training_slice():
         "msmctts_tpu_torch/serving.py", "msmctts_tpu_torch/serve.py", "msmctts_tpu_torch/infer.py",
         "msmctts_tpu_torch/utils/plot.py", "msmctts_tpu_torch/models/tdnn.py",
         "msmctts_tpu_torch/models/msmc_vqgan_emb.py", "msmctts_tpu_torch/training/emb_vqgan_trainer.py",
+        "msmctts_tpu_torch/ops/int8_generator.py",
     ):
         assert rel in scanned, rel
 

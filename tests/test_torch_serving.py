@@ -625,8 +625,8 @@ def test_serve_cli_warmup_only_on_cpu(tiny_pair, capsys):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--int8"], "A14"), (["--artifact", "x"], "A13"), (["--mesh-devices", "2"], "A12c"),
-], ids=["int8", "artifact", "mesh-devices"])
+    (["--artifact", "x"], "A13"), (["--mesh-devices", "2"], "A12c"),
+], ids=["artifact", "mesh-devices"])
 def test_serve_cli_refuses_what_is_not_ported(tiny_pair, capsys, flag, item):
     with pytest.raises(SystemExit) as e:
         t_serve.main(["-m", tiny_pair["am"], "--device", "cpu", *flag])
@@ -741,8 +741,8 @@ def test_infer_cli_acoustic_model_mode_matches_jax(tiny_pair, tmp_path, with_dur
                                           np.asarray(lists[name]["dur"].split(), np.float32))
 
 
-@pytest.mark.parametrize("flag,item", [(["--debug"], "A7"), (["--int8"], "A14"), (["--mesh-devices", "4"], "A12c")],
-                         ids=["debug", "int8", "mesh-devices"])
+@pytest.mark.parametrize("flag,item", [(["--debug"], "A7"), (["--mesh-devices", "4"], "A12c")],
+                         ids=["debug", "mesh-devices"])
 def test_infer_cli_refuses_what_is_not_ported(tiny_pair, tmp_path, capsys, flag, item):
     with pytest.raises(SystemExit) as e:
         t_infer.main(["-m", tiny_pair["am"], "-t", str(tmp_path / "t.yaml"), "--device", "cpu", *flag])
