@@ -163,7 +163,11 @@ class HifiGANGenerator(nn.Module):
         upsample_initial_channel: int,
         upsample_kernel_sizes: Sequence[int],
         num_mels: int = 80,
+        *,
+        post_channels: int = 1,
     ):
+        """``post_channels``: ``conv_post``'s outputs, which ``_head`` reads
+        (1 here, the spectral bins of ``ISTFTGenerator``)."""
         super().__init__()
         self.num_kernels = len(resblock_kernel_sizes)
         c0 = upsample_initial_channel
@@ -176,7 +180,7 @@ class HifiGANGenerator(nn.Module):
                 blocks.append(ResBlock1(ch, rk, tuple(rd)))
         self.ups = nn.ModuleList(ups)
         self.resblocks = nn.ModuleList(blocks)
-        self.conv_post = WNConv1d(c0 // (2 ** len(ups)), 1, 7, padding=3, hifigan_init=True)
+        self.conv_post = WNConv1d(c0 // (2 ** len(ups)), post_channels, 7, padding=3, hifigan_init=True)
 
     def _trunk_train(self, x):
         """The differentiable graph up to ``conv_post``'s output [B, C, T'],
@@ -238,13 +242,12 @@ class ISTFTGenerator(HifiGANGenerator):
         istft_n_fft: int = 40,
         num_mels: int = 80,
     ):
+        n_bins = int(istft_n_fft) // 2 + 1
         super().__init__(resblock_kernel_sizes, resblock_dilation_sizes, upsample_rates,
-                         upsample_initial_channel, upsample_kernel_sizes, num_mels)
+                         upsample_initial_channel, upsample_kernel_sizes, num_mels, post_channels=2 * n_bins)
         self.istft_hop = int(istft_hop)
         self.istft_n_fft = int(istft_n_fft)
-        self.n_bins = self.istft_n_fft // 2 + 1
-        c_last = upsample_initial_channel // (2 ** len(upsample_rates))
-        self.conv_post = WNConv1d(c_last, 2 * self.n_bins, 7, padding=3, hifigan_init=True)
+        self.n_bins = n_bins
 
     def _head(self, spec):
         """[B, 2 * bins, F] -> waveform [B, F * hop, 1]."""

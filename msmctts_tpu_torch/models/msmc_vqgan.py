@@ -12,6 +12,7 @@ every shipped recipe); the learned modes and ``norm: True`` raise.
 
 from __future__ import annotations
 
+import math
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -151,6 +152,18 @@ class MultiStageQuantizer(nn.Module):
         self.predictor = nn.ModuleDict(
             {str(i): PriorPredictor(M, dims[i], **dict(prior_config or {})) for i in range(1, n_stage)}
         )
+
+    def padding_reach_frames(self) -> int:
+        """Fine frames past a sequence's end that reach its valid frames
+        through the residual chain: each prior predictor's ResStack
+        convolves the residual with its padded frames unmasked, as the JAX
+        package's does, over its radius at its stage's rate (one more frame
+        for a partly valid coarse frame)."""
+        reach = 0
+        for i, pred in self.predictor.items():
+            radius = sum(conv.padding for conv in pred.enc.in_layers)
+            reach = max(reach, (radius + 1) * math.prod(self.upsample_scales[int(i):]))
+        return reach
 
     def set_group(self, group):
         """Train data-parallel over ``group`` (``parallel/mesh.py``): every

@@ -353,15 +353,13 @@ def qparams_to(qparams: dict, device) -> dict:
 def int8_generator_apply(qparams, x, decoder_config, act_scales=None, dtype=torch.float32, _observe=None):
     """The quantized twin of ``HifiGANGenerator`` (``int8_generator.py:290-345``):
     x [B, T, num_mels] -> [B, T * prod(upsample_rates), 1] in ``dtype``.
-    ``qparams`` from ``quantize_generator_params`` (numpy leaves are moved to
-    x's device at every call: ``Int8Decoder`` keeps a device copy);
-    ``act_scales`` (site -> float) switches from dynamic to static activation
-    scales. Between the convs the activations are held in ``dtype``: fp32
+    ``qparams`` is ``quantize_generator_params``'s tree with tensor leaves
+    on x's device (``qparams_to``; ``Int8Decoder`` keeps such a copy);
+    ``act_scales`` (site -> float or ``static_scale`` pair) switches from
+    dynamic to static activation scales. Between the convs the activations are held in ``dtype``: fp32
     when serving; calibration observes through the bf16 graph, as the JAX
     package's does (its ``_observe_act_amax`` runs this function at its
     default dtype, bf16)."""
-    if any(not torch.is_tensor(v) for v in _leaves(qparams)):
-        qparams = qparams_to(qparams, x.device)
     rates = list(decoder_config["upsample_rates"])
     uks = list(decoder_config["upsample_kernel_sizes"])
     rks = list(decoder_config["resblock_kernel_sizes"])
@@ -387,14 +385,6 @@ def int8_generator_apply(qparams, x, decoder_config, act_scales=None, dtype=torc
     x = _lrelu(x, 0.01)
     node = qparams["conv_post"]
     return torch.tanh(_conv1d(x.float(), node["w"], node["bias"], padding=3)).to(dtype)
-
-
-def _leaves(tree):
-    for v in tree.values():
-        if isinstance(v, dict):
-            yield from _leaves(v)
-        elif v is not None:
-            yield v
 
 
 class Int8Decoder:
@@ -442,7 +432,7 @@ class Int8Decoder:
             self.qparams = _quantize_folded(self._folded, self.decoder_config, smooth, float_sites=self.float_sites)
             # post-fold per-tensor amax is exactly max_c(a_c / s_c)
             amax = {site: a / smooth[site] if site in smooth else a for site, a in amax.items()}
-        self.scales = {site: max(float(np.max(a)) * self.headroom, 1e-8) / 127.0 for site, a in amax.items()}
+        self.scales = _scales_from_amax(amax, self.headroom)
         self._device = {k: v for k, v in self._device.items() if k[0] == "_qparams_base"}
 
     def apply(self, feats):
@@ -469,8 +459,14 @@ def _observe_act_amax(qparams, batches, decoder_config) -> dict:
     return merged
 
 
+def _scales_from_amax(amax: dict, headroom: float) -> dict:
+    """Static per-tensor scales (python floats): each site's largest |x|,
+    times ``headroom``, over 127."""
+    return {site: max(float(np.max(a)) * headroom, 1e-8) / 127.0 for site, a in amax.items()}
+
+
 def calibrate_act_scales(qparams, batches, decoder_config, headroom: float = 1.0) -> dict:
     """Static per-site per-tensor scales: the max over batches of each
-    site's amax, times ``headroom``, over 127."""
-    merged = _observe_act_amax(qparams, batches, decoder_config)
-    return {site: max(float(np.max(a)) * headroom, 1e-8) / 127.0 for site, a in merged.items()}
+    site's amax, times ``headroom``, over 127 (``qparams`` on the batches'
+    device)."""
+    return _scales_from_amax(_observe_act_amax(qparams, batches, decoder_config), headroom)

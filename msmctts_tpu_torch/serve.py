@@ -18,8 +18,8 @@ GET  /healthz      {"status": "ok"} once warmup has finished, 503 before.
 GET  /stats        batching counters, latency percentiles, device real-time
                    factor, ``cold_shapes`` and ``kernel_builds``.
 
-The engine pins one batch size, a text-bucket ladder and a per-utterance
-frame cap (``--max-frames``) and runs every reachable shape at startup,
+The engine pins one batch size, one padded text length (256 phones) and a
+per-utterance frame cap (``--max-frames``) and runs every reachable shape at startup,
 streaming windows included unless ``--no-warmup-streaming``
 (``serving.py``). ``--int8`` serves the int8 HiFi-GAN decoder
 (``ops/int8_generator.py``), calibrated on the first batch warmup decodes. It runs on ``cuda`` unless ``--device cpu`` is given;
@@ -247,7 +247,7 @@ def main(argv=None):
                    help="one fixed frame bucket: nothing read back before the waveform")
     p.add_argument("--max-frames", type=int, default=1024,
                    help="serving cap on total frames per utterance (dynamic mode; bounds warmup "
-                        "to the reachable text x frame bucket product; 1024 = 12.8 s at 24 kHz/300)")
+                        "to the reachable frame buckets; 1024 = 12.8 s at 24 kHz/300)")
     p.add_argument("--warmup-streaming", action="store_true",
                    help="force streaming warmup (error if the decoder cannot stream); by default "
                         "streaming is warmed whenever the task can stream")
@@ -266,7 +266,8 @@ def main(argv=None):
     p.add_argument("--request-timeout", type=float, default=120.0)
     p.add_argument("--no-warmup", action="store_true", help="skip the startup warmup (first requests run cold)")
     p.add_argument("--warmup-lengths", type=int, nargs="*", default=None,
-                   help="text lengths to warm (default: the full ladder)")
+                   help="text lengths to warm (default: the engine's one padded text length; a longer "
+                        "length warms its multiple of it)")
     args = p.parse_args(argv)
     if args.artifact:
         p.error(NOT_PORTED["--artifact"])
@@ -286,7 +287,8 @@ def main(argv=None):
         engine = build_engine(args)
         secs = engine.warmup(args.warmup_lengths, include_streaming=include_streaming)
         print(json.dumps({"warmup_s": round(secs, 3), "streaming_warmed": engine._streaming_warm,
-                          "shapes": len(engine._warm_shapes), "device": str(engine.task.device)}), flush=True)
+                          "shapes": len(engine._warm_shapes), "device": str(engine.task.device),
+                          "frame_margin": engine.task.frame_margin}), flush=True)
         return 0
 
     engine = build_engine(args)
@@ -309,7 +311,7 @@ def main(argv=None):
         if warmup is not None:
             print(f"warmup: ran {len(engine._warm_shapes)} serving shapes in {engine.warmup_s:.3f}s on "
                   f"{engine.task.device} (streaming={'warm' if engine._streaming_warm else 'off'}, "
-                  f"kernel builds {build_count()})", flush=True)
+                  f"frame margin {engine.task.frame_margin}, kernel builds {build_count()})", flush=True)
         ready.set()
         print(f"serving on http://{args.host}:{server.server_port}", flush=True)
 

@@ -3,12 +3,12 @@ counterpart of ``msmctts_tpu/serving.py``).
 
 Serving from the card adds two constraints the offline path does not have:
 
-- every distinct (batch, text bucket, frame bucket) shape is new work for
+- every distinct (batch, text length, frame bucket) shape is new work for
   the card the first time it runs (cuDNN's choice of algorithms, allocator
   growth, the streaming window's shapes), so the engine pins ONE batch
-  size, a small ladder of text buckets and a frame cap (``max_frames``,
-  which clamps every utterance's frame total and so makes the reachable
-  (text bucket x frame bucket) set finite), and runs all of it once at
+  size, ONE text length and a frame cap (``max_frames``, which clamps
+  every utterance's frame total and so makes the reachable frame buckets
+  finite), and runs all of it once at
   startup (``warmup``), streaming windows included by default. A deploy
   that opts out of streaming warmup gets cold streaming requests refused up
   front rather than run inside the worker;
@@ -18,9 +18,25 @@ Serving from the card adds two constraints the offline path does not have:
   gather window), not from one call per request.
 
 ``BatchingEngine`` owns the device: one worker thread drains a queue, pads
-requests into the fixed shapes (text to the bucket ladder, the batch by
-repeating the last row), runs ``MSMCTTS.predict`` (or ``predict_stream``)
-once, and hands each request its trimmed waveform. Callers block on
+requests into the fixed shapes (text to the engine's text length, the
+batch by repeating the last row), runs ``MSMCTTS.predict`` (or
+``predict_stream``) once, and hands each request its trimmed waveform.
+
+A request decodes the same whichever requests share its batch, which the
+JAX package's engine does not promise:
+
+- every batch pads its text to the one text length (a longer request to
+  its multiple of it, in a batch of such requests only), where the JAX
+  package pads to the bucket of the batch's longest request: the text
+  encoder's rounding moves with the padded length, and a nearest-codeword
+  snap can turn that into another codeword, whose change the frame
+  decoder's attention spreads over the utterance;
+- the engine sets the task's ``frame_margin`` to ``padding_reach_frames()``,
+  so that the frame bucket keeps after every utterance the padded frames
+  that reach its audio; with the JAX package's bucket choice a longer
+  batch-mate decides whether there are any.
+
+Callers block on
 ``synthesize`` or iterate ``synthesize_stream`` from any number of threads.
 ``serve.py`` wraps this in an HTTP front end.
 
@@ -118,6 +134,14 @@ class _Request:
         self.chunk_q: Optional[queue.Queue] = queue.Queue() if stream else None
 
 
+def _fail(req: _Request, error: BaseException) -> None:
+    """Deliver ``error`` to a waiting request (and its stream)."""
+    req.error = error
+    if req.stream:
+        req.chunk_q.put(error)
+    req.done.set()
+
+
 class BatchingEngine:
     """Dynamic-batching front end over ``MSMCTTS.predict``.
 
@@ -129,10 +153,12 @@ class BatchingEngine:
         repeating the last request's row; larger gathers are split.
     window_ms: how long the worker waits for followers after the first
         request of a batch arrives. 0 disables coalescing (latency mode).
-    text_buckets: ladder of padded text lengths.
+    text_length: the ONE padded text length (phones). A longer request is
+        padded to its multiple of it and rides only with requests padded
+        alike.
     max_frames: serving cap on each utterance's frame total (audio past it
         is truncated). In dynamic-bucket mode it bounds the reachable frame
-        buckets, so ``warmup`` can run the whole (text x frame) product.
+        buckets, so ``warmup`` can run them all.
         Clamped to the ``FRAME_BUCKETS`` ladder's top.
     max_queue: backpressure bound; ``synthesize`` raises when it is full.
     stream_chunk_frames: decoder frames per streamed chunk.
@@ -144,7 +170,7 @@ class BatchingEngine:
         sample_rate: int,
         batch_size: int = 8,
         window_ms: float = 15.0,
-        text_buckets: Sequence[int] = TEXT_BUCKETS,
+        text_length: int = TEXT_BUCKETS[-1],
         max_frames: int = FRAME_BUCKETS[-1],
         max_queue: int = 256,
         stream_chunk_frames: int = 64,
@@ -154,13 +180,18 @@ class BatchingEngine:
         self.max_frames = min(int(max_frames), FRAME_BUCKETS[-1])
         if hasattr(task, "max_frames_cap"):
             task.max_frames_cap = self.max_frames
+        if hasattr(task, "frame_margin"):
+            # a request decodes the same whichever requests share its batch:
+            # the frame bucket keeps every padded frame that reaches its audio
+            task.frame_margin = task.padding_reach_frames()
         self.task = task
         self.sample_rate = int(sample_rate)
         self.batch_size = int(batch_size)
         self.window_ms = float(window_ms)
         self.stream_chunk_frames = int(stream_chunk_frames)
-        self.text_buckets = tuple(sorted(text_buckets))
+        self.text_length = int(text_length)
         self._queue: "queue.Queue[Optional[_Request]]" = queue.Queue(maxsize=max_queue)
+        self._held: List[_Request] = []  # taken from the queue for a later batch (worker thread only)
         self._lock = threading.Lock()
         # Serializes batches against weight swaps (``reload``).
         self._model_lock = threading.Lock()
@@ -224,17 +255,15 @@ class BatchingEngine:
         self._fail_queued()
 
     def _fail_queued(self) -> None:
-        """Fail every request still waiting ("engine stopped")."""
+        """Fail every request still in the queue ("engine stopped"); the
+        worker fails those it holds back when it exits."""
         while True:
             try:
                 req = self._queue.get_nowait()
             except queue.Empty:
                 return
             if req is not None:
-                req.error = RuntimeError("engine stopped")
-                if req.stream:
-                    req.chunk_q.put(req.error)
-                req.done.set()
+                _fail(req, RuntimeError("engine stopped"))
 
     def cold_shapes(self) -> int:
         """Shapes the task first ran after ``warmup()`` ended (all of them
@@ -259,16 +288,18 @@ class BatchingEngine:
     ) -> float:
         """Run every shape a request can reach, once.
 
-        Per text bucket: one predicted-duration pass (the ``("dur", Lt)``
-        shape plus whatever frame bucket the random warmup text lands in),
-        then, in dynamic-bucket mode, one forced-duration pass per reachable
-        frame bucket, which drives the exact ``("syn", Lt, F)`` shape the
-        live two-phase path uses. The ``max_frames`` cap is what makes that
-        product finite; in static-frames mode there is one frame bucket per
-        text bucket, which the first pass already covers.
+        Per padded text length (the engine's, and the multiples of it that
+        ``text_lengths`` reach past it): one predicted-duration pass (the
+        ``("dur", Lt)`` shape plus whatever frame bucket the random warmup
+        text lands in), then, in dynamic-bucket mode, one forced-duration
+        pass per reachable frame bucket, which drives the exact
+        ``("syn", Lt, F)`` shape the live two-phase path uses. The
+        ``max_frames`` cap is what makes that product finite; in
+        static-frames mode there is one frame bucket per text length, which
+        the first pass already covers.
 
         ``include_streaming`` also drains one ``predict_stream`` per (text
-        bucket, frame bucket), warming the window decode. ``None`` (the
+        length, frame bucket), warming the window decode. ``None`` (the
         default) warms streaming whenever the task can stream, because any
         client can ask for it; ``False`` opts out, and cold streaming
         requests are then refused up front.
@@ -281,7 +312,7 @@ class BatchingEngine:
         stream = include_streaming
         if stream is None:
             stream = hasattr(self.task, "predict_stream")
-        lengths = sorted({bucket_length(l, self.text_buckets) for l in (text_lengths or self.text_buckets)})
+        lengths = sorted({self._text_length(l) for l in (text_lengths or [self.text_length])})
         frame_buckets = self._reachable_frame_buckets()
         t0 = time.time()
         with self._model_lock:
@@ -294,7 +325,9 @@ class BatchingEngine:
                 if stream and hasattr(self.task, "predict_stream") and not frame_buckets:
                     stream = self._try_drain_stream(batch, include_streaming)
                 for F in frame_buckets:
-                    forced = dict(batch, dur=self._forced_durations(L, F))
+                    # the total whose bucket, past the task's margin, is F
+                    total = max(F - getattr(self.task, "frame_margin", 0), 1)
+                    forced = dict(batch, dur=self._forced_durations(L, total))
                     self.task.infer_step(forced)
                     if stream and hasattr(self.task, "predict_stream"):
                         stream = self._try_drain_stream(forced, include_streaming)
@@ -443,13 +476,25 @@ class BatchingEngine:
         n_symbols = self.task.networks["predictor"].n_symbols
         return len(n_symbols) if isinstance(n_symbols, (list, tuple)) else 1
 
+    def _text_length(self, n: int) -> int:
+        """The padded text length of an n-phone request: the engine's text
+        length, or past it its multiple of it."""
+        return bucket_length(n, (self.text_length,))
+
     def _gather(self) -> Optional[List[_Request]]:
-        """Block for the first request, then coalesce followers for up to
-        ``window_ms`` or until ``batch_size`` is reached."""
-        first = self._queue.get()
+        """The next batch: the oldest waiting request, then followers of its
+        padded text length, for up to ``window_ms`` or until ``batch_size``
+        is reached. A request padded otherwise (longer than the engine's
+        text length) waits, in arrival order, for a later batch."""
+        first = self._held.pop(0) if self._held else self._queue.get()
         if first is None:
             return None
+        Lt, held = self._text_length(first.text.shape[0]), []
         reqs = [first]
+        for r in self._held:
+            joins = len(reqs) < self.batch_size and self._text_length(r.text.shape[0]) == Lt
+            (reqs if joins else held).append(r)
+        self._held = held
         deadline = time.time() + self.window_ms / 1000.0
         while len(reqs) < self.batch_size:
             remaining = deadline - time.time()
@@ -462,23 +507,27 @@ class BatchingEngine:
             if nxt is None:
                 self._queue.put(None)  # re-post the stop sentinel
                 break
-            reqs.append(nxt)
+            (reqs if self._text_length(nxt.text.shape[0]) == Lt else self._held).append(nxt)
         return reqs
 
-    def _run_batch(self, reqs: List[_Request]) -> None:
-        n_streams = self._n_streams()
-        lengths = [r.text.shape[0] for r in reqs]
-        Lt = bucket_length(max(lengths), self.text_buckets)
+    def batch_of(self, texts: List[np.ndarray]) -> dict:
+        """The task batch of these phone arrays ([L, n_streams] each): text
+        padded to the engine's text length, the batch to ``batch_size`` by
+        repeating the last real row, which keeps the one (B, Lt) shape for
+        any arrival count."""
+        lengths = [t.shape[0] for t in texts]
+        Lt = self._text_length(max(lengths))
         B = self.batch_size
-        text = np.zeros((B, Lt, n_streams), np.int32)
-        for i, r in enumerate(reqs):
-            text[i, : r.text.shape[0]] = r.text
-        # pad the batch by repeating the last real row: keeps the one
-        # (B, Lt) shape for any arrival count
-        for i in range(len(reqs), B):
-            text[i] = text[len(reqs) - 1]
-        text_length = np.asarray(lengths + [lengths[-1]] * (B - len(reqs)), np.int32)
-        batch = {"text": text, "text_length": text_length}
+        text = np.zeros((B, Lt, self._n_streams()), np.int32)
+        for i, t in enumerate(texts):
+            text[i, : t.shape[0]] = t
+        for i in range(len(texts), B):
+            text[i] = text[len(texts) - 1]
+        text_length = np.asarray(lengths + [lengths[-1]] * (B - len(texts)), np.int32)
+        return {"text": text, "text_length": text_length}
+
+    def _run_batch(self, reqs: List[_Request]) -> None:
+        batch = self.batch_of([r.text for r in reqs])
         t0 = time.time()
         if any(r.stream for r in reqs):
             audio = self._run_streaming(reqs, batch)
@@ -532,18 +581,20 @@ class BatchingEngine:
         return audio
 
     def _worker(self) -> None:
-        while not self._stopping:
-            reqs = self._gather()
-            if reqs is None:
-                return
-            try:
-                with self._model_lock:
-                    self._run_batch(reqs)
-            except Exception as e:  # deliver, don't kill the worker
-                with self._lock:
-                    self.stats.errors += len(reqs)
-                for r in reqs:
-                    r.error = e
-                    if r.stream:
-                        r.chunk_q.put(e)
-                    r.done.set()
+        try:
+            while not self._stopping:
+                reqs = self._gather()
+                if reqs is None:
+                    return
+                try:
+                    with self._model_lock:
+                        self._run_batch(reqs)
+                except Exception as e:  # deliver, don't kill the worker
+                    with self._lock:
+                        self.stats.errors += len(reqs)
+                    for r in reqs:
+                        _fail(r, e)
+        finally:
+            held, self._held = self._held, []
+            for r in held:
+                _fail(r, RuntimeError("engine stopped"))

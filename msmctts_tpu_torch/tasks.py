@@ -66,7 +66,8 @@ import torch
 
 from msmctts_tpu_torch.config import Config, component_kwargs
 from msmctts_tpu_torch.data.datasets import FRAME_BUCKETS, bucket_length
-from msmctts_tpu_torch.models.msmc_vqgan import MSMCVQGAN
+from msmctts_tpu_torch.models.hifigan import receptive_field_frames
+from msmctts_tpu_torch.models.msmc_vqgan import MSMCVQGAN, MultiStageQuantizer
 from msmctts_tpu_torch.ops.int8_generator import Int8Decoder
 from msmctts_tpu_torch.parallel import mesh
 from msmctts_tpu_torch.registry import get_network, get_task, register_task
@@ -184,6 +185,11 @@ class MSMCTTS(BaseTask):
         # When set (frames), every utterance's frame total is clamped to it
         # (audio past it is truncated): the serving cap.
         self.max_frames_cap: Optional[int] = None
+        # Frames of padding the frame bucket keeps after the longest
+        # utterance (up to the cap's bucket). Serving sets it to
+        # padding_reach_frames(), so that a request decodes the same in any
+        # batch; 0, the JAX package's bucket choice, otherwise.
+        self.frame_margin: int = 0
         self.shapes: set = set()  # see the module docstring
         self._streamers: Dict[tuple, StreamingDecoder] = {}
         # the opt-in int8 HiFi-GAN decoder (see the module docstring), its
@@ -241,6 +247,31 @@ class MSMCTTS(BaseTask):
         if not self._loaded_modules:
             self.pre_infer()
         return self.predict(batch)
+
+    def padding_reach_frames(self) -> int:
+        """How many frames of the padding after an utterance reach its
+        waveform, which the frame bucket otherwise decides: the decoder's
+        activations over padded frames are not the zeros its convs pad with
+        at the end of the bucket (its receptive field, plus the iSTFT window
+        of an ``ISTFTGenerator``), and each prior predictor of the
+        autoencoder's residual chain convolves the padded residual, as the
+        JAX package's does (``MultiStageQuantizer.padding_reach_frames``).
+        An utterance followed by at least this many padded frames decodes
+        the same in any larger bucket. Loads the frozen autoencoder, as the
+        first ``infer_step`` would."""
+        if self.training_mode != "train_autoencoder" and not self._loaded_modules:
+            self.pre_infer()
+        ae = self.networks.get("autoencoder")
+        if ae is None:
+            return 0
+        cfg = ae.decoder_config
+        reach = receptive_field_frames(cfg)
+        if cfg.get("_name") == "ISTFTGenerator":
+            spec_frames = math.prod(int(u) for u in cfg["upsample_rates"])
+            reach += -(-int(cfg.get("istft_n_fft", 40)) // (int(cfg.get("istft_hop", 10)) * spec_frames))
+        if isinstance(getattr(ae, "quantizer", None), MultiStageQuantizer):
+            reach = max(reach, ae.quantizer.padding_reach_frames())
+        return reach
 
     def _int8(self) -> Int8Decoder:
         """The int8 decoder over the autoencoder's trained decoder, built at
@@ -350,8 +381,12 @@ class MSMCTTS(BaseTask):
                     total = np.minimum(total, cap)
         if total is not None and mesh.world(self._group) > 1:  # one bucket for the whole batch
             total = self._gather(torch.as_tensor(total, device=self.device))
-        longest = int(self.static_max_frames) if total is None else int(total.max())
-        max_frames = bucket_length(max(longest, lcm), FRAME_BUCKETS)
+        if total is None:
+            max_frames = bucket_length(max(int(self.static_max_frames), lcm), FRAME_BUCKETS)
+        else:
+            max_frames = bucket_length(max(int(total.max()) + self.frame_margin, lcm), FRAME_BUCKETS)
+            if cap:  # the margin never opens a bucket past the cap's
+                max_frames = min(max_frames, bucket_length(max(cap, lcm), FRAME_BUCKETS))
         return dict(text=text, text_length=text_length, Lt=Lt, durations=durations, total=total,
                     total_dev=total_dev, max_frames=max_frames)
 

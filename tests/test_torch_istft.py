@@ -534,7 +534,7 @@ def test_an_istft_model_serves_through_the_monolithic_path(istft_pair):
     shapes and streaming requests are refused up front."""
     _, task = _tasks(istft_pair["am"])
     task.pre_infer()
-    engine = BatchingEngine(task, sample_rate=1600, batch_size=2, text_buckets=(16,), max_frames=64)
+    engine = BatchingEngine(task, sample_rate=1600, batch_size=2, text_length=16, max_frames=64)
     engine.start(warmup={"text_lengths": [8]})
     try:
         assert engine._warmed and not engine._streaming_warm

@@ -68,7 +68,7 @@ def port_task(tiny_pair):
 def _engine(task, **kw):
     kw.setdefault("sample_rate", SR)
     kw.setdefault("batch_size", 4)
-    kw.setdefault("text_buckets", (16, 32))
+    kw.setdefault("text_length", 32)
     return BatchingEngine(task, **kw)
 
 
@@ -235,6 +235,45 @@ def test_concurrent_requests_coalesce_and_match_solo(port_task):
         port_task.max_frames_cap = None
 
 
+def test_a_batch_holds_requests_of_one_text_length(port_task):
+    """Every batch pads its text to the engine's one length (32): requests
+    of 4, 2 and 20 phones share a batch. Longer ones (40 and 36 phones, 64
+    padded) ride a batch of their own after them, and each request equals
+    the same request alone: a request's text shape is its own."""
+    long_texts = [" ".join(f"{i % 19 + 1}_{i % 5}" for i in range(n)) for n in (40, 20, 36)]
+    texts = [TEXTS[0], long_texts[0], TEXTS[1], long_texts[1], long_texts[2]]
+    eng = _engine(port_task, window_ms=0.0).start()
+    try:
+        solo = [eng.synthesize(t, timeout=120) for t in texts]
+    finally:
+        eng.stop()
+    eng = _engine(port_task, window_ms=500.0).start()
+    ran = []
+    run_batch = eng._run_batch
+    eng._run_batch = lambda reqs: (ran.append([r.text.shape[0] for r in reqs]), run_batch(reqs))
+    try:
+        results = [None] * len(texts)
+
+        def run(i):
+            results[i] = eng.synthesize(texts[i], timeout=120)
+
+        threads = []
+        for i in range(len(texts)):
+            threads.append(threading.Thread(target=run, args=(i,)))
+            threads[-1].start()
+            time.sleep(0.02)  # arrival order: 4, 40, 2, 20, 36 phones
+        for t in threads:
+            t.join(120)
+        assert not any(t.is_alive() for t in threads)
+        assert ran == [[4, 2, 20], [40, 36]]
+        assert ("dur", 32) in port_task.shapes and ("dur", 64) in port_task.shapes
+        for got, want in zip(results, solo):
+            np.testing.assert_allclose(got, want, atol=SOLO_TOL, rtol=0)
+    finally:
+        eng.stop()
+        port_task.max_frames_cap = None
+
+
 def test_warmup_leaves_no_cold_shape(tiny_pair):
     """After ``warmup()`` no request, whatever frame bucket it lands in, runs
     a shape the warmup did not: ``cold_shapes`` stays 0 over a sweep of
@@ -245,7 +284,7 @@ def test_warmup_leaves_no_cold_shape(tiny_pair):
         assert eng.cold_shapes() == 0 and not task.shapes
         secs = eng.warmup()
         assert secs > 0 and eng._streaming_warm
-        for Lt in (16, 32):
+        for Lt in (32,):
             assert ("dur", Lt) in task.shapes
             for F in eng._reachable_frame_buckets():
                 assert ("syn", Lt, F) in task.shapes and ("stream", 8, Lt, F) in task.shapes
@@ -528,7 +567,7 @@ def test_run_streaming_chunk_plumbing():
 
     from msmctts_tpu_torch.serving import _Request
 
-    eng = BatchingEngine(FakeTask(), sample_rate=SR, batch_size=4, text_buckets=(8,), stream_chunk_frames=5)
+    eng = BatchingEngine(FakeTask(), sample_rate=SR, batch_size=4, text_length=8, stream_chunk_frames=5)
     r_stream, r_block = _Request(np.zeros((3, 2), np.int32), stream=True), _Request(np.zeros((3, 2), np.int32))
     audio = eng._run_streaming([r_stream, r_block], batch={})
     pieces = []
@@ -621,7 +660,16 @@ def test_serve_cli_warmup_only_on_cpu(tiny_pair, capsys):
                        "--max-frames", "64", "--warmup-lengths", "8", "--stream-chunk-frames", "8"])
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert rc == 0 and line["streaming_warmed"] and line["device"] == "cpu"
-    assert line["warmup_s"] > 0 and line["shapes"] == 3  # ("dur", 16), ("syn", 16, 64), ("stream", 8, 16, 64)
+    assert line["warmup_s"] > 0 and line["shapes"] == 3  # ("dur", 256), ("syn", 256, 64), ("stream", 8, 256, 64)
+
+
+def test_serve_cli_engine_keeps_the_frame_margin(tiny_pair, capsys):
+    """The daemon's task has not loaded its autoencoder when the engine is
+    built; the engine's frame margin is still the autoencoder's reach."""
+    rc = t_serve.main(["-m", tiny_pair["am"], "--device", "cpu", "--warmup-only", "--batch-size", "2",
+                       "--max-frames", "64", "--warmup-lengths", "8", "--no-warmup-streaming"])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rc == 0 and line["frame_margin"] == _port_task(tiny_pair["am"]).padding_reach_frames() > 0
 
 
 @pytest.mark.parametrize("flag,item", [
