@@ -108,8 +108,29 @@ Phases, each of which raises on failure:
      streamed batch at chunk 64 held against it; (c) ``python -m
      msmctts_tpu_torch.serve --int8`` as a subprocess under 8 clients (no
      cold shape, no kernel build, no error) and ``infer --int8`` on 3 lines;
- 17. one JSON line describing each kernel;
- 18. last line: {"ok": true, "device": {...}}.
+ 17. int8 fine-tuning and the quality tools on the fixture, over a seeded
+     corpus of 16 utterances (221-400 frames) written here: (a) the QAT
+     tool's precompute (2 ``vq_nearest`` + 36 ``fused_resblock_layer`` per
+     utterance; both kernels held against plain at the longest one's
+     shapes), 20 QAT steps at the tool's defaults (batch 8, windows of 64
+     frames, lr 1e-5) with one calibration refresh (first / warm ms, peak
+     memory, the fake-quant gap before and after, the fake-quant forward
+     against the true int8 decode), one step card vs CPU, the written
+     checkpoint through ``Int8Decoder`` (77 products bit-equal to plain,
+     relative L2 against fp32 beside the fixture's PTQ), then ``python -m
+     msmctts_tpu_torch.tools.qat_int8 --steps 4`` and ``infer --int8`` of its
+     output; (b) the AS-MCD sweep over the fixture and (a)'s checkpoint
+     against reference wavs that are the fixture's fp32 decode of the
+     corpus's mel: fp32 on the card (counted), ``--int8`` (``python -m``),
+     fp32 on the CPU (within 0.01 dB of the card); (c) ``debug_step`` and
+     ``infer --debug``: indices against the plain snap, embeddings, wavs
+     against the CPU; (d) the CSMSC AE recipe through ``train`` at batch 16
+     for 2 steps with ``eval_inteval_iters: 2`` and a recording writer:
+     ``evaluate`` once (2 + 36 launches), its wav against the
+     analysis-synthesis of that row, nothing without a writer; a state
+     stitched from the fixture's encoder and the QAT decoder;
+ 18. one JSON line describing each kernel;
+ 19. last line: {"ok": true, "device": {...}}.
 
 NCCL refuses two ranks on one device, so the two-rank phases use gloo, which
 moves CUDA tensors through host memory; the log names the backend. Their
@@ -120,8 +141,9 @@ It exits non-zero, printing no result, without a CUDA device or without
 the rest of the repository. ``--out`` also profiles one warm ``predict``,
 one warm GAN step, one warm AM step, one streamed batch, phase 14's
 analysis-synthesis, GAN step and predictor step, phase 15's
-analysis-synthesis and GAN step and phase 16's int8 decode (device time by
-kernel, busy share) and writes every measurement to a JSON file.
+analysis-synthesis and GAN step, phase 16's int8 decode and phase 17's QAT
+step (device time by kernel, busy share) and writes every measurement to a
+JSON file.
 """
 
 import argparse
@@ -3293,6 +3315,549 @@ def phase_int8(card, am_path, with_profile=False):
     return result
 
 
+# ------------------------------------------------------------- int8 fine-tuning and the quality tools
+# Phase 17: QAT of the fixture's int8 decoder (ops/qat_int8.py, tools/qat_int8.py),
+# the AS-MCD sweep (tools/as_mcd_sweep.py, utils/audio.py), debug_step and infer
+# --debug, and the trainer's evaluate() with utils/logger.Logger, on a seeded
+# corpus written here.
+QAT_UTTS, QAT_LENGTHS = 16, (221, 401)  # the corpus: 16 utterances of 221-400 frames
+QAT_STEPS, QAT_REFRESH = 20, 10  # at the tool's defaults otherwise: batch 8, windows of 64 frames, lr 1e-5
+QAT_BATCH, QAT_WINDOW, QAT_LR, QAT_L1 = 8, 64, 1e-5, 0.1
+# one QAT step card vs CPU from the same state. Adam's first step moves a weight by lr x the sign of its
+# gradient wherever |g| >> eps, and the step's L1 losses take the sign of each residual, so a residual
+# near 0 that the two devices round apart flips its share of the gradient: the step's gradients part by
+# 18 % relative L2 and the updates by 2 lr at 7.5 % of the entries (H100 vs CPU; on the CPU alone an input
+# moved by 1e-6 relative moves the gradient 3.3 %, at batch 2). The backward is held on a fixed
+# cotangent instead (1e-6 on the input moves that 1 % on the CPU), overall and at the worst site
+QAT_VJP_REL, QAT_VJP_SITE_REL = 0.05, 0.25
+QAT_ADAM_ATOL = 1e-3  # the card's update against Adam's step from its own gradient, in units of lr
+QAT_UPDATE_MOVED = 0.5  # the card's mean |update| against lr: the step moved the weights
+# the fake-quant forward against the true int8 decode of the same kernels and grid: both round every
+# activation, the one after fp32 sums, the other after exact int32 sums, and over 77 sites a code that
+# one rounds the other way moves later codes too (4.5e-3 on the CPU at T = 64; the JAX package holds
+# 2e-3 on its 12-site test generator); the bound is about half the int8 decode's own error against fp32
+QAT_FQ_REL = 0.015
+QAT_SNAPSHOT = 12020  # the name of the QAT output among the sweep's snapshots (the fixture is model_12000)
+SWEEP_UTTS = 4
+MCD_CPU_TOL = 0.01  # dB, the sweep's fp32 scores, card vs CPU
+EMB_TOL = 1e-5  # debug_step's quantized embeddings against the plain snap's codewords
+QAT_DIR = os.path.join(SMOKE_DIR, "qat")
+
+
+class _RecordingWriter:
+    """A tensorboard writer that keeps what it is given (``utils/logger.Logger.writer``)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def add_scalar(self, name, value, step):
+        self.calls.append(("scalar", name, float(value), step))
+
+    def add_image(self, name, img, step, dataformats="HWC"):
+        self.calls.append(("image", name, np.asarray(img), step))
+
+    def add_audio(self, name, wav, step, sample_rate=None):
+        self.calls.append(("audio", name, np.asarray(wav), step))
+
+    def close(self):
+        pass
+
+
+def _qat_corpus():
+    """16 seeded utterances as ``MelDataset`` reads them, their id list, the
+    sweep's list of the first 4, and a copy of the fixture whose config reads
+    this corpus (the sweep's first snapshot)."""
+    import shutil
+
+    from msmctts_tpu_torch.data.datasets import save_wav
+    from msmctts_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+
+    shutil.rmtree(QAT_DIR, ignore_errors=True)
+    rng = np.random.default_rng(170)
+    for sub in ("mel", "wav", "snapshots", "ref"):
+        os.makedirs(os.path.join(QAT_DIR, sub), exist_ok=True)
+    ids, frames = [], []
+    for i in range(QAT_UTTS):
+        uid, f = f"qat{i:03d}", int(rng.integers(*QAT_LENGTHS))
+        np.save(os.path.join(QAT_DIR, "mel", f"{uid}.npy"), (rng.normal(size=(f, 80)) * 0.5).astype(np.float32))
+        save_wav(os.path.join(QAT_DIR, "wav", f"{uid}.wav"), rng.normal(size=f * 300) * 0.1, 24000)
+        ids.append(uid)
+        frames.append(f)
+    lists = {"train": os.path.join(QAT_DIR, "train.list"), "sweep": os.path.join(QAT_DIR, "sweep.list")}
+    for name, n in (("train", QAT_UTTS), ("sweep", SWEEP_UTTS)):
+        with open(lists[name], "w") as fh:
+            fh.write("\n".join(ids[:n]) + "\n")
+    ckpt = load_checkpoint(FIXTURE)
+    ds = ckpt["config"]["dataset"]
+    ds["id_list"] = lists["train"]
+    ds["feature_path"] = [os.path.join(QAT_DIR, "mel", "{}.npy"), os.path.join(QAT_DIR, "wav", "{}.wav")]
+    base = os.path.join(QAT_DIR, "snapshots", f"model_{ckpt['iteration']}")
+    save_checkpoint(base, ckpt["state"], ckpt["iteration"], ckpt["config"])
+    return {"ids": ids, "frames": frames, "lists": lists, "base": base}
+
+
+def _fq_vs_int8(qat, fw, decoder_config):
+    """Relative L2 of the fake-quant forward against the true int8 decode of
+    the same folded kernels on the same grid (scales, SmoothQuant) and inputs."""
+    from msmctts_tpu_torch.ops import int8_generator as i8
+
+    flat = {s: (n["w"].detach().cpu().numpy(), None if n["bias"] is None else n["bias"].detach().cpu().numpy())
+            for s, n in qat.folded.items()}
+    qparams = i8.qparams_to(i8._quantize_folded(flat, decoder_config, qat.smooth), qat.device)
+    x = torch.as_tensor(fw, device=qat.device)
+    with torch.no_grad():
+        fq = qat.forward(x)
+    true = i8.int8_generator_apply(qparams, x, decoder_config, act_scales=qat.scales)[..., 0]
+    return _rel_l2(fq.cpu().numpy(), true.cpu().numpy())
+
+
+def _leaf_spans(qat):
+    """{site: (first, end)} of each fake-quant site's tensors in ``qat.leaves()``."""
+    spans, a = {}, 0
+    for site, node in qat.folded.items():
+        b = a + sum(v is not None for v in node.values())
+        spans[site] = (a, b)
+        a = b
+    return spans
+
+
+def _subprocess(what, *args, timeout=600):
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", *args], cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=timeout)
+    if res.returncode != 0:
+        raise AssertionError(f"{what} failed ({res.returncode}):\n{res.stdout[-4000:]}\n{res.stderr[-4000:]}")
+    return res, time.perf_counter() - t0
+
+
+def phase_qat(gen, card, corpus, with_profile=False):
+    """(a) The tool's precompute on the card (kernels 1 and 5 held against
+    plain at its shapes), QAT steps at the tool's defaults with a
+    calibration refresh, one step card vs CPU, the written checkpoint served
+    through ``Int8Decoder``, then the tool and ``infer --int8`` as
+    subprocesses."""
+    import shutil
+
+    from msmctts_tpu_torch.config import Config
+    from msmctts_tpu_torch.ops import int8_generator as i8
+    from msmctts_tpu_torch.tasks import build_task
+    from msmctts_tpu_torch.tools import qat_int8 as tool
+    from msmctts_tpu_torch.training.base_trainer import build_dataset_from_config
+    from msmctts_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+
+    ckpt = load_checkpoint(corpus["base"])
+    config = Config(ckpt["config"])
+    task = build_task(config, device="cuda")
+    task.load_variables(ckpt["state"])
+    ae = task.networks["autoencoder"]
+    dec_cfg = {k: (list(v) if isinstance(v, (list, tuple)) else v) for k, v in dict(ae.decoder_config).items()}
+    hop, sr = ae.frameshift_ratio, int(config.dataset["samplerate"])
+    dataset = build_dataset_from_config(config, training=False, id_list=corpus["lists"]["train"])
+
+    # the precompute: one analysis-synthesis per utterance
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    feats_db, wav_db = tool.precompute(ae, dataset, 160, hop, "cuda")
+    torch.cuda.synchronize()
+    pre_ms = (time.perf_counter() - t0) * 1e3
+    pre_counts = _counts()
+    want = {"vq_nearest": 2 * QAT_UTTS, "vq_nearest_stats": 0, "fused_resblock_layer": 36 * QAT_UTTS}
+    if pre_counts != want or [f.shape[0] for f in feats_db] != corpus["frames"]:
+        raise AssertionError(f"QAT precompute: launches {pre_counts} (expected {want}), "
+                             f"frames {[f.shape[0] for f in feats_db]}")
+    log(f"[17] QAT precompute of {QAT_UTTS} utterances ({min(corpus['frames'])}-{max(corpus['frames'])} frames), "
+        f"one at a time: {pre_ms:.1f} ms, launches {pre_counts}")
+    # kernels 1 and 5 at the precompute's shapes: the longest utterance, padded to its frame bucket
+    # as the precompute's loader pads it (the decoder runs over the padded frames)
+    longest = int(np.argmax(corpus["frames"]))
+    row = dataset.collate_fn([dataset[longest]])
+    T_long, T_pad = corpus["frames"][longest], int(row["mel"].shape[1])
+    mel = torch.as_tensor(row["mel"], device="cuda")
+    length = torch.as_tensor(row["mel_length"], device="cuda")
+
+    def one():
+        with torch.inference_mode():
+            ae.decoder(ae.encode_features(mel, length))
+
+    snap_rows = _hold_snaps(_snap_rows(ae, one), "QAT precompute", tag="[17]")
+    rb_rows, rb_err = _resblock_layers(gen, 1, T_pad, "QAT precompute", library=True, runs=3, reps=3, warmup=1)
+    rb = {key: sum(r[key] for r in rb_rows) for key in ("ms", "plain_ms", "library_ms", "bound_fp32_ms")}
+    rb.update(bound_ms=sum(r["bound"][0] for r in rb_rows), max_abs_err=rb_err,
+              shapes=f"B=1, {T_long} frames padded to {T_pad}: T = {', '.join(str(T_pad * u) for u in (6, 30, 150, 300))}")
+    log(f"[17] QAT precompute, the 36 MRF layers at B=1, {T_pad} frames (the {T_long}-frame utterance in its "
+        f"bucket) against plain: {json.dumps(rb)}")
+
+    # the fine-tune: the tool's state, windows and steps
+    calib = torch.as_tensor(feats_db[0][None], device="cuda")
+    t0 = time.perf_counter()
+    qat = tool.QAT(tool.fold_decoder_params(ae.decoder), dec_cfg, sr, QAT_LR, QAT_L1, 1.0, calib)
+    torch.cuda.synchronize()
+    calib_ms = (time.perf_counter() - t0) * 1e3
+    eval_rng = np.random.default_rng(tool.EVAL_SEED)
+    eval_batches = [tool.sample_windows(eval_rng, feats_db, wav_db, QAT_BATCH, QAT_WINDOW, hop)
+                    for _ in range(tool.EVAL_BATCHES)]
+    gap0 = qat.gap(eval_batches)
+    fq0 = _fq_vs_int8(qat, eval_batches[0][0], dec_cfg)
+
+    # one step from the same folded kernels, grid and window batch on the card and on the CPU. The losses
+    # are means over the batch, which a code that one device rounds the other way moves (see QAT_FQ_REL).
+    # The update is held in two parts: the backward of the fake-quant graph card vs CPU (the gradient of
+    # a fixed cotangent, taken before the step), and the card's update against Adam's first step from the
+    # card's own gradient; the step's own gradients, card vs CPU, are printed (see QAT_VJP_REL)
+    fw, ww = tool.sample_windows(np.random.default_rng(171), feats_db, wav_db, QAT_BATCH, QAT_WINDOW, hop)
+    cot = np.random.default_rng(172).standard_normal((QAT_BATCH, QAT_WINDOW * hop)).astype(np.float32)
+    twins, vjps = [], []
+    for dev in ("cuda", "cpu"):
+        # a twin calibrates on a few frames, then takes the fine-tune's grid
+        twin = tool.QAT({s: {k: None if v is None else v.detach().to(dev) for k, v in n.items()}
+                         for s, n in qat.folded.items()}, dec_cfg, sr, QAT_LR, QAT_L1, 1.0, calib[:, :16].to(dev))
+        twin._set_grid(qat.scales, qat.smooth)
+        y = twin.forward(torch.as_tensor(fw, device=dev))
+        grads = torch.autograd.grad((y * torch.as_tensor(cot, device=dev)).sum(), twin.leaves())
+        vjps.append((y.detach().cpu(), {site: torch.cat([g.flatten().cpu() for g in grads[a:b]])
+                                        for site, (a, b) in _leaf_spans(twin).items()}))
+        twins.append(twin)
+    on_card, on_cpu = twins
+    (y_card, vjp_card), (y_cpu, vjp_cpu) = vjps
+    site_rel = {site: _rel_l2(vjp_card[site], vjp_cpu[site]) for site in vjp_cpu}
+    vjp_rel = _rel_l2(torch.cat(list(vjp_card.values())), torch.cat(list(vjp_cpu.values())))
+    start = torch.cat([v.detach().cpu().flatten() for v in on_card.leaves()])
+    m_card, m_cpu = on_card.step(fw, ww).cpu().numpy(), on_cpu.step(fw, ww).cpu().numpy()
+    loss_rel = float(np.max(np.abs(m_card - m_cpu) / np.maximum(np.abs(m_cpu), 1e-12)))
+    flat = lambda twin, f: torch.cat([f(v).detach().cpu().flatten() for v in twin.leaves()])
+    g_card, g_cpu = flat(on_card, lambda v: v.grad), flat(on_cpu, lambda v: v.grad)
+    d_card, d_cpu = flat(on_card, lambda v: v) - start, flat(on_cpu, lambda v: v) - start
+    g64 = g_card.double()
+    adam = -QAT_LR * g64 / (g64.abs() + on_card.opt.defaults["eps"])  # Adam's first step: both moments bias-corrected
+    # the stored weight rounds w + update to half an ulp of w
+    adam_err = float(((d_card.double() - adam).abs() - start.double().abs() * 2.0 ** -23).max())
+    worst = max(site_rel, key=site_rel.get)
+    upd = {"entries": d_card.numel(), "forward_rel_l2": _rel_l2(y_card, y_cpu), "vjp_rel_l2": vjp_rel,
+           "vjp_worst_site": [worst, site_rel[worst]], "step_grad_rel_l2": _rel_l2(g_card, g_cpu),
+           "card_update_mean_abs": float(d_card.abs().mean()), "cpu_update_mean_abs": float(d_cpu.abs().mean()),
+           "update_vs_adam_excess": adam_err, "opposite_share": float((d_card * d_cpu < 0).float().mean())}
+    log(f"[17] one QAT step (batch {QAT_BATCH} x {QAT_WINDOW} frames), card vs CPU from the same folded kernels and "
+        f"grid: losses {m_card.tolist()} vs {m_cpu.tolist()} (max rel {loss_rel:.3g}); forward, backward and update "
+        f"(lr {QAT_LR}): {json.dumps(upd)}")
+    if (loss_rel > STEP_TOL["loss_rtol"] or not np.isfinite(m_card).all() or vjp_rel > QAT_VJP_REL
+            or site_rel[worst] > QAT_VJP_SITE_REL or adam_err > QAT_ADAM_ATOL * QAT_LR
+            or upd["card_update_mean_abs"] < QAT_UPDATE_MOVED * QAT_LR):
+        raise AssertionError(f"QAT step card vs CPU: losses rel {loss_rel}, update {upd}")
+    del on_card, on_cpu, twins
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, metrics, last = [], [], [time.perf_counter()]
+
+    def on_step(step, m):
+        torch.cuda.synchronize()  # a step's time runs from the end of the one before it (with its refresh)
+        now = time.perf_counter()
+        step_ms.append((now - last[0]) * 1e3)
+        last[0] = now
+        metrics.append(m.cpu().numpy())
+
+    refreshes = tool.run(qat, feats_db, wav_db, QAT_STEPS, QAT_BATCH, QAT_WINDOW, hop, QAT_REFRESH, 0, on_step=on_step)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not np.isfinite(np.array(metrics)).all() or refreshes != 1 or len(metrics) != QAT_STEPS:
+        raise AssertionError(f"QAT steps: metrics {metrics}, refreshes {refreshes}")
+    gap1 = qat.gap(eval_batches)
+    fq1 = _fq_vs_int8(qat, eval_batches[0][0], dec_cfg)
+    warm = statistics.median(step_ms[1:])
+    log(f"[17] QAT on {card}: {QAT_STEPS} steps at batch {QAT_BATCH} x {QAT_WINDOW} frames, lr {QAT_LR}, "
+        f"{refreshes} calibration refresh: first {step_ms[0]:.1f} ms, warm median {warm:.1f} ms, peak {peak_gib:.2f} GiB; "
+        f"calibration {calib_ms:.1f} ms; mel loss {metrics[0][0]:.4f} -> {metrics[-1][0]:.4f}; fake-quant log-mel gap "
+        f"{gap0:.4f} -> {gap1:.4f}; fake-quant forward vs the true int8 decode, relative L2 {fq0:.3g} -> {fq1:.3g}")
+    if max(fq0, fq1) > QAT_FQ_REL:
+        raise AssertionError(f"the fake-quant forward is {max(fq0, fq1)} from the int8 decode (bound {QAT_FQ_REL})")
+    profile = profile_call(lambda: qat.step(fw, ww), "[17]", "QAT step") if with_profile else None
+
+    # the written checkpoint through Int8Decoder, as the tool writes it
+    state = ckpt["state"]
+    dec_params = state["params"]["autoencoder"]["decoder"]
+    state["params"]["autoencoder"] = dict(state["params"]["autoencoder"], decoder=tool.unfold_to_weight_norm(
+        qat.folded, dict(dec_params), dec_cfg))
+    out = os.path.join(QAT_DIR, "snapshots", f"model_{QAT_SNAPSHOT}")
+    save_checkpoint(out, state, ckpt["iteration"], ckpt["config"])
+    served = build_task(config, device="cuda")
+    served.load_variables(load_checkpoint(out)["state"])
+    lengths = np.array(ISTFT_LENGTHS)
+    mel = np.random.default_rng(16).normal(size=(len(lengths), FRAMES, 80)).astype(np.float32) * 0.5
+    mel *= (np.arange(FRAMES)[None, :] < lengths[:, None])[..., None]
+    batch = {"mel": mel, "mel_length": lengths}
+    rel = {}
+    for name, t in (("ptq", task), ("qat", served)):
+        fp32 = t.analysis_synthesis(batch)
+        t.int8_decoder = True
+        out8 = t.analysis_synthesis(batch)  # calibrates on this batch
+        rel[name] = [_rel_l2(a, b) for a, b in zip(out8["wav"], fp32["wav"])]
+    i8.LAUNCHES["int8_conv1d"] = 0
+    calls = _int8_sites(lambda: served.analysis_synthesis(batch))
+    bad = [n for n, (xq, w_q, p, d) in enumerate(calls)
+           if not torch.equal(i8.int8_conv1d(xq, w_q, p, d), i8.int8_conv1d_plain(xq, w_q, p, d))]
+    log(f"[17] the QAT checkpoint through Int8Decoder (B={len(lengths)}, bucket {FRAMES}): {len(calls)} int8 products, "
+        f"int32 sums bit-equal to plain at {len(calls) - len(bad)}; int8 vs fp32 relative L2 per utterance "
+        f"{[round(r, 4) for r in rel['qat']]} (the fixture's PTQ on the same batch {[round(r, 4) for r in rel['ptq']]})")
+    if len(calls) != INT8_SITES or bad or max(rel["qat"]) > INT8_REL:
+        raise AssertionError(f"QAT checkpoint int8: {len(calls)} products, differing {bad}, rel {rel['qat']}")
+    del served
+
+    # the tool and infer --int8 as a user runs them
+    cli_out = os.path.join(QAT_DIR, "cli_qat")
+    res, tool_s = _subprocess("tools.qat_int8", "msmctts_tpu_torch.tools.qat_int8", "--ckpt", corpus["base"],
+                             "--id-list", corpus["lists"]["train"], "--steps", "4", "--out", cli_out)
+    line = json.loads(res.stdout.strip().splitlines()[-1])
+    if line.get("out") != cli_out or line.get("steps") != 4 or not os.path.exists(cli_out):
+        raise AssertionError(f"the QAT tool's last line {line}")
+    log(f"[17] python -m msmctts_tpu_torch.tools.qat_int8 --steps 4 ({tool_s:.1f}s): {json.dumps(line)}")
+    out_dir = os.path.join(QAT_DIR, "infer_int8")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    res, inf_s = _subprocess("infer --int8", "msmctts_tpu_torch.infer", "-m", cli_out, "-t", corpus["lists"]["sweep"],
+                             "-o", out_dir, "--int8")
+    from scipy.io import wavfile
+
+    lengths_out = {u: wavfile.read(os.path.join(out_dir, f"{u}_wav.wav"))[1].shape[0] for u in corpus["ids"][:SWEEP_UTTS]}
+    want_len = {u: f * hop for u, f in zip(corpus["ids"][:SWEEP_UTTS], corpus["frames"][:SWEEP_UTTS])}
+    if lengths_out != want_len:
+        raise AssertionError(f"infer --int8 of the QAT checkpoint wrote {lengths_out}, expected {want_len}")
+    log(f"[17] infer --int8 of the tool's checkpoint ({inf_s:.1f}s): {res.stdout.strip().splitlines()[-1]}")
+    return {"precompute_ms": pre_ms, "launches_precompute": pre_counts, "snap": snap_rows, "resblock": rb,
+            "calibration_ms": calib_ms, "step_first_ms": step_ms[0], "step_warm_ms": warm, "step_ms": step_ms,
+            "peak_gib": peak_gib, "gap": [gap0, gap1], "fq_vs_int8_rel": [fq0, fq1], "card_vs_cpu": {
+                "loss_rel": loss_rel, **upd}, "int8_rel_l2": rel, "checkpoint": out,
+            "tool_s": tool_s, "infer_int8_s": inf_s, "tool_line": line, "profile": profile}
+
+
+def phase_as_mcd(card, corpus):
+    """(b) The sweep over the fixture and the QAT checkpoint: fp32 on the card
+    (in process, counted), ``--int8`` on the card (``python -m``), fp32 on
+    the CPU; the reference wavs are the fixture's fp32 decode of each
+    utterance's mel."""
+    from msmctts_tpu_torch.config import Config
+    from msmctts_tpu_torch.data.datasets import save_wav
+    from msmctts_tpu_torch.data.loader import finite_loader
+    from msmctts_tpu_torch.tasks import build_task
+    from msmctts_tpu_torch.tools import as_mcd_sweep
+    from msmctts_tpu_torch.training.base_trainer import build_dataset_from_config
+    from msmctts_tpu_torch.utils.checkpoint import load_checkpoint
+
+    ckpt = load_checkpoint(corpus["base"])
+    config = Config(ckpt["config"])
+    task = build_task(config, device="cuda")
+    task.load_variables(ckpt["state"])
+    dataset = build_dataset_from_config(config, training=False, id_list=corpus["lists"]["sweep"])
+    for uid, batch in zip(corpus["ids"], finite_loader(dataset, 1)):
+        wav = task.analysis_synthesis({k: batch[k] for k in ("mel", "mel_length")})["wav"][0]
+        save_wav(os.path.join(QAT_DIR, "ref", f"{uid}.wav"), wav, 24000)
+    del task
+    args = ["--ckpt-dir", os.path.join(QAT_DIR, "snapshots"), "-t", corpus["lists"]["sweep"],
+            "--ref-wav", os.path.join(QAT_DIR, "ref", "{}.wav")]
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    card_line = as_mcd_sweep.main([*args, "--device", "cuda"])
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    counts = _counts()
+    n_batches = 2 * -(-SWEEP_UTTS // 2)  # 2 snapshots, batches of 2
+    want = {"vq_nearest": 2 * n_batches, "vq_nearest_stats": 0, "fused_resblock_layer": 36 * n_batches}
+    if counts != want:
+        raise AssertionError(f"sweep launches {counts}, expected {want}")
+    res, int8_s = _subprocess("as_mcd_sweep --int8", "msmctts_tpu_torch.tools.as_mcd_sweep", *args, "--int8")
+    int8_line = json.loads(res.stdout.strip().splitlines()[-1])
+    t0 = time.perf_counter()
+    cpu_line = as_mcd_sweep.main([*args, "--device", "cpu"])
+    cpu_s = time.perf_counter() - t0
+    log(f"[17] AS-MCD sweep, fp32 on the card ({card_s:.1f}s, launches {counts}): {json.dumps(card_line)}")
+    log(f"[17] AS-MCD sweep, --int8 on the card ({int8_s:.1f}s, python -m): {json.dumps(int8_line)}")
+    log(f"[17] AS-MCD sweep, fp32 on the CPU ({cpu_s:.1f}s): {json.dumps(cpu_line)}")
+    diff = {k: abs(card_line["snapshots"][k] - cpu_line["snapshots"][k]) for k in card_line["snapshots"]}
+    if sorted(card_line["snapshots"]) != sorted(int8_line["snapshots"]) or len(diff) != 2 or max(diff.values()) > MCD_CPU_TOL:
+        raise AssertionError(f"AS-MCD: card vs CPU {diff} dB (bound {MCD_CPU_TOL}), snapshots {card_line}, {int8_line}")
+    return {"fp32": card_line, "int8": int8_line, "cpu_fp32": cpu_line, "card_vs_cpu_db": diff, "launches": counts,
+            "card_s": card_s, "int8_s": int8_s, "cpu_s": cpu_s}
+
+
+def phase_debug(card, corpus):
+    """(c) ``debug_step`` on the card over the sweep's first two utterances:
+    indices against the plain snap, embeddings against its codewords, wavs
+    against the CPU's ``analysis_synthesis``; then ``infer --debug``."""
+    import shutil
+
+    import yaml
+
+    from msmctts_tpu_torch import infer
+    from msmctts_tpu_torch.config import Config
+    from msmctts_tpu_torch.data.loader import finite_loader
+    from msmctts_tpu_torch.ops import vq
+    from msmctts_tpu_torch.tasks import build_task
+    from msmctts_tpu_torch.training.base_trainer import build_dataset_from_config
+    from msmctts_tpu_torch.utils.checkpoint import load_checkpoint
+
+    ckpt = load_checkpoint(corpus["base"])
+    config = Config(ckpt["config"])
+    task = build_task(config, device="cuda")
+    task.load_variables(ckpt["state"])
+    ae = task.networks["autoencoder"]
+    batch = next(finite_loader(build_dataset_from_config(config, training=False, id_list=corpus["lists"]["sweep"]), 2))
+    batch = {k: batch[k] for k in ("mel", "mel_length")}
+    out = {}
+    torch.cuda.synchronize()
+    _reset_counts()
+    snaps = _snap_rows(ae, lambda: out.update(task.debug_step(batch)))
+    torch.cuda.synchronize()
+    counts = _counts()
+    if counts != {"vq_nearest": 4, "vq_nearest_stats": 0, "fused_resblock_layer": 36} or len(snaps) != 4:
+        raise AssertionError(f"debug_step launches {counts}, {len(snaps)} snaps")
+    rows = _hold_snaps(snaps[2:], "debug_step analysis", tag="[17]")
+    emb_err = 0.0
+    for s, idx, emb in zip(snaps[2:], out["indices"], out["embedding"]):
+        ref_idx, ref_quant = vq.vq_nearest_plain(s["x"].contiguous(), s["embed"])
+        if not np.array_equal(idx.reshape(-1, idx.shape[-1]), ref_idx.cpu().numpy()):
+            raise AssertionError("debug_step indices differ from the plain snap's")
+        emb_err = max(emb_err, float(np.abs(emb.reshape(ref_quant.shape) - ref_quant.cpu().numpy()).max()))
+    cpu = build_task(config, device="cpu")
+    cpu.load_variables(ckpt["state"])
+    want = cpu.analysis_synthesis(batch)["wav"]
+    wav_err = max(float(np.abs(a - b).max()) for a, b in zip(out["wav"], want))
+    log(f"[17] debug_step B=2 frames {batch['mel_length'].tolist()}: launches {counts}; indices equal to the plain "
+        f"snap's, embeddings max abs {emb_err:.3g}, wav vs the CPU's analysis-synthesis max abs {wav_err:.3g}")
+    if emb_err > EMB_TOL or wav_err > AS_TOL:
+        raise AssertionError(f"debug_step: embeddings {emb_err}, wav {wav_err}")
+    # the CLI, saving the debug outputs
+    cfg = dict(ckpt["config"], save_features=[["wav", ".npy"], ["indices", ".npy"], ["embedding", ".npy"]])
+    cfg_path = os.path.join(QAT_DIR, "debug.yaml")
+    with open(cfg_path, "w") as fh:
+        yaml.safe_dump(cfg, fh)
+    out_dir = os.path.join(QAT_DIR, "infer_debug")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    infer.main(["-m", corpus["base"], "-c", cfg_path, "-t", corpus["lists"]["sweep"], "-o", out_dir, "-b", "2", "--debug",
+                "--device", "cuda"])
+    files = sorted(os.listdir(out_dir))
+    first = corpus["ids"][0]
+    cli_err = float(np.abs(np.load(os.path.join(out_dir, f"{first}_wav.npy")) - out["wav"][0]).max())
+    if f"{first}_indices.npy" not in files or f"{first}_embedding.npy" not in files or cli_err > AS_TOL:
+        raise AssertionError(f"infer --debug wrote {files}; wav vs debug_step {cli_err}")
+    log(f"[17] infer --debug: {len(files)} files ({', '.join(files[:3])}, ...); wav vs debug_step max abs {cli_err:.3g}")
+    return {"launches": counts, "snap": rows, "embedding_err": emb_err, "wav_vs_cpu": wav_err, "cli_files": len(files)}
+
+
+def phase_evaluate(card, corpus, qat_ckpt):
+    """(d) The CSMSC AE recipe at batch 16 for 2 steps through ``train`` with
+    ``eval_inteval_iters: 2`` and a recording writer; ``evaluate`` without a
+    writer; then a state stitched from the fixture's encoder and the QAT
+    checkpoint's decoder."""
+    import shutil
+
+    from msmctts_tpu_torch.config import Config, component_kwargs
+    from msmctts_tpu_torch.registry import get_trainer
+    from msmctts_tpu_torch.tasks import build_task
+    from msmctts_tpu_torch.training import base_trainer
+    from msmctts_tpu_torch.utils.checkpoint import load_checkpoint
+    from msmctts_tpu_torch.utils.logger import Logger
+
+    def trainer_for(**extra):
+        cfg = Config(AE_YAML)
+        cfg.trainer["warmup_steps"] = 1
+        cfg.trainer["eval_inteval_iters"] = 2
+        cfg.dataset["id_list"] = corpus["lists"]["train"]
+        cfg.dataset["feature_path"] = [os.path.join(QAT_DIR, "mel", "{}.npy"), os.path.join(QAT_DIR, "wav", "{}.wav")]
+        cfg["dataloader"] = {"batch_size": TRAIN_B, "num_workers": 2}
+        cfg["save_checkpoint_dir"] = os.path.join(QAT_DIR, "ckpt_eval")
+        cfg["iters_per_checkpoint"] = 1000
+        for k, v in extra.items():
+            cfg[k] = v
+        shutil.rmtree(cfg["save_checkpoint_dir"], ignore_errors=True)
+        task = build_task(cfg, device="cuda", mode="train")
+        return get_trainer(cfg.trainer["_name"])(cfg, task, **component_kwargs(cfg.trainer)), cfg
+
+    writers, seen = [], []
+
+    class RecordingLogger(Logger):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.writer = self.meter.writer = _RecordingWriter()
+            self.meter.interval = 1
+            writers.append(self.writer)
+
+    trainer, cfg = trainer_for(pretrain_checkpoint_path=FIXTURE)
+    evaluate = trainer.evaluate
+
+    def counted(batch, logger, iteration):
+        torch.cuda.synchronize()
+        _reset_counts()
+        evaluate(batch, logger, iteration)
+        torch.cuda.synchronize()
+        seen.append({"iteration": iteration, "launches": _counts(), "batch": {k: v[:1].cpu().numpy() for k, v in batch.items()}})
+
+    trainer.evaluate = counted
+    base_trainer.Logger, plain_logger = RecordingLogger, base_trainer.Logger
+    try:
+        t0 = time.perf_counter()
+        trainer.train(max_steps=2, log_every=1)
+        run_s = time.perf_counter() - t0
+    finally:
+        base_trainer.Logger = plain_logger
+    w = writers[0].calls
+    audio = [c for c in w if c[0] == "audio"]
+    images = [c for c in w if c[0] == "image"]
+    if len(seen) != 1 or seen[0]["iteration"] != 2 or len(audio) != 1 or len(images) != 1:
+        raise AssertionError(f"evaluate ran {[s['iteration'] for s in seen]}; writer got {[c[:2] for c in w]}")
+    if seen[0]["launches"] != {"vq_nearest": 2, "vq_nearest_stats": 0, "fused_resblock_layer": 36}:
+        raise AssertionError(f"evaluate launches {seen[0]['launches']}, expected 2 VQ and 36 resblock")
+    # its wav against the analysis-synthesis of that row with the trained state
+    task = build_task(cfg, device="cuda")
+    task.load_variables(trainer.state_tree())
+    row = seen[0]["batch"]
+    ref = task.analysis_synthesis({"mel": row["mel"], "mel_length": row["mel_length"]})["wav"][0]
+    wav = audio[0][2][0]
+    err = float(np.abs(wav - ref).max()) if wav.shape == ref.shape else float("inf")
+    scalars = sorted({c[1] for c in w if c[0] == "scalar"})
+    log(f"[17] train 2 steps at batch {TRAIN_B} with eval_inteval_iters 2 ({run_s:.1f}s): evaluate at iteration 2, "
+        f"launches {seen[0]['launches']}; wav of {wav.shape[0]} samples vs the analysis-synthesis of that row max abs "
+        f"{err:.3g}; image {images[0][2].shape}; {len(scalars)} scalars per step to the writer")
+    if err > AS_TOL or not np.abs(wav).max() > 1e-3:
+        raise AssertionError(f"evaluate's wav vs analysis-synthesis: {err}")
+    # no writer: nothing runs
+    _reset_counts()
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in row.items()}
+    trainer.evaluate = evaluate
+    trainer.evaluate(batch, Logger(os.path.join(QAT_DIR, "no_writer"), use_tensorboard=False), 3)
+    if any(_counts().values()):
+        raise AssertionError(f"evaluate without a writer launched {_counts()}")
+    del trainer, task
+
+    # stitching: the fixture's encoder, the QAT checkpoint's decoder
+    parts = [["autoencoder/encoder", FIXTURE], ["autoencoder/decoder", qat_ckpt]]
+    stitched, _ = trainer_for(restore_checkpoint_path=parts)
+    stitched.attempt_resume()
+    state = stitched.state_tree()["params"]["autoencoder"]
+    held = {}
+    for name, path in (("encoder", FIXTURE), ("decoder", qat_ckpt)):
+        want = _flat_tree(load_checkpoint(path)["state"]["params"]["autoencoder"][name])
+        got = _flat_tree(state[name])
+        if sorted(got) != sorted(want) or not all(np.array_equal(got[k], want[k]) for k in want):
+            raise AssertionError(f"stitched {name} differs from {path}")
+        held[name] = len(want)
+    log(f"[17] stitched state [[autoencoder/encoder, fixture], [autoencoder/decoder, QAT]]: {held['encoder']} encoder "
+        f"and {held['decoder']} decoder tensors bit-equal to their checkpoints', iteration {stitched.iteration}")
+    return {"launches": seen[0]["launches"], "wav_err": err, "train_s": run_s, "stitched_tensors": held}
+
+
+def phase_quality_tools(gen, card, with_profile=False):
+    """Phase 17, (a) to (d); ``with_profile`` adds the profile of one QAT step."""
+    t0 = time.perf_counter()
+    corpus = _qat_corpus()
+    result = {"qat": phase_qat(gen, card, corpus, with_profile)}
+    result["as_mcd"] = phase_as_mcd(card, corpus)
+    result["debug"] = phase_debug(card, corpus)
+    result["evaluate"] = phase_evaluate(card, corpus, result["qat"]["checkpoint"])
+    result["phase_s"] = time.perf_counter() - t0
+    log(f"[17] QAT and quality tools phase {result['phase_s']:.1f}s")
+    return result
+
+
 def _device_rows(prof):
     """[{name, count, device_ms}] of a profile's kernels, the longest first."""
     from torch.autograd import DeviceType
@@ -3336,8 +3901,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
                     help="also profile one predict, one GAN step, one AM step, a streamed batch, phase 14's "
-                         "analysis-synthesis, GAN step and predictor step, phase 15's analysis-synthesis and GAN step "
-                         "and phase 16's int8 decode, and write every measurement to this JSON file")
+                         "analysis-synthesis, GAN step and predictor step, phase 15's analysis-synthesis and GAN step, "
+                         "phase 16's int8 decode and phase 17's QAT step, and write every measurement to this JSON file")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on a GPU", file=sys.stderr)
@@ -3375,6 +3940,10 @@ def main(argv=None):
     qs = phase_qs_tts(gen, env["nvidia_smi"], with_profile=bool(args.out))
     istft = phase_istft(gen, env["nvidia_smi"], with_profile=bool(args.out))
     int8 = phase_int8(env["nvidia_smi"], tts_ref["am_path"], with_profile=bool(args.out))
+    tools = phase_quality_tools(gen, env["nvidia_smi"], with_profile=bool(args.out))
+    t_qat, t_mcd, t_dbg, t_eval = tools["qat"], tools["as_mcd"], tools["debug"], tools["evaluate"]
+    launches_qat = lambda key: {"precompute": t_qat["launches_precompute"][key], "sweep_fp32": t_mcd["launches"][key],
+                                "debug_step": t_dbg["launches"][key], "evaluate": t_eval["launches"][key]}
     ist_as, ist_tr, ist_pr = istft["analysis_synthesis"], istft["training"], istft["predict"]
     ist_snap = lambda rows: [{k: r[k] for k in ("N", "device_ms", "ms", "plain_ms", "bound_ms", "bound_by", "index_mismatches",
                                                "max_abs_err")} for r in rows]
@@ -3410,6 +3979,10 @@ def main(argv=None):
             "istft": {"analysis_synthesis": ist_snap(ist_as["snap"])},
             "launches_int8": {"analysis_synthesis_batch": int8["decoder"]["launches"]["vq_nearest"],
                               "predict_batch": int8["serving"]["predict"]["launches"]["vq_nearest"]},
+            # phase 17: the QAT precompute (16 utterances, one at a time), the sweep's fp32 run
+            # (2 snapshots x 2 batches), one debug_step (B=2), one evaluate (one row)
+            "launches_qat": launches_qat("vq_nearest"),
+            "qat": {"precompute": ist_snap(t_qat["snap"]), "debug_step": ist_snap(t_dbg["snap"])},
         },
         {
             "name": "vq_nearest_stats", "route": "cuda", "source": "msmctts_tpu_torch/csrc/vq_stats.cu",
@@ -3470,6 +4043,7 @@ def main(argv=None):
                                "predict_batch": ist_pr["launches"]["vq_nearest"]},
             "launches_int8": {"analysis_synthesis_batch": int8["decoder"]["launches"]["vq_nearest"],
                               "predict_batch": int8["serving"]["predict"]["launches"]["vq_nearest"]},
+            "launches_qat": launches_qat("vq_nearest"),
         },
         {
             "name": "fused_resblock_layer", "route": "cuda", "source": "msmctts_tpu_torch/csrc/resblock.cu",
@@ -3495,6 +4069,10 @@ def main(argv=None):
                                                          "max_abs_err", "shapes", "per_width")},
             "launches_int8": {"analysis_synthesis_batch": int8["decoder"]["launches"]["fused_resblock_layer"],
                               "predict_batch": int8["serving"]["predict"]["launches"]["fused_resblock_layer"]},
+            # phase 17: 36 per decode of the QAT precompute, the sweep, debug_step and evaluate; the
+            # 36 layers at the precompute's longest utterance (B=1)
+            "launches_qat": launches_qat("fused_resblock_layer"),
+            "qat": t_qat["resblock"],
             "tolerance": {**RB_TOL, "max_abs": RB_MAX_ABS},
             "shapes": f"per decode: the 36 CSMSC MRF layers at B={B}, {FRAMES} frames; bound_ms counts the kernel's operations, "
                       "three TF32 tensor-core products per fp32 product at 495 TFLOP/s; bound_fp32_ms the same products as "
@@ -3513,8 +4091,9 @@ def main(argv=None):
                        "sharded_kernels": shard_res, "nccl_world_1": nccl_res, "dp_training": dp_train,
                        "dp_inference": dp_infer, "am_training": am_res, "am_step_card_vs_cpu": am_cpu,
                        "am_entry_point": am_cli, "serving": serving, "qs_tts": qs, "istft": istft, "int8": int8,
+                       "quality_tools": tools,
                        "wall_s": time.perf_counter() - t_start}, f, indent=1)
-    log(f"[17] wall {time.perf_counter() - t_start:.1f}s on {env['nvidia_smi']}")
+    log(f"[18] wall {time.perf_counter() - t_start:.1f}s on {env['nvidia_smi']}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": env["name"], "count": env["count"]}}))
     return 0

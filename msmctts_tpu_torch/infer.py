@@ -2,7 +2,7 @@
 ``infer.py``):
 
     python -m msmctts_tpu_torch.infer -m <checkpoint> [-c config.yaml] \\
-        -t testlist.yaml -o outdir [-b 1] [--static-frames N] [--int8] [--device cpu]
+        -t testlist.yaml -o outdir [-b 1] [--static-frames N] [--int8] [--debug] [--device cpu]
 
 Loads the task from the checkpoint's embedded config (or ``-c``), builds the
 test dataset (the config's ``testset``, else its ``dataset``) with
@@ -14,7 +14,10 @@ matplotlib is installed (skipped where it is not). The output directory
 defaults to ``eval-<iteration>`` beside the checkpoint. Runs on ``cuda``
 unless ``--device cpu`` is given; without a GPU it refuses to run. ``--int8``
 decodes with the int8 HiFi-GAN decoder (``ops/int8_generator.py``),
-calibrated on the first batch.
+calibrated on the first batch. ``--debug`` runs ``task.debug_step`` in place
+of ``infer_step``: in the autoencoder mode its outputs add each stage's
+codeword ``indices`` and quantized ``embedding``, which ``save_features``
+may name, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -35,7 +38,6 @@ from msmctts_tpu_torch.utils.checkpoint import load_checkpoint
 # options of the JAX package's infer.py that the port does not have yet, and
 # the ROADMAP item that brings each
 NOT_PORTED = {
-    "--debug": "debug_step is not ported (ROADMAP A7)",
     "--mesh-devices": "inference over a group from infer is not ported (ROADMAP A12c); use --mesh-devices 1",
 }
 
@@ -73,14 +75,13 @@ def main(argv=None):
     p.add_argument("--static-frames", type=int, default=None,
                    help="TTS: one fixed frame bucket, nothing read back before the waveform")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    p.add_argument("--debug", action="store_true", help="not ported (ROADMAP A7)")
+    p.add_argument("--debug", action="store_true", help="route batches through task.debug_step")
     p.add_argument("--int8", action="store_true",
                    help="int8 post-training-quantized HiFi-GAN decoder, calibrated on the first batch")
     p.add_argument("--mesh-devices", type=int, default=1, metavar="N", help="only 1 (ROADMAP A12c)")
     args = p.parse_args(argv)
-    for flag, on in (("--debug", args.debug), ("--mesh-devices", args.mesh_devices != 1)):
-        if on:
-            p.error(NOT_PORTED[flag])
+    if args.mesh_devices != 1:
+        p.error(NOT_PORTED["--mesh-devices"])
 
     ckpt = load_checkpoint(args.model)
     config = Config(args.config) if args.config else Config(ckpt["config"])
@@ -98,11 +99,12 @@ def main(argv=None):
     dataset = build_dataset_from_config(test_config, training=False, id_list=args.test_list)
     save_features = config.get("save_features") or [["wav", ".wav", config.dataset["samplerate"]]]
 
+    step_fn = task.debug_step if args.debug else task.infer_step
     total, written = 0, 0
     for batch in finite_loader(dataset, args.batch_size):
         ids = batch.pop("_id", None)
         n = len(next(iter(batch.values())))
-        output = task.infer_step(batch)
+        output = step_fn(batch)
         total += n
         for j in range(n):
             case = dataset.id_list[int(ids[j])] if ids is not None else (str(j),)

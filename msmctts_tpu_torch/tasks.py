@@ -248,6 +248,26 @@ class MSMCTTS(BaseTask):
             self.pre_infer()
         return self.predict(batch)
 
+    def debug_step(self, batch: dict) -> dict:
+        """``infer --debug`` (``msmctts_tpu/tasks.py:343-366``): ``infer_step``'s
+        outputs and, in the autoencoder mode, the per-stage codeword
+        ``indices`` [B, T_i, H] and quantized ``embedding`` [B, T_i, H * d]
+        of ``analysis`` (coarsest first, numpy), for inspecting the
+        representation. Over an SSL-embedding autoencoder it raises: the JAX
+        package's runs the mel ``analysis`` there too, which that family
+        does not have."""
+        ae = self.networks.get("autoencoder")
+        if self.training_mode == "train_autoencoder" and not isinstance(ae, MSMCVQGAN):
+            raise NotImplementedError(f"debug_step reads a mel analysis; a {type(ae).__name__} has none")
+        out = self.infer_step(batch)
+        if self.training_mode == "train_autoencoder":
+            local = self._local_rows({k: batch[k] for k in ("mel", "mel_length")})
+            with torch.inference_mode():
+                q = ae.analysis(self._tensor(local["mel"], torch.float32), self._tensor(local["mel_length"], torch.long))
+            out["indices"] = [self._gather(x).astype(np.int32) for x in q["quantizer_indices"]]
+            out["embedding"] = [self._gather(x) for x in q["quantizer_outputs"]]
+        return out
+
     def padding_reach_frames(self) -> int:
         """How many frames of the padding after an utterance reach its
         waveform, which the frame bucket otherwise decides: the decoder's

@@ -32,8 +32,21 @@ checkpoints; every rank reads them and keeps a log of its own. SIGTERM /
 SIGINT on any rank is agreed on after every step (one flag over gloo), so
 that all ranks leave the loop at the same iteration.
 
+Logging goes through ``utils/logger.Logger``: the text log (and stdout)
+every ``log_every`` steps, window means of the metrics to its tensorboard
+writer where there is one. Every ``eval_interval`` steps (a trainer's
+``eval_inteval_iters``; 0 = never) the loop calls ``evaluate(batch, logger,
+iteration)`` on the step's batch; a failure there is logged and training
+goes on (``msmctts_tpu/training/base_trainer.py:326-331``).
+
+``restore_checkpoint_path`` may be a list ``[[regex, path], ...]``: the
+state is then stitched from the parts of those checkpoints whose
+'/'-joined paths match each regex, over the fresh init, with no optimizer
+state and the iteration left at 0 (``utils/checkpoint.filter_state_by_regex``,
+``merge_states``).
+
 fp32 only; the ``model`` axis of a ``mesh:`` node (tensor parallelism),
-bf16, the profiler hook and periodic evaluation summaries are not ported.
+bf16 and the profiler hook are not ported.
 """
 
 from __future__ import annotations
@@ -52,7 +65,15 @@ from msmctts_tpu_torch.ops.dropout import bind_generator
 from msmctts_tpu_torch.parallel import mesh
 from msmctts_tpu_torch.registry import get_dataset
 from msmctts_tpu_torch.training.optim import Optimizer
-from msmctts_tpu_torch.utils.checkpoint import find_latest_checkpoint, load_checkpoint, map_leaves, save_checkpoint
+from msmctts_tpu_torch.utils.checkpoint import (
+    filter_state_by_regex,
+    find_latest_checkpoint,
+    load_checkpoint,
+    map_leaves,
+    merge_states,
+    save_checkpoint,
+)
+from msmctts_tpu_torch.utils.logger import Logger
 from msmctts_tpu_torch.weights import init_random
 
 
@@ -76,21 +97,6 @@ def metrics_to_host(metrics: dict) -> Dict[str, float]:
         return {}
     values = torch.stack([torch.as_tensor(metrics[k], dtype=torch.float32).detach().reshape(()) for k in names])
     return dict(zip(names, values.cpu().tolist()))
-
-
-class TextLogger:
-    """Appends time-stamped lines to ``train_rank<rank>_<stamp>.log`` in the
-    save dir and echoes them to stdout."""
-
-    def __init__(self, log_dir: str, rank: int = 0):
-        os.makedirs(log_dir, exist_ok=True)
-        self.path = os.path.join(log_dir, f"train_rank{rank}_{time.strftime('%Y%m%d-%H%M%S')}.log")
-
-    def text(self, message: str):
-        line = f"[{time.strftime('%H:%M:%S')}] {message}"
-        with open(self.path, "a") as f:
-            f.write(line + "\n")
-        print(line, flush=True)
 
 
 def check_mesh_config(config, world: int):
@@ -122,6 +128,7 @@ class BaseTrainer:
         self.iters_per_checkpoint = int(config.get("iters_per_checkpoint", 50_000))
         self.seed = int(config.get("seed", 1234))
         self.iteration = 0
+        self.eval_interval = 0  # a trainer's eval_inteval_iters
         self.generator = torch.Generator(device=self.device).manual_seed(self.seed)
         self.optimizers: Dict[str, Optimizer] = {}
         for module in task.networks.values():
@@ -139,6 +146,9 @@ class BaseTrainer:
 
     def load_state_tree(self, state: dict):
         raise NotImplementedError
+
+    def evaluate(self, batch: dict, logger: Logger, iteration: int):
+        """Periodic qualitative summaries (audio, images) to ``logger``."""
 
     def restart_optimizer_counts(self, iteration: int):
         """Schedule positions after resuming a checkpoint that carries no
@@ -161,9 +171,12 @@ class BaseTrainer:
         restore = self.config.get("restore_checkpoint_path") or None
         pretrain = self.config.get("pretrain_checkpoint_path") or None
         path = latest or restore
-        if isinstance(path, (list, tuple)):
-            raise NotImplementedError("checkpoint stitching ([[regex, path], ...]) is not ported")
-        if path:
+        if isinstance(path, (list, tuple)):  # stitching: [[module_regex, path], ...]
+            state = self.state_tree()
+            for pattern, part_path in path:
+                state = merge_states(state, filter_state_by_regex(load_checkpoint(part_path)["state"], pattern))
+            self.load_state_tree(state)
+        elif path:
             self.load(path)
         elif pretrain:
             self.load_state_tree(load_checkpoint(pretrain)["state"])  # weights only
@@ -216,7 +229,8 @@ class BaseTrainer:
         batches = iter(loader)
         self.attempt_resume()
 
-        logger = TextLogger(self.save_dir, self.rank)
+        logger = Logger(self.save_dir, rank=self.rank)
+        logger.log_config(self.config.to_dict() if hasattr(self.config, "to_dict") else dict(self.config))
         stop_at = min(
             self.training_steps,
             self.iteration + max_steps if max_steps is not None else self.training_steps,
@@ -244,8 +258,14 @@ class BaseTrainer:
                 if self.iteration % log_every == 0:
                     host = metrics_to_host(metrics)
                     host["steps_per_sec"] = log_every / max(time.time() - t0, 1e-9)
+                    logger.log(self.iteration, {"loss": host})
                     logger.text(f"step {self.iteration} " + " ".join(f"{k}={v:.4f}" for k, v in host.items()))
                     t0 = time.time()
+                if self.eval_interval and self.iteration % self.eval_interval == 0:
+                    try:
+                        self.evaluate(batch, logger, self.iteration)
+                    except Exception as e:  # evaluation must never stop training
+                        logger.text(f"evaluate() failed at {self.iteration}: {e}")
                 if self.iteration % self.iters_per_checkpoint == 0:
                     self.save()
                 stop = mesh.agree_any(bool(preempted), self.group)
@@ -259,4 +279,5 @@ class BaseTrainer:
             batches.close()  # stops the loader's threads
             for sig, handler in prev_handlers.items():
                 signal.signal(sig, handler)
+            logger.close()
         return self

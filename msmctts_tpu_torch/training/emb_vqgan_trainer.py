@@ -43,8 +43,9 @@ its stages through ``csrc/vq_nearest.cu``, 2 launches per step.
 
 Checkpoints hold the JAX trainer's tree: ``params`` {autoencoder,
 discriminator, prosody_estimator}, ``codebook`` and ``model_state.batch_stats``.
-``evaluate()`` summaries wait for the tensorboard writer (ROADMAP A7), as for
-``VQGANTrainer``.
+``EmbVQGANTrainer.evaluate`` is ``VQGANTrainer``'s over the batch's first
+row of ``emb`` with its ``pitch``, ``energy`` and ``mel`` where the batch has
+them (``msmctts_tpu/training/emb_vqgan_trainer.py:377-420``).
 """
 
 from __future__ import annotations
@@ -113,6 +114,10 @@ class EmbVQGANTrainer(VQGANTrainer):
         self.d_opt.count = max(iteration - max(self.frame_loss_supervised_step, self.stft_loss_supervised_step), 0)
         if self.prosody is not None:
             self.pr_opt.count = iteration
+
+    def _eval_inputs(self, batch):
+        kwargs = {k: batch[k][:1] for k in ("pitch", "energy", "mel") if k in batch}
+        return (batch["emb"][:1], batch["emb_length"][:1]), kwargs, batch["emb_length"][:1]
 
     # ----------------------------------------------------------------- draws
     def draw_windows(self, B: int):

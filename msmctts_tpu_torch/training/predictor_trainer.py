@@ -60,7 +60,7 @@ class PredictorTrainer(BaseTrainer):
         task,
         group=None,
         grad_clip_thresh: float = 1.0,
-        eval_inteval_iters: int = 1000,  # accepted for YAML parity (reference spelling); evaluation summaries are not ported
+        eval_inteval_iters: int = 1000,  # accepted for YAML parity; the JAX trainer runs no evaluate() either
         training_methods=("mse",),
         loss_weights=(1.0,),
         lambda_dur: float = 1.0,

@@ -23,6 +23,11 @@ gradient and are frozen, so its backward computes input gradients only.
 At iteration == warmup_steps the step still runs the warmup graph, as the
 JAX package does.
 
+``evaluate`` (every ``eval_inteval_iters`` steps, where the logger has a
+writer): the analysis-synthesis of the step batch's first row through the
+autoencoder in ``eval()`` (the card's VQ and MRF kernels), its waveform and
+its predicted mel as a [0, 1] image.
+
 Data-parallel (``group``, see ``training/base_trainer.py``): the batch a
 step gets is this rank's block of the global batch. Every loss term is the
 rank's share of the global term (``training/losses.py``), each optimizer
@@ -82,7 +87,7 @@ class VQGANTrainer(BaseTrainer):
         group=None,
         warmup_steps: int = 0,
         lambda_frame: float = 1.0,
-        eval_inteval_iters: int = 1000,  # accepted for YAML parity (reference spelling); evaluation summaries are not ported
+        eval_inteval_iters: int = 1000,  # the reference's spelling, kept for YAML parity
         grad_clip_thresh: float = 1.0,
         sample_lengths: int = 24000,
         lambda_vq: float = 1.0,
@@ -106,6 +111,7 @@ class VQGANTrainer(BaseTrainer):
         self.stft_loss_func = stft_loss_func
         self.stft_loss_config = dict(stft_loss_config or {})
         self.samplerate = ds["samplerate"]
+        self.eval_interval = int(eval_inteval_iters or 0)
 
         self.ae = task.networks["autoencoder"]
         self.disc = task.networks["discriminator"]
@@ -248,6 +254,35 @@ class VQGANTrainer(BaseTrainer):
         return metrics
 
     # ------------------------------------------------------------------ api
+    def _eval_inputs(self, batch):
+        """(positional, keyword) inputs of the autoencoder's forward for the
+        batch's first row, and that row's length."""
+        return (batch["mel"][:1], batch["mel_length"][:1]), {}, batch["mel_length"][:1]
+
+    def evaluate(self, batch, logger, iteration):
+        """Analysis-synthesis of the batch's first row (on a group, this
+        rank's first; only rank 0 has a writer) to the logger: the waveform
+        and the normalized predicted mel (``msmctts_tpu/training/vqgan_trainer.py:409-446``).
+        Nothing without a writer."""
+        if logger.writer is None:
+            return
+        args, kwargs, length = self._eval_inputs(batch)
+        self.ae.eval()
+        try:
+            with torch.inference_mode():
+                out = self.ae(*args, **kwargs)
+        finally:
+            self.ae.train()
+        n = int(length[0])
+        wav = out["decoder_outputs"]
+        ratio = wav.shape[1] // args[0].shape[1]
+        payload = {"audio": {"eval/wav": (wav[0, : n * ratio, 0].float().cpu().numpy(), self.samplerate)}}
+        if out.get("mel_outputs") is not None:
+            m = out["mel_outputs"][0, :n].float().cpu().numpy().T  # [D, T]
+            m = (m - m.min()) / max(m.max() - m.min(), 1e-6)
+            payload["image"] = {"eval/pred_mel": m[..., None]}
+        logger.log(iteration, payload)
+
     def train_step(self, batch, iteration, starts=None):
         """One step on a device batch {'mel', 'mel_length', 'wav'}: the
         warmup graph while ``iteration <= warmup_steps``, else the GAN step.

@@ -12,6 +12,11 @@ optax classes. The reader never imports them (the port runs where JAX is
 not installed): every class of the JAX stack comes back as a
 :class:`ForeignState`, its fields as a tuple, which the port does not read.
 
+``filter_state_by_regex`` and ``merge_states`` stitch a state from parts
+of several checkpoints (a trainer's ``restore_checkpoint_path`` given as
+``[[regex, path], ...]``), on '/'-joined paths as the JAX package's do,
+without flax.
+
 Orbax checkpoints (directories) are not read yet.
 """
 
@@ -116,3 +121,44 @@ def find_latest_checkpoint(save_dir: str) -> Optional[str]:
         if f.startswith(CKPT_PREFIX) and not f.endswith(".tmp") and os.path.isfile(os.path.join(save_dir, f))
     ]
     return max(cands, key=checkpoint_step) if cands else None
+
+
+def _flatten(tree: dict, prefix=()) -> dict:
+    """Nested dicts -> {path tuple: leaf}; empty dicts vanish (flax's
+    ``flatten_dict``)."""
+    flat = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            flat.update(_flatten(v, prefix + (k,)))
+        else:
+            flat[prefix + (k,)] = v
+    return flat
+
+
+def _unflatten(flat: dict) -> dict:
+    tree: dict = {}
+    for path, v in flat.items():
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = v
+    return tree
+
+
+def filter_state_by_regex(state: dict, pattern: str) -> dict:
+    """The subtree of a nested state whose '/'-joined paths match
+    ``pattern`` (``re.search``): the module-regex partial load of checkpoint
+    stitching (``msmctts_tpu/utils/checkpoint.py:176-185``)."""
+    rx = re.compile(pattern)
+    return _unflatten({k: v for k, v in _flatten(state).items() if rx.search("/".join(map(str, k)))})
+
+
+def merge_states(base: dict, overlay: dict) -> dict:
+    """``base`` with every leaf that ``overlay`` has at the same path
+    replaced; paths only ``overlay`` has are dropped
+    (``msmctts_tpu/utils/checkpoint.py:188-200``)."""
+    flat = _flatten(base)
+    for k, v in _flatten(overlay).items():
+        if k in flat:
+            flat[k] = v
+    return _unflatten(flat)

@@ -58,7 +58,10 @@ def test_scan_covers_the_training_slice():
         "msmctts_tpu_torch/serving.py", "msmctts_tpu_torch/serve.py", "msmctts_tpu_torch/infer.py",
         "msmctts_tpu_torch/utils/plot.py", "msmctts_tpu_torch/models/tdnn.py",
         "msmctts_tpu_torch/models/msmc_vqgan_emb.py", "msmctts_tpu_torch/training/emb_vqgan_trainer.py",
-        "msmctts_tpu_torch/ops/int8_generator.py",
+        "msmctts_tpu_torch/ops/int8_generator.py", "msmctts_tpu_torch/ops/qat_int8.py",
+        "msmctts_tpu_torch/tools/__init__.py", "msmctts_tpu_torch/tools/qat_int8.py",
+        "msmctts_tpu_torch/tools/as_mcd_sweep.py", "msmctts_tpu_torch/utils/audio.py",
+        "msmctts_tpu_torch/utils/logger.py",
     ):
         assert rel in scanned, rel
 
@@ -90,8 +93,31 @@ def test_every_port_module_imports_without_the_jax_package():
     assert res.stdout.startswith("ok")
     assert "msmctts_tpu_torch.training.vqgan_trainer" in modules and "msmctts_tpu_torch.train" in modules
     assert "msmctts_tpu_torch.parallel.mesh" in modules and "msmctts_tpu_torch.train_dist" in modules
-    for m in ("streaming", "serving", "serve", "infer", "utils.plot"):
+    for m in ("streaming", "serving", "serve", "infer", "utils.plot", "tools.qat_int8", "tools.as_mcd_sweep",
+              "utils.audio", "utils.logger", "ops.qat_int8"):
         assert f"msmctts_tpu_torch.{m}" in modules
+
+
+@pytest.mark.parametrize("tool", ["qat_int8", "as_mcd_sweep"])
+def test_tools_run_as_modules_without_jax(tool):
+    """``python -m msmctts_tpu_torch.tools.<tool> --help`` in a fresh
+    interpreter: it parses its flags, and neither jax nor the JAX package is
+    in ``sys.modules`` after the import of the tool and all it imports."""
+    code = (
+        "import runpy, sys\n"
+        f"sys.argv = ['{tool}', '--help']\n"
+        "try:\n"
+        f"    runpy.run_module('msmctts_tpu_torch.tools.{tool}', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'msmctts_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('clean')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert "--device" in res.stdout and res.stdout.strip().endswith("clean")
 
 
 def test_entry_points_refuse_cpu_fallback(monkeypatch, tmp_path):
@@ -123,6 +149,12 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch, tmp_path):
     save_checkpoint(ckpt, {"params": {}}, 0, cfg.to_dict())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         synthesize.main(["-m", ckpt, "--text", "1_0_0", "-o", str(tmp_path / "o.wav")])
+    from msmctts_tpu_torch.tools import as_mcd_sweep, qat_int8
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        qat_int8.main(["--ckpt", ckpt, "--id-list", str(tmp_path / "ids")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        as_mcd_sweep.main(["--ckpt-dir", str(tmp_path), "-t", "x", "--ref-wav", "{}"])
 
 
 def test_kernel_wrappers_take_the_plain_version_only_on_cpu():
