@@ -129,8 +129,32 @@ Phases, each of which raises on failure:
      ``evaluate`` once (2 + 36 launches), its wav against the
      analysis-synthesis of that row, nothing without a writer; a state
      stitched from the fixture's encoder and the QAT decoder;
- 18. one JSON line describing each kernel;
- 19. last line: {"ok": true, "device": {...}}.
+ 18. the LJSpeech recipes (``examples/ljspeech/configs/``) at full width and
+     depth on seeded weights, 22.05 kHz with a 256-sample hop: (a)
+     analysis-synthesis of a batch of 4 (512 / 448 / 389 / 300 frames, bucket
+     512) with launches (2 ``vq_nearest``, 36 ``fused_resblock_layer``), wav
+     lengths of exactly 256 samples a frame, first and warm times, real-time
+     factor, both kernels held against their plain versions at this path's
+     shapes (kernel 5 at T = 4 096 / 32 768 / 65 536 / 131 072 per row for C =
+     256 / 128 / 64 / 32, with cuDNN's time and the 3xTF32 bound), a small
+     input against the CPU; (b) ``VQGANTrainer`` at the recipe's batch 16 and
+     windows of 11 264 samples from the fixture's encoder, quantizer and
+     codebook under a seeded decoder, 2 warmup + 2 GAN steps with times and
+     peak memory, kernel 2 held against plain on one step's inputs; one warmup and
+     one GAN step (the recipe's UnivNet discriminator) from equal state
+     against the CPU; (c) (b)'s checkpoint through ``python -m
+     msmctts_tpu_torch.tools.strip_checkpoint --f16``, a seeded full-width
+     LJSpeech AM over it, ``synthesize --static-frames 512`` against
+     ``predict``, then ``tools.load_test --spawn`` driving ``python -m
+     msmctts_tpu_torch.serve`` at batch 8 with 1, 4 and 16 clients (48
+     requests each, 8 streamed probes; no error, no cold shape, no kernel
+     build); (d) ``python -m msmctts_tpu_torch.train --profile DIR`` for 15
+     steps on a corpus written here, whose trace must name kernel 2; (e) a
+     reference-named checkpoint of seeded modules through
+     ``tools.convert_torch_checkpoint`` and ``infer`` on the result against
+     ``predict`` of the original modules;
+ 19. one JSON line describing each kernel;
+ 20. last line: {"ok": true, "device": {...}}.
 
 NCCL refuses two ranks on one device, so the two-rank phases use gloo, which
 moves CUDA tensors through host memory; the log names the backend. Their
@@ -227,30 +251,41 @@ def time_ms(fn, runs=10, reps=5, warmup=3):
     return statistics.median(times)
 
 
-def device_profile(fn, runs=20, attempts=3):
-    """Device time per call of ``fn()`` over ``runs`` calls (torch.profiler),
-    every kernel and fill it launches counted: what the card spends, where
-    ``time_ms`` of a short kernel shows the wrapper's host time per call.
-    -> {"ms", "launches" per call, "by_kernel": {name: ms per launch}}. Each
-    kernel counts with its mean time per launch: the tracer may drop a few.
-    A profiled window whose tracer kept fewer than half of a kernel's
-    launches is taken again, up to ``attempts`` windows."""
+def device_profile(fn, runs=20, windows=8):
+    """Device time per call of ``fn()`` over windows of ``runs`` calls
+    (torch.profiler), every kernel and fill it launches counted: what the card
+    spends, where ``time_ms`` of a short kernel shows the wrapper's host time
+    per call. -> {"ms", "launches" per call, "by_kernel": {name: ms per
+    launch}}. Each kernel counts with its mean time over the launches the
+    tracer kept. The tracer may drop launches, in some windows more than half
+    of them (9 of 20 of a short snap's, three windows running), so windows are
+    taken until every kernel seen has kept ``runs // 2`` launches in all, up to
+    ``windows`` windows. A kernel that a window shows more than ``runs`` times
+    launches more than once a call, which this function does not measure."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(attempts):
+    kept = {}  # kernel name -> [launches kept, device ms]
+    for _ in range(windows):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(runs):
                 fn()
             torch.cuda.synchronize()
         rows = _device_rows(prof)
-        if rows and all(runs // 2 <= r["count"] <= runs for r in rows):
+        over = [r for r in rows if r["count"] > runs]
+        if over:
+            raise AssertionError(f"profile of {runs} calls: kernels launched more than once a call: {over}")
+        for r in rows:
+            k = kept.setdefault(r["name"], [0, 0.0])
+            k[0] += r["count"]
+            k[1] += r["device_ms"]
+        if kept and all(c >= runs // 2 for c, _ in kept.values()):
             break
     else:
-        raise AssertionError(f"profile of {runs} calls, {attempts} windows, the last: {rows}")
-    by_kernel = {r["name"]: r["device_ms"] / r["count"] for r in rows}
-    return {"ms": sum(by_kernel.values()), "launches": sum(r["count"] for r in rows) / runs, "by_kernel": by_kernel}
+        raise AssertionError(f"profile of {runs} calls in {windows} windows kept too few launches: {kept}")
+    by_kernel = {name: ms / c for name, (c, ms) in kept.items()}
+    return {"ms": sum(by_kernel.values()), "launches": len(by_kernel), "by_kernel": by_kernel}
 
 
 def bound(bytes_moved, flops, peak_flops=PEAK_FP32):
@@ -748,21 +783,12 @@ def _train_batch(rng, lengths, T, n_mel=80, frameshift=300):
 def _build_trainer(device, warmup_steps, dropout=None, seed=1234, group=None):
     """The CSMSC autoencoder recipe through the normal construction, with
     the trained autoencoder of the fixture and a seeded discriminator."""
-    from msmctts_tpu_torch.config import Config, component_kwargs
+    from msmctts_tpu_torch.config import component_kwargs
     from msmctts_tpu_torch.registry import get_trainer
     from msmctts_tpu_torch.tasks import build_task
     from msmctts_tpu_torch.utils.checkpoint import load_checkpoint
 
-    cfg = Config(AE_YAML)
-    cfg.trainer["warmup_steps"] = warmup_steps
-    cfg["save_checkpoint_dir"] = os.path.join(SMOKE_DIR, "ckpt_ae")
-    cfg["seed"] = seed
-    if dropout is not None:
-        ae = cfg.task["autoencoder"]
-        for node in (ae["encoder_config"], ae["frame_decoder_config"]):
-            node["dropout"] = node["attn_dropout"] = dropout
-        ae["quantizer_config"]["dropout"] = dropout
-        ae["quantizer_config"]["prior_config"]["p_dropout"] = dropout
+    cfg = _recipe_config(AE_YAML, os.path.join(SMOKE_DIR, "ckpt_ae"), warmup_steps, dropout, seed)
     task = build_task(cfg, device=device, mode="train")
     trainer = get_trainer(cfg.trainer["_name"])(cfg, task, group=group, **component_kwargs(cfg.trainer))
     trainer.init_state()
@@ -1683,10 +1709,10 @@ def _phone_string(row):
     return " ".join("_".join(str(int(v)) for v in tok) for tok in row)
 
 
-def _hold_window_layers(gen, window, batch):
+def _hold_window_layers(gen, window, batch, stages=STAGES):
     """Kernel 5 against its plain version at the window decode's 36 layers
     (``batch`` rows of ``window`` frames), times summed per window decode."""
-    rows, worst = _resblock_layers(gen, batch, window, "window", runs=5, reps=3, warmup=1)
+    rows, worst = _resblock_layers(gen, batch, window, "window", runs=5, reps=3, warmup=1, stages=stages)
     total = {key: sum(r[key] for r in rows) for key in ("ms", "plain_ms")}
     total["bound_ms"] = sum(r["bound"][0] for r in rows)
     shapes = sorted({(r["C"], r["T"]) for r in rows}, reverse=True)
@@ -2572,18 +2598,21 @@ def phase_qs_tts(gen, card, with_profile=False):
 # the HiFi-GAN trunk's two stages (x6, x5: 18 MRF layers through kernel 5),
 # then the spectral head and the inverse STFT (hop 10, n_fft 40), x300 in all.
 ISTFT_YAML = os.path.join(ROOT, "examples", "csmsc", "configs", "msmc_vq_gan_istft.yaml")
-ISTFT_STAGES = [(256, 6), (128, 5)]  # the trunk: T = 6F / 30F
-ISTFT_LENGTHS = (512, 448, 389, 300)  # analysis-synthesis batch of 4, bucket 512
+ISTFT_LENGTHS = (512, 448, 389, 300)  # analysis-synthesis batch of 4, bucket 512 (phases 15-18)
 ISTFT_LAYERS = 18  # 2 stages x 3 blocks x 3 dilations
 
 
-def _istft_config(save_dir, warmup_steps=2, dropout=None, seed=1234):
+def _recipe_config(path, save_dir=None, warmup_steps=None, dropout=None, seed=1234):
+    """A shipped recipe's config with the smoke's save dir, warmup length,
+    seed and (``dropout``) every dropout rate of the autoencoder set."""
     from msmctts_tpu_torch.config import Config
 
-    cfg = Config(ISTFT_YAML)
-    cfg.trainer["warmup_steps"] = warmup_steps
-    cfg["save_checkpoint_dir"] = save_dir
+    cfg = Config(path)
     cfg["seed"] = seed
+    if save_dir is not None:
+        cfg["save_checkpoint_dir"] = save_dir
+    if warmup_steps is not None:
+        cfg.trainer["warmup_steps"] = warmup_steps
     if dropout is not None:
         ae = cfg.task["autoencoder"]
         for node in (ae["encoder_config"], ae["frame_decoder_config"]):
@@ -2593,7 +2622,8 @@ def _istft_config(save_dir, warmup_steps=2, dropout=None, seed=1234):
     return cfg
 
 
-def _istft_trainer(cfg, device):
+def _seeded_trainer(cfg, device):
+    """The recipe's trainer on seeded weights, decoder gains in [0.5, 1.5]."""
     from msmctts_tpu_torch.config import component_kwargs
     from msmctts_tpu_torch.registry import get_trainer
     from msmctts_tpu_torch.tasks import build_task
@@ -2605,24 +2635,35 @@ def _istft_trainer(cfg, device):
     return trainer
 
 
-def phase_istft_analysis_synthesis(gen, card, with_profile=False):
-    """(a) The ISTFT recipe's analysis-synthesis on seeded weights (decoder
-    gains in [0.5, 1.5])."""
-    from msmctts_tpu_torch.config import Config
+def _mrf_stages(decoder_config):
+    """(channels, upsample) per stage of a HiFi-GAN trunk: the shapes its MRF
+    layers run at."""
+    c0 = int(decoder_config["upsample_initial_channel"])
+    return [(c0 // 2 ** (i + 1), int(u)) for i, u in enumerate(decoder_config["upsample_rates"])]
+
+
+def _seeded_analysis_synthesis(gen, card, path, tag, what, seed, decoder, with_profile=False):
+    """A recipe's analysis-synthesis on seeded weights (decoder gains in [0.5,
+    1.5]; its decoder a ``decoder``): a small input against the CPU, then a
+    batch of 4 rows of ``ISTFT_LENGTHS`` frames in bucket 512 with launches
+    (2 ``vq_nearest`` and a ``fused_resblock_layer`` per MRF layer), wav
+    lengths of exactly the recipe's samples a frame, first and warm times, and
+    both kernels held against their plain versions at this path's shapes."""
     from msmctts_tpu_torch.tasks import build_task
     from msmctts_tpu_torch.weights import init_random, load_numpy_state, state_dict_numpy
 
-    cfg = Config(ISTFT_YAML)
+    cfg = _recipe_config(path)
     task = build_task(cfg, device="cuda")
     ae = task.networks["autoencoder"]
     init_random(ae, 1234)
     _audible(ae.decoder, 1234)
     ae.eval()
-    ratio, sr = ae.frameshift_ratio, task.samplerate
-    if ratio != 300 or type(ae.decoder).__name__ != "ISTFTGenerator":
-        raise AssertionError(f"ISTFT recipe: decoder {type(ae.decoder).__name__}, {ratio} samples per frame")
+    sr, ratio, stages = task.samplerate, ae.frameshift_ratio, _mrf_stages(ae.decoder_config)
+    if type(ae.decoder).__name__ != decoder:
+        raise AssertionError(f"{what} recipe: decoder {type(ae.decoder).__name__}, expected {decoder}")
     n_params = sum(p.numel() for p in ae.parameters())
-    rng = np.random.default_rng(15)
+    n_layers = 9 * len(stages)  # 3 blocks x 3 dilations per stage
+    rng = np.random.default_rng(seed)
 
     cpu = build_task(cfg, device="cpu")
     load_numpy_state(cpu.networks["autoencoder"], state_dict_numpy(ae))
@@ -2633,10 +2674,11 @@ def phase_istft_analysis_synthesis(gen, card, with_profile=False):
         gi = ae.analysis(torch.as_tensor(small["mel"], device="cuda"), torch.tensor([64], device="cuda"))
         ci = cpu.networks["autoencoder"].analysis(torch.as_tensor(small["mel"]), torch.tensor([64]))
     idx_equal = all(torch.equal(a.cpu(), b) for a, b in zip(gi["quantizer_indices"], ci["quantizer_indices"]))
-    log(f"[15] ISTFT autoencoder {n_params / 1e6:.1f}M parameters (seeded); analysis-synthesis T=64, card vs CPU: "
-        f"indices equal {idx_equal}, wav max abs err {err:.3g} (|wav| max {np.abs(want['wav'][0]).max():.3g})")
+    log(f"{tag} {what} autoencoder {n_params / 1e6:.1f}M parameters (seeded), {ratio} samples a frame, MRF stages "
+        f"(channels, upsample) {stages}; analysis-synthesis T=64 at {sr} Hz, card "
+        f"vs CPU: indices equal {idx_equal}, wav max abs err {err:.3g} (|wav| max {np.abs(want['wav'][0]).max():.3g})")
     if err > AS_TOL or not idx_equal or got["wav"][0].shape != (64 * ratio,):
-        raise AssertionError(f"ISTFT analysis-synthesis disagrees with the CPU: err {err}, indices equal {idx_equal}")
+        raise AssertionError(f"{what} analysis-synthesis disagrees with the CPU: err {err}, indices equal {idx_equal}")
     del cpu
 
     lengths = np.array(ISTFT_LENGTHS)
@@ -2652,11 +2694,11 @@ def phase_istft_analysis_synthesis(gen, card, with_profile=False):
     out = task.analysis_synthesis(batch)
     torch.cuda.synchronize()
     counts = _counts()
-    _check_wavs(out["wav"], lengths, 300, "ISTFT analysis-synthesis")
-    log(f"[15] analysis-synthesis B={len(lengths)} frames {lengths.tolist()} (bucket {FRAMES}): launches {counts}, "
+    _check_wavs(out["wav"], lengths, ratio, f"{what} analysis-synthesis")
+    log(f"{tag} analysis-synthesis B={len(lengths)} frames {lengths.tolist()} (bucket {FRAMES}): launches {counts}, "
         f"wav samples {[w.shape[0] for w in out['wav']]}, |wav| max {max(float(np.abs(w).max()) for w in out['wav']):.3g}")
-    if counts != {"vq_nearest": 2, "vq_nearest_stats": 0, "fused_resblock_layer": ISTFT_LAYERS}:
-        raise AssertionError(f"ISTFT analysis-synthesis launches {counts}, expected 2 VQ and {ISTFT_LAYERS} resblock")
+    if counts != {"vq_nearest": 2, "vq_nearest_stats": 0, "fused_resblock_layer": n_layers}:
+        raise AssertionError(f"{what} analysis-synthesis launches {counts}, expected 2 VQ and {n_layers} resblock")
     warm = []
     for _ in range(5):
         torch.cuda.synchronize()
@@ -2666,45 +2708,46 @@ def phase_istft_analysis_synthesis(gen, card, with_profile=False):
         warm.append((time.perf_counter() - t0) * 1e3)
     warm_ms = statistics.median(warm)
     audio_s = float(lengths.sum()) * ratio / sr
-    log(f"[15] ISTFT analysis-synthesis per batch on {card}: first {first_ms:.1f} ms, warm median {warm_ms:.1f} ms "
+    log(f"{tag} {what} analysis-synthesis per batch on {card}: first {first_ms:.1f} ms, warm median {warm_ms:.1f} ms "
         f"(runs {[round(w, 1) for w in warm]}), {audio_s:.2f} s of audio, {audio_s / warm_ms * 1e3:.1f}x real time")
-    profile = profile_call(lambda: task.analysis_synthesis(batch), "[15]", "ISTFT analysis-synthesis") if with_profile else None
+    profile = (profile_call(lambda: task.analysis_synthesis(batch), tag, f"{what} analysis-synthesis")
+               if with_profile else None)
 
-    snap_rows = _hold_snaps(_snap_rows(ae, lambda: task.analysis_synthesis(batch)), "ISTFT analysis-synthesis", "[15]")
-    rows, worst = _resblock_layers(gen, len(lengths), FRAMES, "istft decode", library=True, stages=ISTFT_STAGES)
+    snap_rows = _hold_snaps(_snap_rows(ae, lambda: task.analysis_synthesis(batch)), f"{what} analysis-synthesis", tag)
+    rows, worst = _resblock_layers(gen, len(lengths), FRAMES, f"{what} decode", library=True, stages=stages)
     keys = ("ms", "plain_ms", "library_ms", "bound_fp32_ms")
     rb_total = {key: sum(r[key] for r in rows) for key in keys}
     rb_total["bound_ms"] = sum(r["bound"][0] for r in rows)
     rb_total["max_abs_err"] = worst
     rb_total["shapes"] = sorted({(r["C"], r["T"]) for r in rows}, reverse=True)
     rb_total["per_width"] = {C: {k: sum(r[k] for r in rows if r["C"] == C) for k in ("ms", "library_ms", "plain_ms")}
-                             for C, _ in ISTFT_STAGES}
-    log(f"[15] resblock, all {ISTFT_LAYERS} layers of one ISTFT decode (B={len(lengths)}, {FRAMES} frames; kernel / "
+                             for C, _ in stages}
+    log(f"{tag} resblock, all {n_layers} layers of one {what} decode (B={len(lengths)}, {FRAMES} frames; kernel / "
         f"plain / cuDNN fp32 / 3xTF32 bound): {json.dumps(rb_total)}")
     return {"params": n_params, "cpu_wav_err": err, "launches": counts, "first_ms": first_ms, "warm_ms": warm_ms,
             "warm_runs_ms": warm, "audio_s": audio_s, "rtf_x": audio_s / warm_ms * 1e3, "snap": snap_rows,
             "resblock": rb_total, "resblock_rows": rows, "profile": profile}
 
 
-def phase_istft_training(card, with_profile=False):
-    """(b) ``VQGANTrainer`` on the ISTFT recipe: 2 warmup + 2 GAN steps at
-    batch 16 (bucket 400, windows of 12 000 samples = 40 frames, which the
-    decoder must turn into exactly 12 000 samples); the trained autoencoder
-    saved as a checkpoint."""
+def _recipe_training(make_trainer, batch_np, lengths, card, tag, what, with_profile=False):
+    """2 warmup + 2 GAN steps of ``make_trainer()`` (``warmup_steps`` 2) at
+    batch 16 (bucket 400) with the windows of its recipe, which the decoder
+    must emit exactly: launches (2 ``vq_nearest_stats`` a step), which
+    tensors moved, first and warm ms, peak memory, kernel 2 held against
+    plain on one step's inputs; the state saved as ``model_4``."""
     from msmctts_tpu_torch.data.loader import to_device
     from msmctts_tpu_torch.training.base_trainer import metrics_to_host
 
     torch.cuda.empty_cache()
     base_gib = torch.cuda.memory_allocated() / 2**30
     torch.cuda.reset_peak_memory_stats()
-    trainer = _istft_trainer(_istft_config(os.path.join(SMOKE_DIR, "ckpt_istft")), "cuda")
+    trainer = make_trainer()
     ae, disc = trainer.ae, trainer.disc
-    batch_np, lengths, _ = _training_batch()
     batch = to_device(batch_np, "cuda")
     window = trainer.sample_lengths
     emitted = []
     hook = ae.decoder.register_forward_hook(lambda m, a, o: emitted.append(tuple(o.shape)))
-    log(f"[15] ISTFT recipe training: {sum(p.numel() for p in ae.parameters()) / 1e6:.1f}M + discriminator "
+    log(f"{tag} {what} recipe training: {sum(p.numel() for p in ae.parameters()) / 1e6:.1f}M + discriminator "
         f"{sum(p.numel() for p in disc.parameters()) / 1e6:.1f}M parameters; batch {TRAIN_B}, frames "
         f"{lengths.min()}-{lengths.max()} (bucket {TRAIN_FRAMES}), windows of {window} samples "
         f"({trainer.frame_lengths} frames)")
@@ -2724,19 +2767,19 @@ def phase_istft_training(card, with_profile=False):
         host = metrics_to_host(metrics)
         bad = [k for k, v in host.items() if not np.isfinite(v)]
         if bad:
-            raise AssertionError(f"ISTFT train step {it}: non-finite metrics {bad}")
+            raise AssertionError(f"{what} train step {it}: non-finite metrics {bad}")
         if counts != {"vq_nearest": 0, "vq_nearest_stats": 2, "fused_resblock_layer": 0}:
-            raise AssertionError(f"ISTFT train step {it}: launches {counts}, expected 2 vq_nearest_stats only")
+            raise AssertionError(f"{what} train step {it}: launches {counts}, expected 2 vq_nearest_stats only")
         if emitted != ([] if phase == "warmup" else [(TRAIN_B, window, 1)]):
-            raise AssertionError(f"ISTFT train step {it} ({phase}): the decoder emitted {emitted}, "
+            raise AssertionError(f"{what} train step {it} ({phase}): the decoder emitted {emitted}, "
                                  f"expected {TRAIN_B} windows of {window} samples")
         ae_moved, d_moved = _moved(ae, ae_before), _moved(disc, d_before)
         if ae_moved == 0 or (phase == "warmup") != (d_moved == 0):
-            raise AssertionError(f"ISTFT train step {it} ({phase}): moved ae {ae_moved}, discriminator {d_moved}")
+            raise AssertionError(f"{what} train step {it} ({phase}): moved ae {ae_moved}, discriminator {d_moved}")
         steps.append({"iteration": it, "phase": phase, "ms": ms, "launches": counts, "metrics": host,
                       "ae_tensors_moved": ae_moved, "d_tensors_moved": d_moved})
         shown = {k: round(host[k], 4) for k in ("g_loss", "vq_loss", "frame_loss", "d_loss", "stft_loss", "fm_loss") if k in host}
-        log(f"[15] ISTFT step {it} ({phase}): {ms:.1f} ms, launches {counts}, moved ae {ae_moved} d {d_moved}, {shown}")
+        log(f"{tag} {what} step {it} ({phase}): {ms:.1f} ms, launches {counts}, moved ae {ae_moved} d {d_moved}, {shown}")
     hook.remove()
 
     def timed(it):
@@ -2750,46 +2793,56 @@ def phase_istft_training(card, with_profile=False):
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     stats = _stats_rows(ae, lambda: trainer.train_step(batch, 8))
     if len(stats) != 2:
-        raise AssertionError(f"ISTFT train step: {len(stats)} quantizer calls, expected 2")
+        raise AssertionError(f"{what} train step: {len(stats)} quantizer calls, expected 2")
     result = {"steps": steps, "warm_ms": {k: statistics.median(v) for k, v in warm.items()}, "warm_runs_ms": warm,
               "peak_memory_gib": peak_gib, "peak_above_start_gib": peak_gib - base_gib,
-              "launches_per_step": steps[-1]["launches"], "stats": _hold_stats(stats, "ISTFT train step", "[15]")}
-    log(f"[15] ISTFT per train step on {card}: first {[round(st['ms'], 1) for st in steps]} ms; warm median "
+              "launches_per_step": steps[-1]["launches"], "stats": _hold_stats(stats, f"{what} train step", tag)}
+    log(f"{tag} {what} per train step on {card}: first {[round(st['ms'], 1) for st in steps]} ms; warm median "
         f"{json.dumps({k: round(v, 1) for k, v in result['warm_ms'].items()})} ms; peak memory {peak_gib:.2f} GiB")
     if with_profile:
-        result["profile"] = profile_call(lambda: trainer.train_step(batch, 9), "[15]", "ISTFT GAN step")
+        result["profile"] = profile_call(lambda: trainer.train_step(batch, 9), tag, f"{what} GAN step")
     trainer.iteration = 4
     result["checkpoint"] = trainer.save()
-    log(f"[15] trained ISTFT autoencoder -> {os.path.relpath(result['checkpoint'], ROOT)}")
+    log(f"{tag} trained {what} autoencoder -> {os.path.relpath(result['checkpoint'], ROOT)}")
     return result
 
 
-def phase_istft_step_card_vs_cpu():
-    """One warmup and one GAN step of the ISTFT recipe from equal state on the
-    card and on the CPU (2 short utterances, dropout 0, given window starts).
-    The state is the seeded ISTFT decoder and discriminator with the trained
-    fixture's encoder, quantizer and codebook (the recipe shares their
-    shapes): a seeded codebook has codewords with a cluster size near 0, where
-    the EMA's division magnifies the sums' rounding past any absolute bound."""
-    from msmctts_tpu_torch.data.loader import to_device
-    from msmctts_tpu_torch.training.base_trainer import metrics_to_host
+def _from_fixture(trainer):
+    """The trained fixture's encoder, quantizer and codebook (the ISTFT and
+    LJSpeech recipes share their shapes with CSMSC's) under the trainer's
+    seeded decoder and discriminator. A seeded codebook has near-empty clusters,
+    whose EMA division magnifies rounding (a card-vs-CPU step) and whose
+    codewords can pass float16's range (a stripped copy)."""
     from msmctts_tpu_torch.utils.checkpoint import load_checkpoint
     from msmctts_tpu_torch.weights import train_state_from_jax, train_state_to_jax
 
-    rng = np.random.default_rng(16)
-    batch = _train_batch(rng, [64, 48], 64)
+    state = train_state_to_jax(trainer.ae, trainer.disc)
+    fixture = load_checkpoint(FIXTURE)["state"]
+    state["params"]["autoencoder"].update({k: v for k, v in fixture["params"]["autoencoder"].items() if k != "decoder"})
+    state["codebook"] = fixture["codebook"]
+    train_state_from_jax(state, trainer.ae, trainer.disc)
+    return state
+
+
+def _step_card_vs_cpu(path, lengths, frameshift, seed, tag, what):
+    """One warmup and one GAN step of the recipe at ``path`` from equal state
+    on the card and on the CPU: 2 short utterances, dropout 0, given window
+    starts; the state is ``_from_fixture``'s."""
+    from msmctts_tpu_torch.data.loader import to_device
+    from msmctts_tpu_torch.training.base_trainer import metrics_to_host
+    from msmctts_tpu_torch.weights import train_state_from_jax
+
+    rng = np.random.default_rng(seed)
+    batch = _train_batch(rng, lengths, max(lengths), frameshift=frameshift)
     starts = np.array([11, 3])
     out, state = {}, None
     for device in ("cuda", "cpu"):
-        trainer = _istft_trainer(_istft_config(os.path.join(SMOKE_DIR, "ckpt_istft_step"), warmup_steps=1, dropout=0.0),
-                                 device)
+        cfg = _recipe_config(path, os.path.join(SMOKE_DIR, "ckpt_step_card_vs_cpu"), warmup_steps=1, dropout=0.0)
+        trainer = _seeded_trainer(cfg, device)
         if state is None:
-            state = train_state_to_jax(trainer.ae, trainer.disc)
-            fixture = load_checkpoint(FIXTURE)["state"]
-            state["params"]["autoencoder"].update(
-                {k: v for k, v in fixture["params"]["autoencoder"].items() if k != "decoder"})
-            state["codebook"] = fixture["codebook"]
-        train_state_from_jax(state, trainer.ae, trainer.disc)
+            state = _from_fixture(trainer)
+        else:
+            train_state_from_jax(state, trainer.ae, trainer.disc)
         indices = []
         hooks = [q.register_forward_hook(lambda m, a, o: indices.append(o[2].cpu())) for q in trainer.ae.quantizer.quantizer]
         dev_batch = to_device(batch, device)
@@ -2797,8 +2850,7 @@ def phase_istft_step_card_vs_cpu():
         m2 = metrics_to_host(trainer.train_step(dev_batch, 2, starts=torch.as_tensor(starts, device=device)))
         for h in hooks:
             h.remove()
-        out[device] = {"warmup": m1, "gan": m2, "indices": indices,
-                       "codebook": [(q.embed.cpu(), q.cluster_size.cpu(), q.embed_avg.cpu()) for q in trainer.ae.quantizer.quantizer]}
+        out[device] = {"warmup": m1, "gan": m2, "indices": indices, "codebook": _codebook_state(trainer.ae)}
         del trainer
     worst = {"loss_rel": 0.0, "codebook_abs": 0.0}
     for phase in ("warmup", "gan"):
@@ -2807,16 +2859,16 @@ def phase_istft_step_card_vs_cpu():
             rel = abs(got - want) / max(abs(want), 1e-3)
             worst["loss_rel"] = max(worst["loss_rel"], rel)
             if rel > STEP_TOL["loss_rtol"]:
-                raise AssertionError(f"ISTFT {phase} step, {k}: card {got} vs CPU {want}")
+                raise AssertionError(f"{what} {phase} step, {k}: card {got} vs CPU {want}")
     same = all(torch.equal(a, b) for a, b in zip(out["cuda"]["indices"], out["cpu"]["indices"]))
     for a, b in zip(out["cuda"]["codebook"], out["cpu"]["codebook"]):
         for x, y in zip(a, b):
             worst["codebook_abs"] = max(worst["codebook_abs"], float((x - y).abs().max()))
-    log(f"[15] one ISTFT warmup + one GAN step, card vs CPU (B=2, 64 frames): indices equal {same} "
+    log(f"{tag} one {what} warmup + one GAN step, card vs CPU (B=2, {max(lengths)} frames): indices equal {same} "
         f"({len(out['cuda']['indices'])} stage passes), worst loss rel diff {worst['loss_rel']:.3g}, "
         f"worst codebook abs diff {worst['codebook_abs']:.3g}")
     if not same or worst["codebook_abs"] > STEP_TOL["codebook_atol"]:
-        raise AssertionError(f"ISTFT train step disagrees with the CPU: indices equal {same}, {worst}")
+        raise AssertionError(f"{what} train step disagrees with the CPU: indices equal {same}, {worst}")
     return {**worst, "indices_equal": same, "card": {k: out["cuda"][k] for k in ("warmup", "gan")},
             "cpu": {k: out["cpu"][k] for k in ("warmup", "gan")}}
 
@@ -2914,7 +2966,7 @@ def phase_istft_entry_points(card):
 
     d = os.path.join(SMOKE_DIR, "istft_corpus")
     ids, frames = _write_mel_corpus(d)
-    cfg = _istft_config(os.path.join(SMOKE_DIR, "ckpt_istft_cli"), warmup_steps=1)
+    cfg = _recipe_config(ISTFT_YAML, os.path.join(SMOKE_DIR, "ckpt_istft_cli"), warmup_steps=1)
     shutil.rmtree(cfg["save_checkpoint_dir"], ignore_errors=True)
     cfg["dataloader"] = {"batch_size": 4, "num_workers": 2}
     cfg.dataset["id_list"] = os.path.join(d, "train.list")
@@ -2957,9 +3009,12 @@ def phase_istft_entry_points(card):
 def phase_istft(gen, card, with_profile=False):
     """Phase 15, (a) to (d)."""
     t0 = time.perf_counter()
-    result = {"analysis_synthesis": phase_istft_analysis_synthesis(gen, card, with_profile)}
-    result["training"] = phase_istft_training(card, with_profile)
-    result["step_card_vs_cpu"] = phase_istft_step_card_vs_cpu()
+    result = {"analysis_synthesis": _seeded_analysis_synthesis(gen, card, ISTFT_YAML, "[15]", "ISTFT", 15,
+                                                              "ISTFTGenerator", with_profile)}
+    batch_np, lengths, _ = _training_batch()
+    make = lambda: _seeded_trainer(_recipe_config(ISTFT_YAML, os.path.join(SMOKE_DIR, "ckpt_istft"), warmup_steps=2), "cuda")
+    result["training"] = _recipe_training(make, batch_np, lengths, card, "[15]", "ISTFT", with_profile)
+    result["step_card_vs_cpu"] = _step_card_vs_cpu(ISTFT_YAML, [64, 48], 300, 16, "[15]", "ISTFT")
     result["predict"] = phase_istft_predict(card, result["training"]["checkpoint"])
     result["entry_points"] = phase_istft_entry_points(card)
     result["phase_s"] = time.perf_counter() - t0
@@ -3858,6 +3913,419 @@ def phase_quality_tools(gen, card, with_profile=False):
     return result
 
 
+# ------------------------------------------------------------- LJSpeech
+# Phase 18: the LJSpeech recipes (examples/ljspeech/configs/) at full width
+# and depth on seeded weights (the repository holds no LJSpeech audio or
+# checkpoint), and the tools of this slice: strip, synthesize
+# --static-frames, the load generator against the daemon, train --profile
+# and the reference-checkpoint converter.
+LJ_AE_YAML = os.path.join(ROOT, "examples", "ljspeech", "configs", "msmc_vq_gan.yaml")
+LJ_AM_YAML = os.path.join(ROOT, "examples", "ljspeech", "configs", "msmc_vq_gan_am.yaml")
+LJ_DIR = os.path.join(SMOKE_DIR, "ljspeech")
+LJ_HOP, LJ_SR = 256, 22050
+LJ_LOAD_LEVELS = (1, 4, 16)
+LJ_LOAD_REQUESTS = 48
+LJ_SERVE_B = 8
+# the daemon held to the in-process engine: 16 clients, every 8th request streamed, over
+# 24 texts of load_test's 24-96 tokens; enough requests for a p99 of the blocking ones
+LJ_DAEMON_CLIENTS, LJ_DAEMON_REQUESTS, LJ_DAEMON_TEXTS = 16, 512, 24
+LJ_STATIC_FRAMES = 512
+LJ_PROFILE_STEPS = 15  # the trace covers steps 10-14 (the train CLI's window)
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _lj_phones(rng, n):
+    return " ".join(str(int(v)) for v in rng.integers(1, 256, n))
+
+
+def phase_lj_tools(card, ae_ckpt, seed=1234):
+    """(c) ``tools.strip_checkpoint --f16`` of (b)'s checkpoint as a
+    subprocess; a seeded full-width LJSpeech AM over the stripped
+    autoencoder; ``synthesize --static-frames`` against ``predict``; the
+    daemon at batch 8 under ``tools.load_test --spawn`` at 1, 4 and 16
+    clients."""
+    from scipy.io import wavfile
+
+    from msmctts_tpu_torch.ops import cuda_build
+    from msmctts_tpu_torch.tasks import build_task
+    from msmctts_tpu_torch.utils.checkpoint import read_checkpoint, save_checkpoint
+    from msmctts_tpu_torch.weights import init_random, multi_stage_predictor_to_jax, state_dict_numpy
+
+    stripped = os.path.join(LJ_DIR, "ae_stripped.f16.ckpt")
+    res, strip_s = _subprocess("strip_checkpoint", "msmctts_tpu_torch.tools.strip_checkpoint", ae_ckpt, "-o", stripped,
+                               "--f16")
+    slim = read_checkpoint(stripped)
+    leaves = _flat_tree(slim["state"]).values()
+    dtypes = sorted({str(v.dtype) for v in leaves})
+    if set(slim["state"]) - {"params", "codebook", "model_state"} or "discriminator" in slim["state"]["params"] \
+            or dtypes != ["float16"] or not all(np.isfinite(v).all() for v in leaves):
+        raise AssertionError(f"stripped checkpoint: keys {sorted(slim['state'])}, dtypes {dtypes}, or a leaf not finite")
+    log(f"[18] strip_checkpoint --f16 ({strip_s:.1f}s): {res.stdout.strip()}; leaves {dtypes}")
+
+    cfg = _recipe_config(LJ_AM_YAML)
+    cfg.task["autoencoder"]["_checkpoint"] = stripped
+    cfg.task["autoencoder"].pop("_config", None)  # the stripped checkpoint's embedded config
+    task = build_task(cfg, device="cuda")
+    predictor = task.networks["predictor"]
+    init_random(predictor, seed)
+    predictor.bias_durations(4.2)
+    am_path = os.path.join(LJ_DIR, "am_seeded.ckpt")
+    save_checkpoint(am_path, {"params": {"predictor": multi_stage_predictor_to_jax(state_dict_numpy(predictor))}}, 0,
+                    cfg.to_dict())
+    task.pre_infer()
+    n_params = sum(p.numel() for p in predictor.parameters())
+    log(f"[18] seeded LJSpeech acoustic model: {n_params / 1e6:.1f}M parameters (n_symbols {list(predictor.n_symbols)}) "
+        f"over the stripped autoencoder -> {os.path.relpath(am_path, ROOT)}")
+
+    rng = np.random.default_rng(seed)
+    text = _lj_phones(rng, 64)  # ~330 frames: padded in the static bucket of 512
+    wav_path = os.path.join(LJ_DIR, "synthesize_static.wav")
+    res, syn_s = _subprocess("synthesize --static-frames", "msmctts_tpu_torch.synthesize", "-m", am_path, "--text", text,
+                             "-o", wav_path, "--static-frames", str(LJ_STATIC_FRAMES))
+    sr, pcm = wavfile.read(wav_path)
+    tokens = np.array([[int(t)] for t in text.split()])
+    task.static_max_frames = LJ_STATIC_FRAMES
+    _reset_counts()
+    want = task.predict({"text": tokens[None], "text_length": np.array([len(tokens)])})
+    counts = _counts()
+    task.static_max_frames = None
+    want_wav = want["wav"][0]
+    _check_wavs([want_wav], want["mel_length"], LJ_HOP, "LJSpeech predict")
+    err = float(np.abs(pcm / 32767.0 - want_wav).max()) if pcm.shape == want_wav.shape else float("inf")
+    log(f"[18] synthesize --static-frames {LJ_STATIC_FRAMES} ({syn_s:.1f}s): {res.stdout.strip().splitlines()[-1]}; "
+        f"{pcm.shape[0]} samples at {sr} Hz vs predict in process ({int(want['mel_length'][0])} frames, launches "
+        f"{counts}): max abs err {err:.3g}")
+    if sr != LJ_SR or not err <= AS_TOL or counts != {"vq_nearest": 4, "vq_nearest_stats": 0, "fused_resblock_layer": 36}:
+        raise AssertionError(f"synthesize --static-frames vs predict: sr {sr}, err {err}, launches {counts}")
+
+    # the daemon at batch 8 under the load generator, both as subprocesses
+    out_json = os.path.join(LJ_DIR, "load_test.json")
+    builds_before = cuda_build.build_count()
+    port = _free_port()
+    res, load_s = _subprocess(
+        "load_test", "msmctts_tpu_torch.tools.load_test", "--spawn", "--levels", *map(str, LJ_LOAD_LEVELS),
+        "--requests", str(LJ_LOAD_REQUESTS), "--n-symbols", "256", "--sample-rate", str(LJ_SR), "--out", out_json,
+        "--warmup-timeout", str(SERVE_TIMEOUT_S), "--", "-m", am_path, "--port", str(port),
+        "--batch-size", str(LJ_SERVE_B), "--max-frames", str(SERVE_MAX_FRAMES), timeout=900)
+    warm_line = [line for line in res.stdout.splitlines() if line.startswith("warmup:")]
+    report = json.load(open(out_json))
+    levels = report["levels"]
+    for row in levels:
+        w = row["server_window"]
+        log(f"[18] load_test on {card}, {row['concurrency']} clients: {row['requests']} requests in {row['wall_s']} s, "
+            f"{row['requests_per_s']} req/s, latency p50 / p95 / p99 {row['latency_s']['p50'] * 1e3:.1f} / "
+            f"{row['latency_s']['p95'] * 1e3:.1f} / {row['latency_s']['p99'] * 1e3:.1f} ms, {row['client_errors']} "
+            f"client errors; server: {w['batches']} batches, mean size {w['mean_batch_size']}, errors {w['errors']}, "
+            f"cold shapes {w['cold_shapes']}, kernel builds {w['kernel_builds']}, device RTF {w['device_realtime_factor']}")
+    stream = report["streaming"]
+    log(f"[18] load_test streaming, {stream['requests']} sequential: time to first audio p50 / p95 / p99 "
+        f"{stream['ttfa_s']['p50'] * 1e3:.1f} / {stream['ttfa_s']['p95'] * 1e3:.1f} / {stream['ttfa_s']['p99'] * 1e3:.1f} ms")
+    log(f"[18] load_test ({load_s:.1f}s): cold_shapes_during_run {report['cold_shapes_during_run']}, "
+        f"kernel_builds_during_run {report['kernel_builds_during_run']}; daemon {warm_line[0] if warm_line else '?'}")
+    bad = [row["concurrency"] for row in levels
+           if row["client_errors"] or row["server_window"]["errors"] or row["requests"] != LJ_LOAD_REQUESTS]
+    if bad or report["cold_shapes_during_run"] or report["kernel_builds_during_run"] or \
+            [row["concurrency"] for row in levels] != list(LJ_LOAD_LEVELS):
+        raise AssertionError(f"load_test: levels with errors {bad}, report {json.dumps(report)[:2000]}")
+    if not warm_line or not warm_line[0].rstrip().endswith("kernel builds 0)"):
+        raise AssertionError(f"the daemon built kernels at startup or printed no warmup line: {warm_line}")
+    if cuda_build.build_count() != builds_before:
+        raise AssertionError("this process built a kernel during the load test")
+    return {"strip_s": strip_s, "stripped_dtypes": dtypes, "am_params": n_params, "am_path": am_path,
+            "synthesize_static_err": err, "synthesize_launches": counts,
+            "frames": int(want["mel_length"][0]), "load_test": report, "load_test_s": load_s}
+
+
+def phase_lj_daemon(gen, card, am_path, seed=1234):
+    """(c) continued: the daemon at batch 8 as ``load_test`` drives it. Both
+    kernels against their plain versions at its largest warm shapes (bucket
+    512: kernel 1 on the inputs of a served batch, kernel 5 at its 36 layers),
+    then the daemon as a subprocess under 16 clients, every request it
+    serves held to the same request alone in the in-process engine, with
+    client-clock latency percentiles of the blocking ones."""
+    import queue
+    import threading
+
+    from msmctts_tpu_torch.ops import cuda_build
+    from msmctts_tpu_torch.serving import BatchingEngine
+    from msmctts_tpu_torch.tools.load_test import percentiles
+
+    t_start = time.perf_counter()
+    task = _load_tts_task(am_path, "cuda")
+    eng = BatchingEngine(task, sample_rate=task.samplerate, batch_size=LJ_SERVE_B, window_ms=0.0,
+                         max_frames=SERVE_MAX_FRAMES, stream_chunk_frames=SERVE_CHUNK)
+    ae = task.networks["autoencoder"]
+    F, L = SERVE_MAX_FRAMES, eng.text_length
+    # a full batch at the largest frame bucket, as the engine pads it and as its warmup forces it
+    batch = {"text": eng._warmup_text(L), "text_length": np.full((LJ_SERVE_B,), L, np.int32),
+             "dur": eng._forced_durations(L, F - task.frame_margin)}
+    task.predict(batch)
+    _reset_counts()
+    snaps = _snap_rows(ae, lambda: task.predict(batch))
+    counts = _counts()
+    want_n = [LJ_SERVE_B * F // s for s in task.networks["predictor"].n_pred_scale]  # [4, 1]: N = 8F/4, 8F
+    if [s["x"].shape[0] for s in snaps] != want_n or \
+            counts != {"vq_nearest": 4, "vq_nearest_stats": 0, "fused_resblock_layer": 36}:
+        raise AssertionError(f"daemon batch at bucket {F}: snaps of N {[s['x'].shape[0] for s in snaps]}, launches {counts}")
+    snap_rows = _hold_snaps(snaps, f"LJSpeech daemon batch (B={LJ_SERVE_B}, bucket {F})", "[18]")
+    layers = _hold_window_layers(gen, F, LJ_SERVE_B, stages=_mrf_stages(ae.decoder_config))
+    log(f"[18] fused_resblock_layer at the daemon's 36 layers (B={LJ_SERVE_B}, bucket {F}: "
+        f"{[(s['C'], s['T']) for s in layers['shapes']]}) on {card}: max abs err {layers['max_abs_err']:.3g}, per decode "
+        f"{layers['ms']:.3f} ms kernel, {layers['plain_ms']:.3f} ms plain, bound {layers['bound_ms']:.3f} ms")
+
+    rng = np.random.default_rng(seed + 4)
+    texts = [_lj_phones(rng, int(n)) for n in rng.integers(24, 97, LJ_DAEMON_TEXTS)]
+    requests = [(texts[i % len(texts)], i % 8 == 7) for i in range(LJ_DAEMON_REQUESTS)]
+    eng.start(warmup={})
+    try:
+        alone = {t: eng.synthesize(t, timeout=SERVE_TIMEOUT_S) for t in texts}
+    finally:
+        eng.stop()
+    builds_before = cuda_build.build_count()
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    cmd = [sys.executable, "-m", "msmctts_tpu_torch.serve", "-m", am_path, "--port", "0", "--batch-size",
+           str(LJ_SERVE_B), "--max-frames", str(SERVE_MAX_FRAMES)]
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(line) for line in proc.stdout], daemon=True).start()
+    try:
+        warm_line = _wait_for_line(lines, "warmup:", proc, SERVE_TIMEOUT_S, "[18]")
+        port = int(_wait_for_line(lines, "serving on", proc, 60, "[18]").rsplit(":", 1)[1])
+        before = json.loads(_http(port, "GET", "/stats")[1])
+        results = [None] * len(requests)
+
+        def client(worker):
+            for i in range(worker, len(requests), LJ_DAEMON_CLIENTS):
+                t, stream = requests[i]
+                results[i] = _http(port, "POST", "/synthesize", {"text": t, "stream": stream})
+
+        threads = [threading.Thread(target=client, args=(w,)) for w in range(LJ_DAEMON_CLIENTS)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(SERVE_TIMEOUT_S)
+        load_s = time.perf_counter() - t0
+        if any(r is None for r in results):
+            raise AssertionError("the LJSpeech daemon's load did not finish")
+        stats = json.loads(_http(port, "GET", "/stats")[1])
+        if proc.poll() is not None:
+            raise AssertionError(f"the LJSpeech daemon died with {proc.returncode}")
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(30)
+    worst, audio_s = 0.0, 0.0
+    for (t, stream), (status, data, _, _) in zip(requests, results):
+        if status != 200:
+            raise AssertionError(f"LJSpeech daemon, {len(t.split())} phones (stream {stream}): {status} {data[:300]!r}")
+        pcm = _pcm(data, stream) / 32767.0
+        if pcm.shape != alone[t].shape or not np.abs(pcm).max() > 1e-3:
+            raise AssertionError(f"LJSpeech daemon: {pcm.shape} samples, in-process {alone[t].shape} (stream {stream})")
+        worst = max(worst, float(np.abs(pcm - alone[t]).max()))
+        audio_s += pcm.shape[0] / LJ_SR
+    blocking = [r[3] for (_, s), r in zip(requests, results) if not s]
+    first = [r[2] for (_, s), r in zip(requests, results) if s]
+    lat, ttfa = percentiles(blocking), percentiles(first)
+    slowest = max((i for i, (_, s) in enumerate(requests) if not s), key=lambda i: results[i][3])
+    batches = stats["batches"] - before["batches"]
+    window = {"batches": batches, "requests": stats["requests"] - before["requests"],
+              "errors": stats["errors"], "cold_shapes": stats["cold_shapes"], "kernel_builds": stats["kernel_builds"]}
+    log(f"[18] LJSpeech daemon on {card}, batch {LJ_SERVE_B}, {LJ_DAEMON_CLIENTS} clients: {len(requests)} requests "
+        f"({len(first)} streamed) over {len(texts)} texts in {load_s:.2f} s ({len(requests) / load_s:.1f} req/s, "
+        f"{audio_s:.1f} s of audio), {batches} batches; blocking latency (client clock, {len(blocking)} requests) "
+        f"p50 / p95 / p99 {lat['p50'] * 1e3:.1f} / {lat['p95'] * 1e3:.1f} / {lat['p99'] * 1e3:.1f} ms, max "
+        f"{max(blocking) * 1e3:.1f} ms (request {slowest} of client {slowest % LJ_DAEMON_CLIENTS}); streamed time to first audio p50 / p99 {ttfa['p50'] * 1e3:.1f} / "
+        f"{ttfa['p99'] * 1e3:.1f} ms; served vs in-process engine max abs err {worst:.3g}; /stats {json.dumps(window)}")
+    if worst > AS_TOL or stats["cold_shapes"] or stats["kernel_builds"] or stats["errors"] or batches < 1 \
+            or not (stats["requests"] - before["requests"]) / batches > LJ_SERVE_B / 2:
+        raise AssertionError(f"LJSpeech daemon under load: served vs in-process {worst}, /stats {stats}")
+    if cuda_build.build_count() != builds_before:
+        raise AssertionError("this process built a kernel while the LJSpeech daemon served")
+    wall = time.perf_counter() - t_start
+    log(f"[18] the daemon's holds and load {wall:.1f}s")
+    return {"wall_s": wall, "slowest_request": slowest, "batch_launches": counts, "snap": snap_rows, "resblock": layers, "warmup_line": warm_line.strip(),
+            "clients": LJ_DAEMON_CLIENTS, "requests": len(requests), "streamed": len(first), "load_s": load_s,
+            "latency_s": lat, "latency_max_s": max(blocking), "ttfa_s": ttfa, "served_err": worst, "window": window}
+
+
+def phase_lj_profile(card):
+    """(d) ``python -m msmctts_tpu_torch.train --profile DIR`` on the LJSpeech
+    autoencoder recipe (its warmup phase) for 15 steps over a corpus written
+    here: the trace of steps 10-14 under DIR names kernel 2's kernels."""
+    import shutil
+
+    import yaml
+
+    d = os.path.join(LJ_DIR, "corpus")
+    _write_mel_corpus(d, n_utts=TRAIN_B, seed=184, frameshift=LJ_HOP, sr=LJ_SR)
+    cfg = _recipe_config(LJ_AE_YAML, os.path.join(LJ_DIR, "ckpt_cli"))
+    shutil.rmtree(cfg["save_checkpoint_dir"], ignore_errors=True)
+    cfg["dataloader"] = {"batch_size": TRAIN_B, "num_workers": 2}
+    cfg.dataset["id_list"] = os.path.join(d, "train.list")
+    cfg.dataset["feature_path"] = [os.path.join(d, "mel", "{}.npy"), os.path.join(d, "wav", "{}.wav")]
+    cfg_path = os.path.join(LJ_DIR, "ae_cli.yaml")
+    with open(cfg_path, "w") as fh:
+        yaml.safe_dump(cfg.to_dict(), fh)
+    prof_dir = os.path.join(LJ_DIR, "profile")
+    shutil.rmtree(prof_dir, ignore_errors=True)
+    res, wall = _subprocess("train --profile", "msmctts_tpu_torch.train", "-c", cfg_path, "--max-steps",
+                            str(LJ_PROFILE_STEPS), "--log-every", "5", "--profile", prof_dir)
+    traces = sorted(os.listdir(prof_dir)) if os.path.isdir(prof_dir) else []
+    if traces != ["steps_10-14_rank0.json"]:
+        raise AssertionError(f"train --profile wrote {traces}:\n{res.stdout[-3000:]}")
+    path = os.path.join(prof_dir, traces[0])
+    text = open(path).read()
+    events = json.loads(text)["traceEvents"]
+    kernels = {}
+    for ev in events:
+        if ev.get("cat") == "kernel":
+            kernels[ev["name"]] = kernels.get(ev["name"], 0) + 1
+    vq_stats = {k: n for k, n in kernels.items() if "vq_stats" in k}
+    last = [line for line in res.stdout.splitlines() if line.startswith("step ") or "] step " in line]
+    log(f"[18] train --profile, LJSpeech recipe, {LJ_PROFILE_STEPS} warmup steps at batch {TRAIN_B} ({wall:.1f}s): "
+        f"{os.path.relpath(path, ROOT)} {os.path.getsize(path) / 1e6:.1f} MB, {len(events)} events, "
+        f"{sum(kernels.values())} kernel launches, kernel 2's: {vq_stats}; {last[-1].strip() if last else ''}")
+    if not vq_stats or sum(vq_stats.values()) < 2 * 5:
+        raise AssertionError(f"the profile names no statistics kernel over its 5 steps: {sorted(kernels)[:20]}")
+    return {"wall_s": wall, "trace": os.path.relpath(path, ROOT), "trace_mb": os.path.getsize(path) / 1e6,
+            "events": len(events), "kernel_launches": sum(kernels.values()), "vq_stats_kernels": vq_stats}
+
+
+def _reference_names(sd):
+    """The port's one [H, d, K] codebook tensor per stage -> the reference's
+    per-head buffers (``quantizers.<h>.embed`` ...)."""
+    out = {}
+    for k, v in sd.items():
+        stage, _, name = k.rpartition(".")
+        if ".quantizer.quantizer." in k and name in ("embed", "cluster_size", "embed_avg"):
+            for h in range(v.shape[0]):
+                out[f"{stage}.quantizers.{h}.{name}"] = v[h].clone()
+        else:
+            out[k] = v
+    return out
+
+
+def phase_lj_convert(card, seed=1234):
+    """(e) A reference-named checkpoint (``{'model': task.state_dict()}``) of
+    seeded ``train()``-mode LJSpeech modules through
+    ``tools.convert_torch_checkpoint``; ``infer`` of the result against
+    ``predict`` of the original modules."""
+    import shutil
+
+    import yaml
+    from scipy.io import wavfile
+
+    from msmctts_tpu_torch.data.datasets import TEXT_BUCKETS, bucket_length
+    from msmctts_tpu_torch.tasks import build_task
+    from msmctts_tpu_torch.weights import init_random
+
+    ae = build_task(_recipe_config(LJ_AE_YAML), device="cuda").networks["autoencoder"]
+    init_random(ae, seed + 1)
+    _audible(ae.decoder, seed + 1)
+    am_cfg = _recipe_config(LJ_AM_YAML)
+    task = build_task(am_cfg, device="cuda")
+    predictor = task.networks["predictor"]
+    init_random(predictor, seed + 2)
+    predictor.bias_durations(4.2)
+    ae.train()  # as a training run's snapshot holds them: live weight norm
+    predictor.train()
+    sd = {f"autoencoder.{k}": v.detach().cpu() for k, v in ae.state_dict().items()}
+    sd.update({f"predictor.{k}": v.detach().cpu() for k, v in predictor.state_dict().items()})
+    sd = _reference_names(sd)
+    ref_path = os.path.join(LJ_DIR, "reference_model_800000")
+    torch.save({"model": sd, "iteration": 800000}, ref_path)
+    converted = os.path.join(LJ_DIR, "converted", "model_800000")
+    shutil.rmtree(os.path.dirname(converted), ignore_errors=True)
+    cfg = am_cfg.to_dict()
+    cfg["task"]["autoencoder"]["_checkpoint"] = converted  # the converted file holds both networks
+    cfg["task"]["autoencoder"]["_config"] = LJ_AE_YAML
+    cfg_path = os.path.join(LJ_DIR, "converted_am.yaml")
+    with open(cfg_path, "w") as fh:
+        yaml.safe_dump(cfg, fh)
+    res, conv_s = _subprocess("convert_torch_checkpoint", "msmctts_tpu_torch.tools.convert_torch_checkpoint",
+                              "--torch", ref_path, "--config", cfg_path, "--out", converted)
+    log(f"[18] convert_torch_checkpoint ({conv_s:.1f}s, {len(sd)} reference tensors, per-head codebooks): "
+        f"{res.stdout.strip()}")
+
+    # predict from the original modules, in eval(), on the texts of a test list
+    ae.eval()
+    predictor.eval()
+    task.networks["autoencoder"] = ae
+    task._loaded_modules = True
+    rng = np.random.default_rng(seed + 3)
+    texts = {f"lj{i:03d}": _lj_phones(rng, n) for i, n in enumerate((31, 64, 97))}
+    test_list = os.path.join(LJ_DIR, "converted_test.yaml")
+    with open(test_list, "w") as fh:
+        yaml.safe_dump({u: {"text": t} for u, t in texts.items()}, fh)
+    out_dir = os.path.join(LJ_DIR, "converted_infer")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    res, infer_s = _subprocess("infer (converted)", "msmctts_tpu_torch.infer", "-m", converted, "-t", test_list,
+                               "-o", out_dir)
+    worst, frames = 0.0, {}
+    for uid, t in texts.items():
+        # padded to its text bucket, as the test list's loader pads it: the duration
+        # predictor's convs reach the last phones from the padding, in both packages
+        n = len(t.split())
+        tokens = np.zeros((1, bucket_length(n, TEXT_BUCKETS), 1), np.int64)
+        tokens[0, :n, 0] = [int(v) for v in t.split()]
+        out = task.predict({"text": tokens, "text_length": np.array([n])})
+        _check_wavs(out["wav"], out["mel_length"], LJ_HOP, "LJSpeech predict of the original modules")
+        want = out["wav"][0]
+        sr, pcm = wavfile.read(os.path.join(out_dir, f"{uid}_wav.wav"))
+        if sr != LJ_SR or pcm.shape != want.shape:
+            raise AssertionError(f"infer of the converted checkpoint, {uid}: {pcm.shape} at {sr} Hz vs {want.shape}")
+        worst = max(worst, float(np.abs(pcm / 32767.0 - want).max()))
+        frames[uid] = want.shape[0] // LJ_HOP
+    log(f"[18] infer of the converted checkpoint ({infer_s:.1f}s) vs predict of the original modules on {card}: "
+        f"{len(texts)} utterances of {list(frames.values())} frames, max abs err {worst:.3g}")
+    if not worst <= AS_TOL:
+        raise AssertionError(f"infer of the converted checkpoint vs predict of the original modules: {worst}")
+    return {"convert_s": conv_s, "infer_s": infer_s, "max_abs_err": worst, "frames": frames}
+
+
+def phase_ljspeech(gen, card):
+    """Phase 18, (a) to (e)."""
+    import shutil
+
+    t0 = time.perf_counter()
+    shutil.rmtree(LJ_DIR, ignore_errors=True)
+    os.makedirs(LJ_DIR)
+    result = {"analysis_synthesis": _seeded_analysis_synthesis(gen, card, LJ_AE_YAML, "[18]", "LJSpeech", 18,
+                                                              "HifiGANGenerator")}
+    rng = np.random.default_rng(1234)
+    lengths = rng.integers(200, TRAIN_FRAMES + 1, size=TRAIN_B)
+    lengths[0] = TRAIN_FRAMES
+
+    def make():
+        # from the fixture's encoder, quantizer and codebook: a seeded codebook's codewords
+        # can pass float16's range, which (c) strips to
+        trainer = _seeded_trainer(_recipe_config(LJ_AE_YAML, os.path.join(LJ_DIR, "ckpt_ae"), warmup_steps=2), "cuda")
+        _from_fixture(trainer)
+        return trainer
+
+    result["training"] = _recipe_training(make, _train_batch(rng, lengths, TRAIN_FRAMES, frameshift=LJ_HOP), lengths,
+                                          card, "[18]", "LJSpeech")
+    result["step_card_vs_cpu"] = _step_card_vs_cpu(LJ_AE_YAML, [64, 56], LJ_HOP, 181, "[18]", "LJSpeech")
+    result["tools"] = phase_lj_tools(card, result["training"]["checkpoint"])
+    result["daemon"] = phase_lj_daemon(gen, card, result["tools"]["am_path"])
+    result["profile"] = phase_lj_profile(card)
+    result["convert"] = phase_lj_convert(card)
+    result["phase_s"] = time.perf_counter() - t0
+    log(f"[18] LJSpeech phase {result['phase_s']:.1f}s")
+    return result
+
+
 def _device_rows(prof):
     """[{name, count, device_ms}] of a profile's kernels, the longest first."""
     from torch.autograd import DeviceType
@@ -3941,6 +4409,8 @@ def main(argv=None):
     istft = phase_istft(gen, env["nvidia_smi"], with_profile=bool(args.out))
     int8 = phase_int8(env["nvidia_smi"], tts_ref["am_path"], with_profile=bool(args.out))
     tools = phase_quality_tools(gen, env["nvidia_smi"], with_profile=bool(args.out))
+    lj = phase_ljspeech(gen, env["nvidia_smi"])
+    lj_as, lj_tr, lj_tools, lj_daemon = lj["analysis_synthesis"], lj["training"], lj["tools"], lj["daemon"]
     t_qat, t_mcd, t_dbg, t_eval = tools["qat"], tools["as_mcd"], tools["debug"], tools["evaluate"]
     launches_qat = lambda key: {"precompute": t_qat["launches_precompute"][key], "sweep_fp32": t_mcd["launches"][key],
                                 "debug_step": t_dbg["launches"][key], "evaluate": t_eval["launches"][key]}
@@ -3983,6 +4453,13 @@ def main(argv=None):
             # (2 snapshots x 2 batches), one debug_step (B=2), one evaluate (one row)
             "launches_qat": launches_qat("vq_nearest"),
             "qat": {"precompute": ist_snap(t_qat["snap"]), "debug_step": ist_snap(t_dbg["snap"])},
+            # phase 18, the LJSpeech recipes: analysis-synthesis (B=4, bucket 512), predict of one
+            # utterance at the static bucket of synthesize --static-frames 512, the daemon's batch
+            # of 8 at bucket 512 (N = 1024 and 4096, on that batch's inputs)
+            "launches_ljspeech": {"analysis_synthesis_batch": lj_as["launches"]["vq_nearest"],
+                                  "predict": lj_tools["synthesize_launches"]["vq_nearest"],
+                                  "daemon_batch": lj_daemon["batch_launches"]["vq_nearest"]},
+            "ljspeech": {"analysis_synthesis": ist_snap(lj_as["snap"]), "daemon_batch": ist_snap(lj_daemon["snap"])},
         },
         {
             "name": "vq_nearest_stats", "route": "cuda", "source": "msmctts_tpu_torch/csrc/vq_stats.cu",
@@ -4002,6 +4479,12 @@ def main(argv=None):
             "launches_istft": ist_tr["launches_per_step"]["vq_nearest_stats"],
             "istft": [{k: r[k] for k in ("N", "valid", "walkers", "device_ms", "ms", "plain_ms", "bound_ms", "bound_by",
                                          "sums_max_abs_err")} for r in ist_tr["stats"]],
+            # the LJSpeech recipe's train step (batch 16, bucket 400), both calls on the path's inputs, and
+            # the kernels the train CLI's --profile trace names over its steps 10-14
+            "launches_ljspeech": lj_tr["launches_per_step"]["vq_nearest_stats"],
+            "ljspeech": [{k: r[k] for k in ("N", "valid", "walkers", "device_ms", "ms", "plain_ms", "bound_ms", "bound_by",
+                                            "sums_max_abs_err")} for r in lj_tr["stats"]],
+            "ljspeech_profile_kernels": lj["profile"]["vq_stats_kernels"],
         },
         {
             "name": "vq_nearest_stats_sharded", "route": "cuda", "source": "msmctts_tpu_torch/csrc/vq_stats.cu",
@@ -4021,8 +4504,9 @@ def main(argv=None):
             # the QS-TTS synthesizer's quantizer calls this function; on one card with no group
             "launches_qs_tts": qs["training"]["launches_per_step"]["vq_nearest_stats"],
             "qs_tts_shapes": f"per QS-TTS synthesizer train step on one rank, no group (no all-reduce): {qs_stats_n}",
-            # the ISTFT recipe's quantizer calls this function too, with no group
+            # the ISTFT and LJSpeech recipes' quantizers call this function too, with no group
             "launches_istft": ist_tr["launches_per_step"]["vq_nearest_stats"],
+            "launches_ljspeech": lj_tr["launches_per_step"]["vq_nearest_stats"],
         },
         {
             "name": "vq_nearest_sharded", "route": "cuda", "source": "msmctts_tpu_torch/csrc/vq_nearest.cu",
@@ -4044,6 +4528,8 @@ def main(argv=None):
             "launches_int8": {"analysis_synthesis_batch": int8["decoder"]["launches"]["vq_nearest"],
                               "predict_batch": int8["serving"]["predict"]["launches"]["vq_nearest"]},
             "launches_qat": launches_qat("vq_nearest"),
+            "launches_ljspeech": {"analysis_synthesis_batch": lj_as["launches"]["vq_nearest"],
+                                  "predict": lj_tools["synthesize_launches"]["vq_nearest"]},
         },
         {
             "name": "fused_resblock_layer", "route": "cuda", "source": "msmctts_tpu_torch/csrc/resblock.cu",
@@ -4073,6 +4559,15 @@ def main(argv=None):
             # 36 layers at the precompute's longest utterance (B=1)
             "launches_qat": launches_qat("fused_resblock_layer"),
             "qat": t_qat["resblock"],
+            # phase 18: the LJSpeech [8, 8, 2, 2] generator's 36 layers per analysis-synthesis batch (B=4, 512
+            # frames: T = 4096 / 32768 / 65536 / 131072 at C = 256 / 128 / 64 / 32) and per predict
+            "launches_ljspeech": {"analysis_synthesis_batch": lj_as["launches"]["fused_resblock_layer"],
+                                  "predict": lj_tools["synthesize_launches"]["fused_resblock_layer"]},
+            "ljspeech": {k: lj_as["resblock"][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_fp32_ms",
+                                                           "max_abs_err", "shapes", "per_width")},
+            # the daemon's largest warm shape: the 36 layers at B=8, bucket 512
+            "launches_ljspeech_daemon_batch": lj_daemon["batch_launches"]["fused_resblock_layer"],
+            "ljspeech_daemon": lj_daemon["resblock"],
             "tolerance": {**RB_TOL, "max_abs": RB_MAX_ABS},
             "shapes": f"per decode: the 36 CSMSC MRF layers at B={B}, {FRAMES} frames; bound_ms counts the kernel's operations, "
                       "three TF32 tensor-core products per fp32 product at 495 TFLOP/s; bound_fp32_ms the same products as "
@@ -4091,9 +4586,9 @@ def main(argv=None):
                        "sharded_kernels": shard_res, "nccl_world_1": nccl_res, "dp_training": dp_train,
                        "dp_inference": dp_infer, "am_training": am_res, "am_step_card_vs_cpu": am_cpu,
                        "am_entry_point": am_cli, "serving": serving, "qs_tts": qs, "istft": istft, "int8": int8,
-                       "quality_tools": tools,
+                       "quality_tools": tools, "ljspeech": lj,
                        "wall_s": time.perf_counter() - t_start}, f, indent=1)
-    log(f"[18] wall {time.perf_counter() - t_start:.1f}s on {env['nvidia_smi']}")
+    log(f"[19] wall {time.perf_counter() - t_start:.1f}s on {env['nvidia_smi']}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": env["name"], "count": env["count"]}}))
     return 0

@@ -1,12 +1,14 @@
 """One-shot synthesis: phone string in, waveform out, on the GPU.
 
     python -m msmctts_tpu_torch.synthesize -m <am_checkpoint> \\
-        --text "1_0_0 33_4_0 17_4_0 1_0_0" -o out.wav [--device cpu]
+        --text "1_0_0 33_4_0 17_4_0 1_0_0" -o out.wav [--static-frames N] [--device cpu]
 
 The counterpart of the root ``synthesize.py``. The acoustic-model
 checkpoint is a ``msmctts_tpu/v1`` file whose embedded config names the
 frozen autoencoder (``task.autoencoder._checkpoint``). Phone tokens are
-``id_tone_er`` triples (``utils/text.py``). Runs on ``cuda`` unless
+``id_tone_er`` triples (``utils/text.py``). ``--static-frames N`` decodes in
+one frame bucket of N frames with no read-back before the waveform
+(``MSMCTTS.static_max_frames``, ``infer``'s latency mode). Runs on ``cuda`` unless
 ``--device cpu`` is given; without a GPU it refuses to run.
 """
 
@@ -28,6 +30,8 @@ def main(argv=None):
     p.add_argument("-c", "--config", default=None)
     p.add_argument("--text", required=True, help="id_tone_er phone tokens")
     p.add_argument("-o", "--output", default="out.wav")
+    p.add_argument("--static-frames", type=int, default=None,
+                   help="fixed frame bucket, no read-back before the waveform (infer's latency mode)")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = p.parse_args(argv)
 
@@ -35,6 +39,8 @@ def main(argv=None):
     config = Config(args.config) if args.config else Config(ckpt["config"])
     task = build_task(config, device=args.device)
     task.load_variables(ckpt["state"])
+    if args.static_frames is not None:
+        task.static_max_frames = args.static_frames
 
     tokens = [[int(x) for x in tok.split("_")] for tok in args.text.split() if tok]
     text = np.asarray(tokens, np.int64)[None]  # [1, L, n_streams]

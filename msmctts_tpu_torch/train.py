@@ -1,10 +1,11 @@
 """Training CLI of the port, on the GPU.
 
     python -m msmctts_tpu_torch.train -c examples/csmsc/configs/msmc_vq_gan.yaml \\
-        [--max-steps N] [--log-every N] [--device cpu]
+        [--max-steps N] [--log-every N] [--profile DIR] [--device cpu]
 
 The counterpart of the root ``train.py``: the same YAML recipes, the same
-checkpoints. Runs on ``cuda`` unless ``--device`` says otherwise; without a
+checkpoints. ``--profile DIR`` writes a ``torch.profiler`` Chrome trace of
+steps 10-14 under DIR (``BaseTrainer.train``). Runs on ``cuda`` unless ``--device`` says otherwise; without a
 GPU it refuses to run.
 
 One process drives one device. A data-parallel run is W such processes, each
@@ -54,6 +55,7 @@ def main(argv=None):
     p.add_argument("-c", "--config", required=True)
     p.add_argument("--max-steps", type=int, default=None, help="stop after N steps")
     p.add_argument("--log-every", type=int, default=50)
+    p.add_argument("--profile", default=None, metavar="DIR", help="write a torch.profiler trace of a few steps to DIR")
     p.add_argument("--device", default=None, help="cuda (default; cuda:<LOCAL_RANK> under torchrun), cuda:N or cpu")
     p.add_argument("--coordinator", default=None, help="host:port of rank 0, for a run of several processes")
     p.add_argument("--num-processes", type=int, default=None)
@@ -71,7 +73,7 @@ def main(argv=None):
         config = Config(args.config)
         task = build_task(config, device=device, mode="train")
         trainer = get_trainer(config.trainer["_name"])(config, task, group=group, **component_kwargs(config.trainer))
-        trainer.train(max_steps=args.max_steps, log_every=args.log_every)
+        trainer.train(max_steps=args.max_steps, log_every=args.log_every, profile_dir=args.profile)
     finally:
         mesh.shutdown(group)
     return trainer

@@ -45,8 +45,19 @@ state is then stitched from the parts of those checkpoints whose
 state and the iteration left at 0 (``utils/checkpoint.filter_state_by_regex``,
 ``merge_states``).
 
-fp32 only; the ``model`` axis of a ``mesh:`` node (tensor parallelism),
-bf16 and the profiler hook are not ported.
+``checkpoint_keep_interval: N`` keeps the snapshots every N steps and the
+newest two (``utils/checkpoint.clean_checkpoint_directory``), as the JAX
+trainer does; ``checkpoint_backend: orbax`` raises when the trainer is built
+(ROADMAP A7c), not at the first save.
+
+``train(profile_dir=...)`` takes a ``torch.profiler`` trace of steps
+[``profile_start``, ``profile_start + profile_steps``), with the card's
+kernels when the run is on one, and writes it as a Chrome trace under
+``profile_dir`` (the JAX trainer's ``jax.profiler`` window); a run that stops
+inside the window writes what it traced.
+
+fp32 only; the ``model`` axis of a ``mesh:`` node (tensor parallelism) and
+bf16 are not ported.
 """
 
 from __future__ import annotations
@@ -70,6 +81,7 @@ from msmctts_tpu_torch.utils.checkpoint import (
     find_latest_checkpoint,
     load_checkpoint,
     map_leaves,
+    clean_checkpoint_directory,
     merge_states,
     save_checkpoint,
 )
@@ -117,6 +129,9 @@ class BaseTrainer:
         precision = str(config.get("precision", "float32")).lower()
         if precision not in ("fp32", "float32"):
             raise NotImplementedError(f"precision '{precision}' is not ported (fp32 only)")
+        backend = str(config.get("checkpoint_backend", "pickle"))
+        if backend == "orbax":
+            raise NotImplementedError("checkpoint_backend: orbax is not ported (ROADMAP A7c); the port writes pickles")
         self.config = config
         self.task = task
         self.group = group
@@ -208,10 +223,39 @@ class BaseTrainer:
         state["torch_rng"] = self.generator.get_state().cpu().numpy()
         cfg = self.config.to_dict() if hasattr(self.config, "to_dict") else dict(self.config)
         save_checkpoint(path, state, self.iteration, cfg)
+        keep = self.config.get("checkpoint_keep_interval")
+        if keep:
+            clean_checkpoint_directory(self.save_dir, int(keep))
         return path
 
     # ------------------------------------------------------------------ loop
-    def train(self, max_steps: Optional[int] = None, log_every: int = 50):
+    def _start_profiler(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if self.device.type == "cuda" else [])
+        profiler = profile(activities=activities)
+        profiler.start()
+        return profiler
+
+    def _stop_profiler(self, profiler, profile_dir: str, first: int, logger: Logger):
+        """Stop ``profiler`` and write its Chrome trace of steps [first,
+        self.iteration] under ``profile_dir``."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        profiler.stop()
+        os.makedirs(profile_dir, exist_ok=True)
+        path = os.path.join(profile_dir, f"steps_{first}-{self.iteration}_rank{self.rank}.json")
+        profiler.export_chrome_trace(path)
+        logger.text(f"profiler trace written to {path}")
+
+    def train(
+        self,
+        max_steps: Optional[int] = None,
+        log_every: int = 50,
+        profile_dir: Optional[str] = None,
+        profile_start: int = 10,
+        profile_steps: int = 5,
+    ):
         dl_cfg = self.config.get("dataloader", {})
         # the config's batch_size is global; this rank loads its block of it
         global_batch = int(dl_cfg.get("batch_size", 16))
@@ -249,12 +293,18 @@ class BaseTrainer:
 
         t0 = time.time()
         self._last_saved_iteration = None
+        profiler = None
         try:
             stop = mesh.agree_any(bool(preempted), self.group)
             while self.iteration < stop_at and not stop:
                 self.iteration += 1
+                if profile_dir and self.iteration == profile_start:
+                    profiler = self._start_profiler()
                 batch = to_device(next(batches), self.device)
                 metrics = self.train_step(batch, self.iteration)
+                if profiler is not None and self.iteration >= profile_start + profile_steps - 1:
+                    self._stop_profiler(profiler, profile_dir, profile_start, logger)
+                    profiler = None
                 if self.iteration % log_every == 0:
                     host = metrics_to_host(metrics)
                     host["steps_per_sec"] = log_every / max(time.time() - t0, 1e-9)
@@ -276,6 +326,8 @@ class BaseTrainer:
                 self.save()  # final / preemption snapshot
             mesh.barrier(self.group)  # the checkpoint is on disk when any rank returns
         finally:
+            if profiler is not None:  # the run stopped inside the window
+                self._stop_profiler(profiler, profile_dir, profile_start, logger)
             batches.close()  # stops the loader's threads
             for sig, handler in prev_handlers.items():
                 signal.signal(sig, handler)

@@ -17,7 +17,9 @@ of several checkpoints (a trainer's ``restore_checkpoint_path`` given as
 ``[[regex, path], ...]``), on '/'-joined paths as the JAX package's do,
 without flax.
 
-Orbax checkpoints (directories) are not read yet.
+``clean_checkpoint_directory`` keeps a run's snapshots every
+``checkpoint_keep_interval`` steps and its newest two. Orbax checkpoints
+(directories) are neither read nor written yet (ROADMAP A7c).
 """
 
 from __future__ import annotations
@@ -73,8 +75,9 @@ def _as_array(x):
     return x if x is None or isinstance(x, (bool, int, float, str)) else np.asarray(x)
 
 
-def load_checkpoint(path: str) -> dict:
-    """Read a ``msmctts_tpu/v1`` pickle; floats come back as float32.
+def read_checkpoint(path: str) -> dict:
+    """Read a ``msmctts_tpu/v1`` pickle as it was stored (a stripped
+    checkpoint's float16 stays float16).
 
     Only load checkpoints this project wrote: unpickling runs code."""
     if os.path.isdir(path):
@@ -86,6 +89,12 @@ def load_checkpoint(path: str) -> dict:
         payload = _Unpickler(f).load()
     if payload.get("format") != FORMAT:
         raise ValueError(f"{path}: format {payload.get('format')!r}, expected {FORMAT!r}")
+    return payload
+
+
+def load_checkpoint(path: str) -> dict:
+    """``read_checkpoint`` with every floating array as float32."""
+    payload = read_checkpoint(path)
     payload["state"] = map_leaves(payload["state"], _upcast)
     return payload
 
@@ -121,6 +130,25 @@ def find_latest_checkpoint(save_dir: str) -> Optional[str]:
         if f.startswith(CKPT_PREFIX) and not f.endswith(".tmp") and os.path.isfile(os.path.join(save_dir, f))
     ]
     return max(cands, key=checkpoint_step) if cands else None
+
+
+def clean_checkpoint_directory(save_dir: str, interval: int, keep_last: int = 2):
+    """Delete the ``model_<step>`` pickles whose step is not a multiple of
+    ``interval``, except the newest ``keep_last`` (a trainer's
+    ``checkpoint_keep_interval``; ``msmctts_tpu/utils/checkpoint.py:151-173``).
+    Pickles only: the port writes no orbax directory."""
+    if not os.path.isdir(save_dir):
+        return
+    cands = sorted(
+        (
+            os.path.join(save_dir, f) for f in os.listdir(save_dir)
+            if f.startswith(CKPT_PREFIX) and not f.endswith(".tmp") and os.path.isfile(os.path.join(save_dir, f))
+        ),
+        key=checkpoint_step,
+    )
+    for path in cands[:-keep_last]:
+        if interval > 0 and checkpoint_step(path) % interval != 0:
+            os.remove(path)
 
 
 def _flatten(tree: dict, prefix=()) -> dict:

@@ -61,7 +61,8 @@ def test_scan_covers_the_training_slice():
         "msmctts_tpu_torch/ops/int8_generator.py", "msmctts_tpu_torch/ops/qat_int8.py",
         "msmctts_tpu_torch/tools/__init__.py", "msmctts_tpu_torch/tools/qat_int8.py",
         "msmctts_tpu_torch/tools/as_mcd_sweep.py", "msmctts_tpu_torch/utils/audio.py",
-        "msmctts_tpu_torch/utils/logger.py",
+        "msmctts_tpu_torch/utils/logger.py", "msmctts_tpu_torch/tools/strip_checkpoint.py",
+        "msmctts_tpu_torch/tools/convert_torch_checkpoint.py", "msmctts_tpu_torch/tools/load_test.py",
     ):
         assert rel in scanned, rel
 
@@ -94,12 +95,12 @@ def test_every_port_module_imports_without_the_jax_package():
     assert "msmctts_tpu_torch.training.vqgan_trainer" in modules and "msmctts_tpu_torch.train" in modules
     assert "msmctts_tpu_torch.parallel.mesh" in modules and "msmctts_tpu_torch.train_dist" in modules
     for m in ("streaming", "serving", "serve", "infer", "utils.plot", "tools.qat_int8", "tools.as_mcd_sweep",
-              "utils.audio", "utils.logger", "ops.qat_int8"):
+              "utils.audio", "utils.logger", "ops.qat_int8", "tools.strip_checkpoint", "tools.convert_torch_checkpoint",
+              "tools.load_test"):
         assert f"msmctts_tpu_torch.{m}" in modules
 
 
-@pytest.mark.parametrize("tool", ["qat_int8", "as_mcd_sweep"])
-def test_tools_run_as_modules_without_jax(tool):
+def _help_without_jax(tool):
     """``python -m msmctts_tpu_torch.tools.<tool> --help`` in a fresh
     interpreter: it parses its flags, and neither jax nor the JAX package is
     in ``sys.modules`` after the import of the tool and all it imports."""
@@ -117,7 +118,22 @@ def test_tools_run_as_modules_without_jax(tool):
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert "--device" in res.stdout and res.stdout.strip().endswith("clean")
+    assert res.stdout.strip().endswith("clean")
+    return res.stdout
+
+
+@pytest.mark.parametrize("tool", ["qat_int8", "as_mcd_sweep"])
+def test_tools_run_as_modules_without_jax(tool):
+    assert "--device" in _help_without_jax(tool)
+
+
+@pytest.mark.parametrize("tool,flag", [("strip_checkpoint", "--f16"), ("convert_torch_checkpoint", "--torch"),
+                                       ("load_test", "--spawn")])
+def test_host_tools_run_as_modules_without_jax(tool, flag):
+    """The checkpoint tools and the load generator run no model on a device:
+    they take no ``--device``."""
+    out = _help_without_jax(tool)
+    assert flag in out and "--device" not in out
 
 
 def test_entry_points_refuse_cpu_fallback(monkeypatch, tmp_path):

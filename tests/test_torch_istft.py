@@ -147,7 +147,7 @@ def _shipped_decoder_configs():
     """Every shipped recipe's autoencoder decoder config, and the trained
     fixture's."""
     out = {}
-    for sub in ("csmsc", "qs-tts"):
+    for sub in ("csmsc", "ljspeech", "qs-tts"):
         for dirpath, _, files in os.walk(os.path.join(ROOT, "examples", sub, "configs")):
             for f in sorted(files):
                 node = yaml.safe_load(open(os.path.join(dirpath, f)))["task"].get("autoencoder", {})
