@@ -146,15 +146,32 @@ Phases, each of which raises on failure:
      msmctts_tpu_torch.tools.strip_checkpoint --f16``, a seeded full-width
      LJSpeech AM over it, ``synthesize --static-frames 512`` against
      ``predict``, then ``tools.load_test --spawn`` driving ``python -m
-     msmctts_tpu_torch.serve`` at batch 8 with 1, 4 and 16 clients (48
+     msmctts_tpu_torch.serve`` at batch 8 with 1, 4 and 16 clients (24
      requests each, 8 streamed probes; no error, no cold shape, no kernel
      build); (d) ``python -m msmctts_tpu_torch.train --profile DIR`` for 15
      steps on a corpus written here, whose trace must name kernel 2; (e) a
      reference-named checkpoint of seeded modules through
      ``tools.convert_torch_checkpoint`` and ``infer`` on the result against
      ``predict`` of the original modules;
- 19. one JSON line describing each kernel;
- 20. last line: {"ok": true, "device": {...}}.
+ 19. ``precision: bfloat16`` (the JAX package's policy: bf16-rounded weights,
+     fp32 masters, codebooks and losses, every op in JAX's promoted dtype):
+     (a) 2 warmup + 2 GAN steps of the CSMSC AE recipe at batch 16 (per-step
+     times, peak memory, masters and codebooks fp32, kernel 2 held against
+     plain on the first GAN step's inputs), then warm steps of the fp32 and
+     the bf16 trainer in turns and one profiled GAN step of each, its device
+     time split by the operand dtype of its convolution and matrix-product
+     kernels; (b) the same for the AM recipe at batch 64, bucket 768 (the
+     teacher in bf16, its 2 snaps held against plain, busy share); (c)
+     ``predict`` of phase 5's batch of 4 from a checkpoint whose config asks
+     for bf16: duration flips against fp32 with their rounding margins, then
+     with fp32's durations the relative L2 against fp32's wav, 4 + 36
+     launches, every snap and MRF layer of the call held against plain on
+     its inputs; ``python -m msmctts_tpu_torch.serve`` over that checkpoint
+     answering 4 requests (one streamed) against an in-process bf16 engine,
+     no cold shape, kernel build or error; (d) one bf16 step of each phase
+     (AE warmup, AE GAN, AM) from equal state, card vs CPU;
+ 20. one JSON line describing each kernel;
+ 21. last line: {"ok": true, "device": {...}}.
 
 NCCL refuses two ranks on one device, so the two-rank phases use gloo, which
 moves CUDA tensors through host memory; the log names the backend. Their
@@ -780,7 +797,7 @@ def _train_batch(rng, lengths, T, n_mel=80, frameshift=300):
     return {"mel": mel, "mel_length": lengths, "wav": wav}
 
 
-def _build_trainer(device, warmup_steps, dropout=None, seed=1234, group=None):
+def _build_trainer(device, warmup_steps, dropout=None, seed=1234, group=None, precision=None):
     """The CSMSC autoencoder recipe through the normal construction, with
     the trained autoencoder of the fixture and a seeded discriminator."""
     from msmctts_tpu_torch.config import component_kwargs
@@ -788,7 +805,7 @@ def _build_trainer(device, warmup_steps, dropout=None, seed=1234, group=None):
     from msmctts_tpu_torch.tasks import build_task
     from msmctts_tpu_torch.utils.checkpoint import load_checkpoint
 
-    cfg = _recipe_config(AE_YAML, os.path.join(SMOKE_DIR, "ckpt_ae"), warmup_steps, dropout, seed)
+    cfg = _recipe_config(AE_YAML, os.path.join(SMOKE_DIR, "ckpt_ae"), warmup_steps, dropout, seed, precision)
     task = build_task(cfg, device=device, mode="train")
     trainer = get_trainer(cfg.trainer["_name"])(cfg, task, group=group, **component_kwargs(cfg.trainer))
     trainer.init_state()
@@ -1454,12 +1471,14 @@ def _am_batch(rng, n_symbols, B, Lt, T, phones, frames, n_mel=80):
             "dur": dur, "mel": mel, "mel_length": n_frames.astype(np.int32)}
 
 
-def _am_config(dropout=None):
+def _am_config(dropout=None, precision=None):
     """The CSMSC AM recipe with the fixture's trained autoencoder as its
     teacher (the fixture's embedded config)."""
     from msmctts_tpu_torch.config import Config
 
     cfg = Config(AM_YAML)
+    if precision is not None:
+        cfg["precision"] = precision
     cfg.task["autoencoder"]["_checkpoint"] = FIXTURE
     cfg.task["autoencoder"].pop("_config", None)
     cfg["save_checkpoint_dir"] = os.path.join(SMOKE_DIR, "ckpt_am")
@@ -1471,12 +1490,12 @@ def _am_config(dropout=None):
     return cfg
 
 
-def _build_am_trainer(device, dropout=None):
+def _build_am_trainer(device, dropout=None, precision=None):
     from msmctts_tpu_torch.config import component_kwargs
     from msmctts_tpu_torch.registry import get_trainer
     from msmctts_tpu_torch.tasks import build_task
 
-    cfg = _am_config(dropout)
+    cfg = _am_config(dropout, precision)
     task = build_task(cfg, device=device, mode="train")
     trainer = get_trainer(cfg.trainer["_name"])(cfg, task, **component_kwargs(cfg.trainer))
     trainer.init_state()  # seeded; the teacher loads at the first step
@@ -2602,13 +2621,16 @@ ISTFT_LENGTHS = (512, 448, 389, 300)  # analysis-synthesis batch of 4, bucket 51
 ISTFT_LAYERS = 18  # 2 stages x 3 blocks x 3 dilations
 
 
-def _recipe_config(path, save_dir=None, warmup_steps=None, dropout=None, seed=1234):
+def _recipe_config(path, save_dir=None, warmup_steps=None, dropout=None, seed=1234, precision=None):
     """A shipped recipe's config with the smoke's save dir, warmup length,
-    seed and (``dropout``) every dropout rate of the autoencoder set."""
+    seed, ``precision`` and (``dropout``) every dropout rate of the
+    autoencoder set."""
     from msmctts_tpu_torch.config import Config
 
     cfg = Config(path)
     cfg["seed"] = seed
+    if precision is not None:
+        cfg["precision"] = precision
     if save_dir is not None:
         cfg["save_checkpoint_dir"] = save_dir
     if warmup_steps is not None:
@@ -3924,11 +3946,11 @@ LJ_AM_YAML = os.path.join(ROOT, "examples", "ljspeech", "configs", "msmc_vq_gan_
 LJ_DIR = os.path.join(SMOKE_DIR, "ljspeech")
 LJ_HOP, LJ_SR = 256, 22050
 LJ_LOAD_LEVELS = (1, 4, 16)
-LJ_LOAD_REQUESTS = 48
+LJ_LOAD_REQUESTS = 24
 LJ_SERVE_B = 8
 # the daemon held to the in-process engine: 16 clients, every 8th request streamed, over
 # 24 texts of load_test's 24-96 tokens; enough requests for a p99 of the blocking ones
-LJ_DAEMON_CLIENTS, LJ_DAEMON_REQUESTS, LJ_DAEMON_TEXTS = 16, 512, 24
+LJ_DAEMON_CLIENTS, LJ_DAEMON_REQUESTS, LJ_DAEMON_TEXTS = 16, 256, 24
 LJ_STATIC_FRAMES = 512
 LJ_PROFILE_STEPS = 15  # the trace covers steps 10-14 (the train CLI's window)
 
@@ -4326,6 +4348,471 @@ def phase_ljspeech(gen, card):
     return result
 
 
+# ------------------------------------------------------------- bf16 mixed precision
+# Phase 19: ``precision: bfloat16`` (the JAX package's policy, parallel/precision.py)
+# through the AE GAN step, the AM step and inference at the CSMSC recipes' full width.
+BF16_STEP_TOL = {"loss_rtol": 1e-2, "codebook_atol": 1e-3}
+BF16_SERVE_FRAMES = 256  # the bf16 daemon's frame cap (fewer warmup shapes than phase 13's)
+PRODUCT_WORDS = ("conv", "gemm", "xmma", "cudnn", "cutlass", "wgrad", "dgrad", "fprop", "s16816", "s1688", "nvjet")
+
+
+def _product_dtype(name):
+    """The operand dtype a cuDNN / cuBLAS product kernel's name states, or
+    None for a kernel that is not a convolution or matrix product (cuDNN's
+    layout transposes and PyTorch's elementwise and reduction kernels)."""
+    n = name.lower()
+    if not any(w in n for w in PRODUCT_WORDS) or any(w in n for w in ("elementwise", "reduce", "nchwtonhwc", "nhwctonchw")):
+        return None
+    if "bf16" in n or "bfloat16" in n:
+        return "bf16"
+    if "tf32" in n:
+        return "tf32"
+    if "f16" in n or "half" in n:
+        return "fp16"
+    if "f32" in n or "float" in n or "sgemm" in n:
+        return "fp32"
+    return "unstated"  # a product whose name gives no dtype
+
+
+def _by_product_dtype(prof, tag, what):
+    """{dtype: device ms} over a profile's convolution and matrix-product
+    kernels, with the busy ms of everything else as "other"; logs the
+    longest product kernels that are not fp32."""
+    split = {}
+    for r in prof["kernels"]:
+        key = _product_dtype(r["name"]) or "other"
+        split[key] = split.get(key, 0.0) + r["device_ms"]
+    for r in [r for r in prof["kernels"] if _product_dtype(r["name"]) not in (None, "fp32")][:6]:
+        log(f"{tag} {what}, a {_product_dtype(r['name'])} product: {r['device_ms']:.3f} ms x{r['count']} {r['name']}")
+    return split
+
+
+def _fp32_state(modules, what):
+    """Masters and buffers (codebooks, BN statistics) stay fp32 under bf16."""
+    for module in modules:
+        for name, t in list(module.named_parameters()) + list(module.named_buffers()):
+            if t is not None and t.is_floating_point() and t.dtype != torch.float32:
+                raise AssertionError(f"{what}: {name} is {t.dtype}, the masters and buffers stay fp32")
+
+
+def _turns(steps):
+    """Warm step times of two trainers in turns (fp32, bf16, bf16, fp32;
+    two steps a turn), ``steps``: {precision: callable of one step}.
+    -> {precision: [ms]}."""
+    times = {k: [] for k in steps}
+    for name in ("float32", "bfloat16", "bfloat16", "float32"):
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            steps[name]()
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def phase_bf16_vqgan(card):
+    """(a) 2 warmup + 2 GAN steps of the CSMSC AE recipe under bf16."""
+    from msmctts_tpu_torch.data.loader import to_device
+    from msmctts_tpu_torch.training.base_trainer import metrics_to_host
+
+    batch = to_device(_training_batch()[0], "cuda")
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = _build_trainer("cuda", warmup_steps=2, precision="bfloat16")
+    ae, disc = trainer.ae, trainer.disc
+    if trainer.compute_dtype != torch.bfloat16:
+        raise AssertionError(f"the trainer computes in {trainer.compute_dtype}")
+    steps, stats = [], None
+    for it in range(1, 5):
+        phase = "warmup" if it <= trainer.warmup_steps else "gan"
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        if it == 3:  # the first GAN step's statistics-kernel inputs, as the path gave them
+            holder = {}
+            stats = _stats_rows(ae, lambda: holder.update(m=trainer.train_step(batch, it)))
+            metrics = holder["m"]
+        else:
+            metrics = trainer.train_step(batch, it)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts, host = _counts(), metrics_to_host(metrics)
+        bad = [k for k, v in host.items() if not np.isfinite(v)]
+        if bad or counts != {"vq_nearest": 0, "vq_nearest_stats": 2, "fused_resblock_layer": 0}:
+            raise AssertionError(f"bf16 step {it}: non-finite {bad}, launches {counts}")
+        steps.append({"iteration": it, "phase": phase, "ms": ms, "metrics": host})
+        log(f"[19] bf16 AE step {it} ({phase}): {ms:.1f} ms, launches {counts}, "
+            f"{ {k: round(host[k], 4) for k in ('g_loss', 'vq_loss', 'frame_loss', 'd_loss', 'stft_loss') if k in host} }")
+    peak = {"bfloat16": (torch.cuda.max_memory_allocated() - base) / 2**30}
+    _fp32_state((ae, disc), "bf16 AE step")
+    held = _hold_stats(stats, "bf16 GAN step", tag="[19]")
+
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fp32 = _build_trainer("cuda", warmup_steps=2)
+    fp32.train_step(batch, 1), fp32.train_step(batch, 30)
+    peak["float32"] = (torch.cuda.max_memory_allocated() - base) / 2**30  # trainer + a warmup and a GAN step
+    run = {"float32": fp32, "bfloat16": trainer}
+    warm = {ph: _turns({k: (lambda t=t, it=it: t.train_step(batch, it)) for k, t in run.items()})
+            for ph, it in (("warmup", 1), ("gan", 31))}
+    profiles = {k: profile_call(lambda t=t: t.train_step(batch, 40), "[19]", f"{k} GAN step", shown=3)
+                for k, t in run.items()}
+    result = {"steps": steps, "peak_above_start_gib": peak, "stats": held,
+              "warm_ms": {ph: {k: statistics.median(v) for k, v in w.items()} for ph, w in warm.items()},
+              "warm_runs_ms": warm,
+              "profile": {k: {"wall_ms": p["wall_ms"], "busy_ms": p["busy_ms"],
+                              "products_ms": _by_product_dtype(p, "[19]", f"{k} GAN step")} for k, p in profiles.items()}}
+    log(f"[19] AE steps on {card}, warm median in turns: warmup fp32 {result['warm_ms']['warmup']['float32']:.1f} / bf16 "
+        f"{result['warm_ms']['warmup']['bfloat16']:.1f} ms, GAN fp32 {result['warm_ms']['gan']['float32']:.1f} / bf16 "
+        f"{result['warm_ms']['gan']['bfloat16']:.1f} ms; peak memory above the start, trainer and steps, fp32 "
+        f"{peak['float32']:.2f} / bf16 {peak['bfloat16']:.2f} GiB; "
+        f"device ms by product dtype {json.dumps({k: {d: round(v, 2) for d, v in p['products_ms'].items()} for k, p in result['profile'].items()})}")
+    del trainer, fp32, run
+    return result
+
+
+def phase_bf16_am(card):
+    """(b) the CSMSC AM step at batch 64, bucket 768, under bf16."""
+    from msmctts_tpu_torch.data.loader import to_device
+    from msmctts_tpu_torch.ops import vq
+    from msmctts_tpu_torch.training.base_trainer import metrics_to_host
+
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = _build_am_trainer("cuda", precision="bfloat16")
+    predictor, ae = trainer.predictor, trainer.frozen_autoencoder()
+    if not all(p.dtype == torch.bfloat16 for p in ae.parameters()):
+        raise AssertionError("the bf16 AM trainer's teacher does not hold bf16 parameters")
+    n_symbols = list(trainer.config.task["predictor"]["n_symbols"])
+    batch = to_device(_am_batch(np.random.default_rng(1234), n_symbols, AM_B, AM_TEXT, AM_FRAMES, AM_PHONES, AM_LENGTHS),
+                      "cuda")
+    snaps = []
+    pre = [q.register_forward_pre_hook(lambda m, a: snaps.append({"x": a[0].detach().reshape(-1, m.n_head, m.sub_dim)}))
+           for q in ae.quantizer.quantizer]
+    post = [q.register_forward_hook(lambda m, a, o: snaps[-1].update(idx=o[2].reshape(-1, m.n_head), embed=m.embed))
+            for q in ae.quantizer.quantizer]
+    steps = []
+    for it in range(1, 3):
+        snaps.clear()
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        host = metrics_to_host(trainer.train_step(batch, it))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = _counts()
+        if any(not np.isfinite(v) for v in host.values()) or counts != {"vq_nearest": 2, "vq_nearest_stats": 0,
+                                                                          "fused_resblock_layer": 0}:
+            raise AssertionError(f"bf16 AM step {it}: {host}, launches {counts}")
+        steps.append({"iteration": it, "ms": ms, "metrics": host})
+        log(f"[19] bf16 AM step {it}: {ms:.1f} ms, launches {counts}, {json.dumps({k: round(v, 4) for k, v in host.items()})}")
+    peak = {"bfloat16": (torch.cuda.max_memory_allocated() - base) / 2**30}
+    for h in pre + post:
+        h.remove()
+    _fp32_state((predictor,), "bf16 AM step")
+    snap_rows = []
+    for stage, s in enumerate(snaps):  # the teacher's snaps of the last step, kernel vs plain
+        x, e = s["x"].contiguous(), s["embed"]
+        if x.dtype != torch.float32:
+            raise AssertionError(f"the teacher's stage {stage} snaps {x.dtype} rows")
+        idx, quant = vq.vq_nearest(x, e)
+        ref_idx, ref_quant = vq.vq_nearest_plain(x, e)
+        if not torch.equal(idx, s["idx"]):
+            raise AssertionError(f"bf16 AM teacher stage {stage}: the step's indices differ from a second launch")
+        err, mismatches = _hold_snap(f"bf16 AM teacher snap stage {stage}", x, e, idx, quant, ref_idx, ref_quant)
+        snap_rows.append({"stage": stage, "N": x.shape[0], "index_mismatches": mismatches, "max_abs_err": err})
+    log(f"[19] bf16 AM teacher snaps vs plain: {json.dumps(snap_rows)}")
+
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fp32 = _build_am_trainer("cuda")
+    fp32.train_step(batch, 1)
+    peak["float32"] = (torch.cuda.max_memory_allocated() - base) / 2**30
+    run = {"float32": fp32, "bfloat16": trainer}
+    warm = _turns({k: (lambda t=t: t.train_step(batch, 5)) for k, t in run.items()})
+    profiles = {k: profile_call(lambda t=t: t.train_step(batch, 6), "[19]", f"{k} AM step", shown=3)
+                for k, t in run.items()}
+    result = {"steps": steps, "peak_above_start_gib": peak, "snap": snap_rows,
+              "warm_ms": {k: statistics.median(v) for k, v in warm.items()}, "warm_runs_ms": warm,
+              "profile": {k: {"wall_ms": p["wall_ms"], "busy_ms": p["busy_ms"], "busy_share": p["busy_ms"] / p["wall_ms"],
+                              "products_ms": _by_product_dtype(p, "[19]", f"{k} AM step")} for k, p in profiles.items()}}
+    log(f"[19] AM step on {card}, warm median in turns: fp32 {result['warm_ms']['float32']:.1f} / bf16 "
+        f"{result['warm_ms']['bfloat16']:.1f} ms; peak memory above the start, trainer and steps, fp32 "
+        f"{peak['float32']:.2f} / bf16 {peak['bfloat16']:.2f} GiB; busy "
+        f"{ {k: round(p['busy_share'], 3) for k, p in result['profile'].items()} }; device ms by product dtype "
+        f"{json.dumps({k: {d: round(v, 2) for d, v in p['products_ms'].items()} for k, p in result['profile'].items()})}")
+    del trainer, fp32, run
+    return result
+
+
+class _Recorder:
+    """Wrap a module-level function; keep the inputs of every call."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.calls = module, name, []
+        self.fn = getattr(module, name)
+
+    def __enter__(self):
+        def wrapped(*args):
+            self.calls.append([a.detach().clone() if torch.is_tensor(a) else a for a in args])
+            return self.fn(*args)
+
+        setattr(self.module, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+def phase_bf16_inference(card, am_path, reference):
+    """(c) predict at batch 4 and a few daemon requests under bf16."""
+    import queue
+    import threading
+
+    from msmctts_tpu_torch.models import hifigan, predictor as predictor_mod, quantizer
+    from msmctts_tpu_torch.ops import cuda_build, resblock as rb, vq
+    from msmctts_tpu_torch.config import Config
+    from msmctts_tpu_torch.serving import BatchingEngine
+    from msmctts_tpu_torch.tasks import build_task
+    from msmctts_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+
+    ck = load_checkpoint(am_path)
+    ck["config"]["precision"] = "bfloat16"
+    bf16_path = os.path.join(SMOKE_DIR, "am_seeded_bf16.ckpt")
+    save_checkpoint(bf16_path, ck["state"], 0, ck["config"])
+    task = _load_tts_task(bf16_path, "cuda")
+    fp32 = _load_tts_task(am_path, "cuda")
+    for name, module in task.networks.items():
+        if not all(p.dtype == torch.bfloat16 for p in module.parameters()):
+            raise AssertionError(f"the bf16 task's {name} holds parameters in another dtype")
+    for q in task.networks["autoencoder"].quantizer.quantizer:  # buffers, not params: fp32 as JAX's codebook collection
+        if {q.embed.dtype, q.cluster_size.dtype, q.embed_avg.dtype} != {torch.float32}:
+            raise AssertionError("the bf16 task's codebooks are not fp32")
+    # the trained fixture's analysis-synthesis, bf16 against fp32: the decoder's
+    # error on trained weights, apart from any codeword the predictor changes
+    fixture = load_checkpoint(FIXTURE)
+    ae_tasks = {}
+    for name in ("float32", "bfloat16"):
+        cfg = Config(fixture["config"])
+        cfg["precision"] = name
+        ae_tasks[name] = build_task(cfg, device="cuda")
+        ae_tasks[name].load_variables(fixture["state"])
+    rng = np.random.default_rng(4)
+    lengths = np.array(ISTFT_LENGTHS)
+    mel = rng.normal(size=(len(lengths), FRAMES, 80)).astype(np.float32) * 0.5
+    mel *= (np.arange(FRAMES)[None, :] < lengths[:, None])[..., None]
+    as_batch = {"mel": mel, "mel_length": lengths}
+    as_out = {k: t.analysis_synthesis(as_batch)["wav"] for k, t in ae_tasks.items()}
+    as_rel = [_rel_l2(a, b) for a, b in zip(as_out["bfloat16"], as_out["float32"])]
+    with torch.inference_mode():
+        mel_t, len_t = torch.as_tensor(mel, device="cuda"), torch.as_tensor(lengths, device="cuda")
+        q = {k: t.networks["autoencoder"].analysis(mel_t, len_t) for k, t in ae_tasks.items()}
+    as_flips = as_codes = 0
+    for a, b, n in zip(q["bfloat16"]["quantizer_indices"], q["float32"]["quantizer_indices"],
+                       q["float32"]["quantizer_lengths"]):
+        in_length = (torch.arange(a.shape[1], device="cuda")[None] < n[:, None])[..., None].expand_as(a)
+        as_flips += int(((a != b) & in_length).sum())
+        as_codes += int(in_length.sum())
+    log(f"[19] the fixture's analysis-synthesis B=4 frames {lengths.tolist()}, bf16 vs fp32: relative L2 "
+        f"{[round(r, 5) for r in as_rel]}, {as_flips} of {as_codes} codeword indices differ")
+    del ae_tasks, q
+
+    batch = reference["batch"]
+    want = reference["out"]  # phase 5's fp32 predict of this batch
+
+    # predicted durations: flips against fp32 with their rounding margins
+    dur_bf16 = task.predict(batch)["duration"]
+    with torch.inference_mode():
+        text = torch.as_tensor(batch["text"], device="cuda").long()
+        tl = torch.as_tensor(batch["text_length"], device="cuda").long()
+        pred = fp32.networks["predictor"]
+        x, mask = pred._encode(text, tl)
+        raw = pred.upsampler.duration_predictor(x, mask).float().cpu().numpy()
+    valid = np.arange(raw.shape[1])[None] < np.asarray(batch["text_length"])[:, None]
+    flips = (dur_bf16 != want["duration"]) & valid
+    margins = np.abs(np.abs(raw - np.floor(raw) - 0.5))[flips].tolist()
+    log(f"[19] bf16 predict, predicted durations: {int(flips.sum())} of {int(valid.sum())} phones round otherwise than "
+        f"fp32's, at fp32 distances {[round(m, 4) for m in margins]} from the rounding boundary")
+
+    # forced to fp32's durations: the decode of the same frames, launches, kernels vs plain
+    forced = {**batch, "dur": np.asarray(want["duration"], np.float32)}
+    task.predict(forced)
+    torch.cuda.synchronize()
+    _reset_counts()
+    with _Recorder(predictor_mod, "vq_nearest_sharded") as p_rec, _Recorder(quantizer, "vq_nearest_sharded") as q_rec, \
+            _Recorder(hifigan, "fused_resblock_layer") as rb_rec:
+        got = task.predict(forced)
+    torch.cuda.synchronize()
+    counts = _counts()
+    if counts != {"vq_nearest": 4, "vq_nearest_stats": 0, "fused_resblock_layer": 36}:
+        raise AssertionError(f"bf16 predict launches {counts}")
+    ratio = task.networks["autoencoder"].frameshift_ratio
+    _check_wavs(got["wav"], got["mel_length"], ratio, "bf16 predict")
+    rel = [_rel_l2(a, b) for a, b in zip(got["wav"], want["wav"])]
+    code_flips = sum(int((a != b).any(-1).sum()) for a, b in zip(got["embedding"], want["embedding"]))
+    snap_rows = []
+    for x, e in [c[:2] for c in p_rec.calls + q_rec.calls]:
+        if x.dtype != torch.float32:
+            raise AssertionError(f"a bf16 predict snap got {x.dtype} rows")
+        idx, quant = vq.vq_nearest(x, e)
+        ref_idx, ref_quant = vq.vq_nearest_plain(x, e)
+        err, mism = _hold_snap(f"bf16 predict snap N={x.shape[0]}", x, e, idx, quant, ref_idx, ref_quant)
+        snap_rows.append({"N": x.shape[0], "max_abs_err": err, "index_mismatches": mism})
+    rb_worst, rb_shapes = 0.0, set()
+    for x, w1, b1, w2, b2, d, prepared in rb_rec.calls:
+        if x.dtype != torch.float32:
+            raise AssertionError(f"the MRF kernel got {x.dtype} activations")
+        rb_worst = max(rb_worst, _hold_resblock(rb, f"bf16 predict C={x.shape[2]} T={x.shape[1]} d={d}",
+                                                x, w1, b1, w2, b2, d, prepared))
+        rb_shapes.add((x.shape[0], x.shape[1], x.shape[2]))
+    rb_rec.calls.clear()
+    warm = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        task.predict(forced)
+        torch.cuda.synchronize()
+        warm.append((time.perf_counter() - t0) * 1e3)
+    log(f"[19] bf16 predict B=4 (fp32's durations): launches {counts}, relative L2 vs fp32 predict "
+        f"{[round(r, 5) for r in rel]}, {code_flips} frames with another codeword; snaps vs plain {json.dumps(snap_rows)}; "
+        f"36 MRF layers vs plain max abs err {rb_worst:.3g} at {sorted(rb_shapes)}; warm {statistics.median(warm):.1f} ms")
+
+    # the daemon from a checkpoint whose config asks for bf16, against an in-process bf16 engine
+    rng = np.random.default_rng(19)
+    n_symbols = list(task.networks["predictor"].n_symbols)
+    texts = [_phone_string(_text(rng, [int(n)], n_symbols, int(n))[0]) for n in (24, 41, 57)]
+    eng = BatchingEngine(task, sample_rate=task.samplerate, batch_size=SERVE_B, window_ms=0.0,
+                         max_frames=BF16_SERVE_FRAMES, stream_chunk_frames=SERVE_CHUNK)
+    eng.start()
+    try:
+        alone = {t: eng.synthesize(t, timeout=SERVE_TIMEOUT_S) for t in texts}
+    finally:
+        eng.stop()
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    cmd = [sys.executable, "-m", "msmctts_tpu_torch.serve", "-m", bf16_path, "--port", "0", "--batch-size", str(SERVE_B),
+           "--max-frames", str(BF16_SERVE_FRAMES)]
+    builds_before = cuda_build.build_count()
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(line) for line in proc.stdout], daemon=True).start()
+    try:
+        warm_line = _wait_for_line(lines, "warmup:", proc, SERVE_TIMEOUT_S, tag="[19]")
+        if not warm_line.rstrip().endswith("kernel builds 0)"):
+            raise AssertionError(f"the bf16 daemon built kernels at startup: {warm_line.rstrip()}")
+        port = int(_wait_for_line(lines, "serving on", proc, 60, tag="[19]").rsplit(":", 1)[1])
+        ready_s = time.perf_counter() - t0
+        requests = [(t, False) for t in texts] + [(texts[-1], True)]
+        results = [None] * len(requests)
+
+        def client(i):
+            results[i] = _http(port, "POST", "/synthesize", {"text": requests[i][0], "stream": requests[i][1]})
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(len(requests))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(SERVE_TIMEOUT_S)
+        status, data, _, _ = _http(port, "GET", "/stats")
+        stats = json.loads(data)
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(30)
+    served_err = 0.0
+    for (t, stream), r in zip(requests, results):
+        if r is None or r[0] != 200:
+            raise AssertionError(f"bf16 daemon request ({len(t.split())} phones, stream {stream}): {r and r[:2]}")
+        pcm = _pcm(r[1], stream) / 32767.0
+        if pcm.shape != alone[t].shape:
+            raise AssertionError(f"bf16 daemon: {pcm.shape} samples, in-process {alone[t].shape}")
+        served_err = max(served_err, float(np.abs(pcm - alone[t]).max()))
+    if stats["cold_shapes"] != 0 or stats["kernel_builds"] != 0 or stats["errors"] != 0 or served_err > AS_TOL:
+        raise AssertionError(f"bf16 daemon: /stats {stats}, served vs in-process {served_err}")
+    if cuda_build.build_count() != builds_before:
+        raise AssertionError("this process built a kernel during the bf16 daemon's run")
+    log(f"[19] bf16 daemon ready in {ready_s:.1f}s: {len(requests)} requests (1 streamed), served vs in-process bf16 engine "
+        f"max abs err {served_err:.3g}; /stats cold_shapes {stats['cold_shapes']}, kernel_builds {stats['kernel_builds']}, "
+        f"errors {stats['errors']}")
+    del task, fp32
+    return {"analysis_synthesis": {"frames": lengths.tolist(), "rel_l2_vs_fp32": as_rel, "index_flips": as_flips,
+                                   "indices": as_codes},
+            "duration_flips": int(flips.sum()), "phones": int(valid.sum()), "flip_margins": margins,
+            "rel_l2_vs_fp32": rel, "codeword_frames_changed": code_flips, "launches": counts, "snap": snap_rows,
+            "resblock_max_abs_err": rb_worst, "resblock_shapes": sorted(rb_shapes), "warm_ms": statistics.median(warm),
+            "warm_runs_ms": warm, "daemon": {"ready_s": ready_s, "served_err": served_err, "stats": stats}}
+
+
+def phase_bf16_card_vs_cpu():
+    """(d) one bf16 step of each phase (AE warmup, AE GAN, AM) from equal
+    state, card vs CPU: losses within ``BF16_STEP_TOL``; a teacher or
+    quantizer index that differs must sit at a near-tie (``DP_TOL``)."""
+    from msmctts_tpu_torch.data.loader import to_device
+    from msmctts_tpu_torch.training.base_trainer import metrics_to_host
+
+    rng = np.random.default_rng(7)
+    batch = _train_batch(rng, [64, 48], 64)
+    starts = np.array([11, 3])
+    n_symbols = list(_am_config().task["predictor"]["n_symbols"])
+    am_batch = _am_batch(np.random.default_rng(8), n_symbols, 2, 16, 64, (9, 16), (40, 60))
+    out = {}
+    for device in ("cuda", "cpu"):
+        trainer = _build_trainer(device, warmup_steps=1, dropout=0.0, precision="bfloat16")
+        rows = []  # per stage pass: (input rows, the codebook before its update, indices)
+        hooks = [q.register_forward_pre_hook(lambda m, a: rows.append([a[0].detach().float().cpu(), m.embed.cpu().clone()]))
+                 for q in trainer.ae.quantizer.quantizer]
+        hooks += [q.register_forward_hook(lambda m, a, o: rows[-1].append(o[2].cpu()))
+                  for q in trainer.ae.quantizer.quantizer]
+        dev = to_device(batch, device)
+        m1 = metrics_to_host(trainer.train_step(dev, 1))
+        m2 = metrics_to_host(trainer.train_step(dev, 2, starts=torch.as_tensor(starts, device=device)))
+        for h in hooks:
+            h.remove()
+        cb = [q.embed.cpu() for q in trainer.ae.quantizer.quantizer]
+        del trainer
+        am = _build_am_trainer(device, dropout=0.0, precision="bfloat16")
+        m3 = metrics_to_host(am.train_step(to_device(am_batch, device), 1))
+        del am
+        out[device] = {"warmup": m1, "gan": m2, "am": m3, "rows": rows, "codebook": cb}
+    worst, flips, gaps = 0.0, 0, []
+    for phase in ("warmup", "gan", "am"):
+        for k, want in out["cpu"][phase].items():
+            got = out["cuda"][phase][k]
+            rel = abs(got - want) / max(abs(want), 1e-3)
+            worst = max(worst, rel)
+            if rel > BF16_STEP_TOL["loss_rtol"]:
+                raise AssertionError(f"bf16 {phase} step, {k}: card {got} vs CPU {want}")
+    for (x, e, idx), (_, _, ref_idx) in zip(out["cuda"]["rows"], out["cpu"]["rows"]):
+        H = idx.shape[-1]
+        x, idx, ref_idx = x.reshape(-1, H, x.shape[-1] // H), idx.reshape(-1, H), ref_idx.reshape(-1, H)
+        if not torch.equal(idx, ref_idx):
+            flips += int((idx != ref_idx).sum())
+            gaps += _index_gaps(x, e, idx, ref_idx).tolist()
+    cb_err = max(float((a - b).abs().max()) for a, b in zip(out["cuda"]["codebook"], out["cpu"]["codebook"]))
+    log(f"[19] one bf16 step of each phase, card vs CPU: worst loss rel diff {worst:.3g}, codebook max abs diff "
+        f"{cb_err:.3g}, {flips} quantizer indices differ at relative distance gaps {[round(g, 6) for g in gaps]}")
+    if cb_err > BF16_STEP_TOL["codebook_atol"] or flips > DP_TOL["max_flips"] or any(g > DP_TOL["flip_rel_gap"] for g in gaps):
+        raise AssertionError(f"bf16 steps disagree with the CPU: codebook {cb_err}, flips {flips} at gaps {gaps}")
+    return {"loss_rel": worst, "codebook_abs": cb_err, "index_flips": flips, "flip_gaps": gaps,
+            "card": {k: out["cuda"][k] for k in ("warmup", "gan", "am")},
+            "cpu": {k: out["cpu"][k] for k in ("warmup", "gan", "am")}}
+
+
+def phase_bf16(card, am_path, reference):
+    """Phase 19, (a) to (d)."""
+    t0 = time.perf_counter()
+    result = {"vqgan": phase_bf16_vqgan(card), "am": phase_bf16_am(card),
+              "inference": phase_bf16_inference(card, am_path, reference), "card_vs_cpu": phase_bf16_card_vs_cpu()}
+    result["phase_s"] = time.perf_counter() - t0
+    log(f"[19] bf16 phase {result['phase_s']:.1f}s")
+    return result
+
+
 def _device_rows(prof):
     """[{name, count, device_ms}] of a profile's kernels, the longest first."""
     from torch.autograd import DeviceType
@@ -4345,9 +4832,10 @@ def _device_rows(prof):
     return rows
 
 
-def profile_call(fn, tag, what):
+def profile_call(fn, tag, what, shown=12):
     """Device time by kernel name over one warm call of ``fn``, and the
-    card's busy share of its wall time (torch.profiler)."""
+    card's busy share of its wall time (torch.profiler); logs the ``shown``
+    longest kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -4360,7 +4848,7 @@ def profile_call(fn, tag, what):
     busy_ms = sum(r["device_ms"] for r in rows)
     log(f"{tag} profiled {what}: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
         f"({busy_ms / wall_ms:.0%}), {sum(r['count'] for r in rows)} kernels")
-    for r in rows[:12]:
+    for r in rows[:shown]:
         log(f"{tag}   {r['device_ms']:8.3f} ms  x{r['count']:<4d} {r['name']}")
     return {"wall_ms": wall_ms, "busy_ms": busy_ms, "kernels": rows}
 
@@ -4379,37 +4867,47 @@ def main(argv=None):
     import msmctts_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
 
     t_start = time.perf_counter()
+    spent = {}  # seconds per phase, by phase number
+
+    def timed(phase, fn, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        spent[phase] = round(spent.get(phase, 0.0) + time.perf_counter() - t0, 1)
+        return out
+
     gen = torch.Generator(device="cuda").manual_seed(0)
-    env = phase_environment()
-    build = phase_build()
-    vq_res = phase_vq(gen)
-    vqs_res = phase_vq_stats(gen)
-    rb_res = phase_resblock(gen)
-    as_res = phase_analysis_synthesis()
-    tts_res, predict, tts_ref = phase_text_to_wav(env["nvidia_smi"])
+    env = timed("1", phase_environment)
+    build = timed("2", phase_build)
+    vq_res = timed("3", phase_vq, gen)
+    vqs_res = timed("3", phase_vq_stats, gen)
+    rb_res = timed("3", phase_resblock, gen)
+    as_res = timed("4", phase_analysis_synthesis)
+    tts_res, predict, tts_ref = timed("5", phase_text_to_wav, env["nvidia_smi"])
     profile = profile_call(predict, "[5]", "predict") if args.out else None
     del predict
-    train_res, train_ref = phase_training(env["nvidia_smi"], with_profile=bool(args.out))
-    step_res = phase_step_card_vs_cpu()
+    train_res, train_ref = timed("6", phase_training, env["nvidia_smi"], with_profile=bool(args.out))
+    step_res = timed("7", phase_step_card_vs_cpu)
     backend = BACKEND
     log(f"[8] {WORLD} ranks share cuda:0; collectives over backend {backend}")
-    shard_res = phase_sharded_kernels(backend, env["nvidia_smi"])
+    shard_res = timed("8", phase_sharded_kernels, backend, env["nvidia_smi"])
     batch_np = _training_batch()[0]
-    nccl_res = phase_nccl(batch_np)
-    dp_train = phase_dp_training(backend, batch_np, train_ref, env["nvidia_smi"])
-    dp_infer = phase_dp_inference(backend, tts_ref)
-    am_res = phase_am_training(env["nvidia_smi"], with_profile=bool(args.out))
-    am_cpu = phase_am_step_card_vs_cpu()
-    am_cli = phase_am_entry_point(env["nvidia_smi"])
+    nccl_res = timed("9", phase_nccl, batch_np)
+    dp_train = timed("10", phase_dp_training, backend, batch_np, train_ref, env["nvidia_smi"])
+    dp_infer = timed("11", phase_dp_inference, backend, tts_ref)
+    am_res = timed("12", phase_am_training, env["nvidia_smi"], with_profile=bool(args.out))
+    am_cpu = timed("12", phase_am_step_card_vs_cpu)
+    am_cli = timed("12", phase_am_entry_point, env["nvidia_smi"])
     t_serving = time.perf_counter()
-    serving = phase_serving(env["nvidia_smi"], tts_ref["am_path"], with_profile=bool(args.out))
+    serving = timed("13", phase_serving, env["nvidia_smi"], tts_ref["am_path"], with_profile=bool(args.out))
     serving["phase_s"] = time.perf_counter() - t_serving
     log(f"[13] serving phase {serving['phase_s']:.1f}s")
-    qs = phase_qs_tts(gen, env["nvidia_smi"], with_profile=bool(args.out))
-    istft = phase_istft(gen, env["nvidia_smi"], with_profile=bool(args.out))
-    int8 = phase_int8(env["nvidia_smi"], tts_ref["am_path"], with_profile=bool(args.out))
-    tools = phase_quality_tools(gen, env["nvidia_smi"], with_profile=bool(args.out))
-    lj = phase_ljspeech(gen, env["nvidia_smi"])
+    qs = timed("14", phase_qs_tts, gen, env["nvidia_smi"], with_profile=bool(args.out))
+    istft = timed("15", phase_istft, gen, env["nvidia_smi"], with_profile=bool(args.out))
+    int8 = timed("16", phase_int8, env["nvidia_smi"], tts_ref["am_path"], with_profile=bool(args.out))
+    tools = timed("17", phase_quality_tools, gen, env["nvidia_smi"], with_profile=bool(args.out))
+    lj = timed("18", phase_ljspeech, gen, env["nvidia_smi"])
+    bf16 = timed("19", phase_bf16, env["nvidia_smi"], tts_ref["am_path"], tts_ref)
+    bf_vq, bf_am, bf_inf = bf16["vqgan"], bf16["am"], bf16["inference"]
     lj_as, lj_tr, lj_tools, lj_daemon = lj["analysis_synthesis"], lj["training"], lj["tools"], lj["daemon"]
     t_qat, t_mcd, t_dbg, t_eval = tools["qat"], tools["as_mcd"], tools["debug"], tools["evaluate"]
     launches_qat = lambda key: {"precompute": t_qat["launches_precompute"][key], "sweep_fp32": t_mcd["launches"][key],
@@ -4460,6 +4958,10 @@ def main(argv=None):
                                   "predict": lj_tools["synthesize_launches"]["vq_nearest"],
                                   "daemon_batch": lj_daemon["batch_launches"]["vq_nearest"]},
             "ljspeech": {"analysis_synthesis": ist_snap(lj_as["snap"]), "daemon_batch": ist_snap(lj_daemon["snap"])},
+            # phase 19, precision: bfloat16: the bf16 AM step's teacher (2 a step) and a bf16 predict (4),
+            # each launch held against plain on its inputs
+            "launches_bf16": {"am_step": 2, "predict_batch": bf_inf["launches"]["vq_nearest"]},
+            "bf16": {"am_step": bf_am["snap"], "predict": bf_inf["snap"]},
         },
         {
             "name": "vq_nearest_stats", "route": "cuda", "source": "msmctts_tpu_torch/csrc/vq_stats.cu",
@@ -4485,6 +4987,10 @@ def main(argv=None):
             "ljspeech": [{k: r[k] for k in ("N", "valid", "walkers", "device_ms", "ms", "plain_ms", "bound_ms", "bound_by",
                                             "sums_max_abs_err")} for r in lj_tr["stats"]],
             "ljspeech_profile_kernels": lj["profile"]["vq_stats_kernels"],
+            # phase 19: the bf16 AE step (fp32 rows: the quantizer's input promotes), both calls on the path's inputs
+            "launches_bf16": 2,
+            "bf16": [{k: r[k] for k in ("N", "valid", "device_ms", "ms", "plain_ms", "bound_ms", "sums_max_abs_err")}
+                     for r in bf_vq["stats"]],
         },
         {
             "name": "vq_nearest_stats_sharded", "route": "cuda", "source": "msmctts_tpu_torch/csrc/vq_stats.cu",
@@ -4568,6 +5074,9 @@ def main(argv=None):
             # the daemon's largest warm shape: the 36 layers at B=8, bucket 512
             "launches_ljspeech_daemon_batch": lj_daemon["batch_launches"]["fused_resblock_layer"],
             "ljspeech_daemon": lj_daemon["resblock"],
+            # phase 19: a bf16 predict (B=4, bucket 512): its 36 layers read fp32, held against plain on their inputs
+            "launches_bf16": bf_inf["launches"]["fused_resblock_layer"],
+            "bf16": {"max_abs_err": bf_inf["resblock_max_abs_err"], "shapes": bf_inf["resblock_shapes"]},
             "tolerance": {**RB_TOL, "max_abs": RB_MAX_ABS},
             "shapes": f"per decode: the 36 CSMSC MRF layers at B={B}, {FRAMES} frames; bound_ms counts the kernel's operations, "
                       "three TF32 tensor-core products per fp32 product at 495 TFLOP/s; bound_fp32_ms the same products as "
@@ -4586,9 +5095,10 @@ def main(argv=None):
                        "sharded_kernels": shard_res, "nccl_world_1": nccl_res, "dp_training": dp_train,
                        "dp_inference": dp_infer, "am_training": am_res, "am_step_card_vs_cpu": am_cpu,
                        "am_entry_point": am_cli, "serving": serving, "qs_tts": qs, "istft": istft, "int8": int8,
-                       "quality_tools": tools, "ljspeech": lj,
-                       "wall_s": time.perf_counter() - t_start}, f, indent=1)
-    log(f"[19] wall {time.perf_counter() - t_start:.1f}s on {env['nvidia_smi']}")
+                       "quality_tools": tools, "ljspeech": lj, "bf16": bf16,
+                       "phase_s": spent, "wall_s": time.perf_counter() - t_start}, f, indent=1)
+    log(f"[20] seconds per phase {json.dumps(spent)}")
+    log(f"[20] wall {time.perf_counter() - t_start:.1f}s on {env['nvidia_smi']}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": env["name"], "count": env["count"]}}))
     return 0

@@ -125,11 +125,14 @@ class ResBlock1(nn.Module):
         return x
 
     def forward(self, x):
+        # the kernel reads and writes fp32 whatever the activations' dtype,
+        # and its taps are folded in fp32 from the (possibly bf16) pairs
+        # (msmctts_tpu/ops/pallas_resblock.py:129,153-158)
         for i, d in enumerate(self.dilations):
             x = fused_resblock_layer(
-                x, getattr(self, f"taps1_{i}"), self.convs1[i].bias,
-                getattr(self, f"taps2_{i}"), self.convs2[i].bias, d, getattr(self, f"prepared_{i}"),
-            )
+                x.float(), getattr(self, f"taps1_{i}"), self.convs1[i].bias.float(),
+                getattr(self, f"taps2_{i}"), self.convs2[i].bias.float(), d, getattr(self, f"prepared_{i}"),
+            ).to(x.dtype)
         return x
 
 

@@ -26,6 +26,7 @@ from msmctts_tpu_torch.ops.convs import Conv1x1
 from msmctts_tpu_torch.ops.dropout import Dropout
 from msmctts_tpu_torch.ops.masking import positions_from_lengths, sequence_mask
 from msmctts_tpu_torch.parallel.mesh import all_reduce_sum
+from msmctts_tpu_torch.parallel.precision import Linear
 from msmctts_tpu_torch.registry import get_network, register_network
 
 
@@ -145,7 +146,7 @@ class MultiStageQuantizer(nn.Module):
             for i in range(n_stage)
         )
         self.postprocessor = nn.ModuleList(
-            nn.Sequential(nn.Linear(dims[i] if i == 0 else M + dims[i], dims[i]), nn.Tanh(), nn.Linear(dims[i], M))
+            nn.Sequential(Linear(dims[i] if i == 0 else M + dims[i], dims[i]), nn.Tanh(), Linear(dims[i], M))
             for i in range(n_stage)
         )
         # the prior predictor is unused at the coarsest stage
@@ -281,7 +282,7 @@ class MSMCVQGAN(nn.Module):
     ):
         super().__init__()
         enc_cfg = dict(encoder_config or {})
-        self.in_linear = nn.Linear(in_dim, n_model_size)
+        self.in_linear = Linear(in_dim, n_model_size)
         self.encoder = MultiStageEncoder(in_channels=n_model_size, **enc_cfg)
         self.quantizer = MultiStageQuantizer(
             n_model_size=n_model_size,
@@ -298,7 +299,7 @@ class MSMCVQGAN(nn.Module):
             FFTBlocks(d_model=n_model_size, **dict(frame_decoder_config))
             if frame_decoder_config is not None else None
         )
-        self.mel_predictor = nn.Linear(n_model_size, in_dim) if pred_mel else None
+        self.mel_predictor = Linear(n_model_size, in_dim) if pred_mel else None
 
     @property
     def frameshift_ratio(self) -> int:

@@ -48,6 +48,7 @@ from msmctts_tpu_torch.models.quantizer import codebook_distances, lookup_codes
 from msmctts_tpu_torch.models.tdnn import ECAPA_TDNN
 from msmctts_tpu_torch.models.transformer import FFTBlocks
 from msmctts_tpu_torch.ops.masking import positions_from_lengths, sequence_mask
+from msmctts_tpu_torch.parallel.precision import Conv1d, Linear
 from msmctts_tpu_torch.registry import get_network, register_network
 
 
@@ -77,7 +78,7 @@ class AttrPredictor(nn.Module):
                  n_layers: int = 4):
         super().__init__()
         self.enc = ResStack(in_channels, kernel_size, dilation_rate, n_layers, p_dropout=0.0)
-        self.proj = nn.Linear(in_channels, out_channels)
+        self.proj = Linear(in_channels, out_channels)
 
     def forward(self, x, lengths):
         mask = sequence_mask(lengths, x.shape[1], dtype=x.dtype)[..., None]
@@ -113,10 +114,10 @@ class MAMSEncoder(nn.Module):
         self.pitch_encoder = None
         if pitch_dim + energy_dim > 0:  # conv7-tanh-conv3-tanh-conv3-tanh-conv1
             self.pitch_encoder = nn.Sequential(
-                nn.Conv1d(pitch_dim + energy_dim, C, 7, padding=3), nn.Tanh(),
-                nn.Conv1d(C, C, 3, padding=1), nn.Tanh(),
-                nn.Conv1d(C, C, 3, padding=1), nn.Tanh(),
-                nn.Conv1d(C, C, 1),
+                Conv1d(pitch_dim + energy_dim, C, 7, padding=3), nn.Tanh(),
+                Conv1d(C, C, 3, padding=1), nn.Tanh(),
+                Conv1d(C, C, 3, padding=1), nn.Tanh(),
+                Conv1d(C, C, 1),
             )
         self.encoders = nn.ModuleList(
             FFTBlocks(
@@ -173,7 +174,7 @@ class _EmbAutoencoder(nn.Module):
             FFTBlocks(d_model=n_model_size, **dict(frame_decoder_config))
             if frame_decoder_config is not None else None
         )
-        self.mel_predictor = nn.Linear(n_model_size, mel_dim or emb_dim) if pred_mel else None
+        self.mel_predictor = Linear(n_model_size, mel_dim or emb_dim) if pred_mel else None
 
     @property
     def frameshift_ratio(self) -> int:
@@ -232,7 +233,7 @@ class MSMCVQGANEmb(_EmbAutoencoder):
     ):
         super().__init__()
         enc_cfg = dict(encoder_config or {})
-        self.in_linear = nn.Linear(emb_dim, n_model_size)
+        self.in_linear = Linear(emb_dim, n_model_size)
         self.encoder = MAMSEncoder(in_channels=n_model_size, pitch_dim=pitch_dim, energy_dim=energy_dim, **enc_cfg)
         self.quantizer = MultiStageQuantizer(
             n_model_size=n_model_size,
@@ -356,7 +357,7 @@ class KMeansVQGANEmb(_EmbAutoencoder):
     ):
         super().__init__()
         self.quantizer = KMeansQuantizer(quantizer_path)
-        self.in_linear = nn.Linear(emb_dim, n_model_size)
+        self.in_linear = Linear(emb_dim, n_model_size)
         self._build_tail(emb_dim, n_model_size, global_encoder_config, frame_decoder_config, decoder_config,
                          pred_mel, mel_dim)
 
@@ -401,7 +402,7 @@ class EmbVC(_EmbAutoencoder):
     ):
         super().__init__()
         self.quantizer = None
-        self.in_linear = nn.Linear(emb_dim, n_model_size)
+        self.in_linear = Linear(emb_dim, n_model_size)
         self.encoder = MAMSEncoder(in_channels=n_model_size, pitch_dim=pitch_dim, energy_dim=energy_dim,
                                    **dict(encoder_config or {}))
         self._build_tail(emb_dim, n_model_size, global_encoder_config, frame_decoder_config, decoder_config,

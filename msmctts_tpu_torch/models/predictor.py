@@ -22,6 +22,7 @@ import torch.nn as nn
 from msmctts_tpu_torch.models.transformer import FFTBlocks, LengthRegulator
 from msmctts_tpu_torch.ops.masking import positions_from_lengths
 from msmctts_tpu_torch.ops.vq import vq_nearest_sharded
+from msmctts_tpu_torch.parallel.precision import Conv1d, Linear
 from msmctts_tpu_torch.registry import register_network
 
 
@@ -29,7 +30,8 @@ def snap_with_codebook(x, embed):
     """Snap [B, T, D] to nearest codewords of embed [H, d, K] (multi-head)."""
     B, T, D = x.shape
     H = embed.shape[0]
-    _, quant = vq_nearest_sharded(x.reshape(B * T, H, D // H), embed)
+    # fp32 search, codewords back in x's dtype (msmctts_tpu/models/predictor.py:40)
+    _, quant = vq_nearest_sharded(x.float().reshape(B * T, H, D // H), embed)
     return quant.reshape(B, T, D).to(x.dtype)
 
 
@@ -72,16 +74,16 @@ class MultiStagePredictor(nn.Module):
         self.n_pred_scale = list(n_pred_scale)
         # downsamplers iterate fine->coarse (scales reversed)
         self.downsamplers = nn.ModuleList(
-            nn.Conv1d(M, M, 2 * s + 1, padding=s) for s in self.n_pred_scale[::-1]
+            Conv1d(M, M, 2 * s + 1, padding=s) for s in self.n_pred_scale[::-1]
         )
         dec_cfg = dict(decoder_config)
         dec_cfg.pop("name", None)
         dec_cfg.setdefault("d_model", M)
         self.decoders = nn.ModuleList(
             nn.ModuleList([
-                nn.Linear(M if i == 0 else 2 * M + n_pred_size, M),
+                Linear(M if i == 0 else 2 * M + n_pred_size, M),
                 FFTBlocks(**dec_cfg),
-                nn.Linear(M, n_pred_size),
+                Linear(M, n_pred_size),
             ])
             for i in range(len(self.n_pred_scale))
         )
@@ -94,7 +96,10 @@ class MultiStagePredictor(nn.Module):
         out = None
         for i, emb in enumerate(embs):
             ids = text[..., i].long()
-            e = emb(ids) * (ids != 0)[..., None]
+            # summed in fp32: under bf16 the JAX package's sum is a bf16 add
+            # that only the fp32 position table reads, and XLA (its default
+            # allow_excess_precision) never rounds it in between
+            e = (emb(ids) * (ids != 0)[..., None]).float()
             out = e if out is None else out + e
         return out
 
@@ -147,7 +152,7 @@ class MultiStagePredictor(nn.Module):
         """Phase-1 inference: rounded, clamped per-phone durations (float)."""
         x, text_mask = self._encode(text, text_length)
         dur = self.upsampler.duration_predictor(x, text_mask)
-        return torch.round(torch.clamp(dur, min=0.0))
+        return torch.round(torch.clamp(dur.float(), min=0.0))  # fp32 durations (predictor.py:207)
 
     def decode(self, text_embedding, feat, feat_lengths, codebooks=None):
         """Per-stage cascade: stage i > 0 is fed the teacher's ``feat[i - 1]``

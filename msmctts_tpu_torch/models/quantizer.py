@@ -93,7 +93,7 @@ class EMAQuantizer(nn.Module):
         """Snap [B, T, D] to nearest codewords -> (quant [B, T, D],
         indices [B, T, H])."""
         B, T, D = x.shape
-        idx, quant = nearest_codes(x.reshape(B, T, self.n_head, self.sub_dim), self.embed)
+        idx, quant = nearest_codes(x.float().reshape(B, T, self.n_head, self.sub_dim), self.embed)
         return quant.reshape(B, T, D).to(x.dtype), idx
 
     @torch.no_grad()
@@ -127,12 +127,14 @@ class EMAQuantizer(nn.Module):
             xf = x.detach().float().reshape(B * T, self.n_head, self.sub_dim)
             idx, quant, counts, sums = vq_nearest_stats_sharded(xf, self.embed, mask, self.group)
             indices = idx.reshape(B, T, self.n_head)
-            quant = quant.reshape(B, T, D).to(x.dtype)
+            quant = quant.reshape(B, T, D)
             self.ema_update(counts, sums)
         else:
-            quant, indices = self.quantize(x.detach())
-        # commitment diff in float32; gradients reach x only
-        diff = torch.square(quant.float() - x.float())
+            quant, indices = self.quantize(x.detach().float())
+        # commitment diff in float32 from the fp32 codewords; gradients reach
+        # x only; the codewords return in x's dtype (quantizer.py:209-214)
+        diff = torch.square(quant - x.float())
+        quant = quant.to(x.dtype)
         quant_st = x + (quant - x).detach()
         return quant_st, diff, indices
 

@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from msmctts_tpu_torch.ops.convs import Conv1x1
 from msmctts_tpu_torch.ops.dropout import Dropout
 from msmctts_tpu_torch.parallel.mesh import sum_over_ranks
+from msmctts_tpu_torch.parallel.precision import Conv1d, Linear, result_dtype
 
 BN_MOMENTUM = 0.9  # flax momentum = 1 - torch momentum (0.1)
 BN_EPS = 1e-5
@@ -68,7 +69,9 @@ class BatchNorm(nn.Module):
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight
-        return (x - mean) * mul + self.bias
+        # fp32 statistics and normalization, the result in the promoted
+        # dtype of input, scale and bias, as flax's _normalize returns it
+        return ((x - mean) * mul + self.bias).to(result_dtype(x, self.weight, self.bias))
 
 
 def _conv_nlc(conv: nn.Conv1d, x):
@@ -81,7 +84,7 @@ class Conv1dReluBn(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 1, dilation: int = 1,
                  padding: int = 0, bias: bool = False):
         super().__init__()
-        self.conv = nn.Conv1d(in_channels, out_channels, kernel_size, padding=padding, dilation=dilation, bias=bias)
+        self.conv = Conv1d(in_channels, out_channels, kernel_size, padding=padding, dilation=dilation, bias=bias)
         self.bn = BatchNorm(out_channels)
 
     def forward(self, x, train: Optional[bool] = None):
@@ -101,7 +104,7 @@ class Res2Conv1dReluBn(nn.Module):
         self.width = channels // scale
         self.nums = scale if scale == 1 else scale - 1
         self.convs = nn.ModuleList(
-            nn.Conv1d(self.width, self.width, kernel_size, padding=padding, dilation=dilation, bias=False)
+            Conv1d(self.width, self.width, kernel_size, padding=padding, dilation=dilation, bias=False)
             for _ in range(self.nums)
         )
         self.bns = nn.ModuleList(BatchNorm(self.width) for _ in range(self.nums))
@@ -123,8 +126,8 @@ class SE_Connect(nn.Module):
 
     def __init__(self, channels: int, s: int = 2):
         super().__init__()
-        self.linear1 = nn.Linear(channels, channels // s)
-        self.linear2 = nn.Linear(channels // s, channels)
+        self.linear1 = Linear(channels, channels // s)
+        self.linear2 = Linear(channels // s, channels)
 
     def forward(self, x):
         out = torch.mean(x, dim=1)
@@ -151,6 +154,15 @@ class SE_Res2Block(nn.Sequential):
         return x + self[3](h)
 
 
+def _softmax(x, dim):
+    """``jax.nn.softmax`` as it computes: exp of the max-shifted input, over
+    its sum, each op in the input's dtype. Under bf16 that rounds twice,
+    where ``torch.softmax`` rounds once; the ECAPA pooling reads a bf16
+    input under ``precision: bfloat16``."""
+    e = torch.exp(x - x.amax(dim=dim, keepdim=True).detach())
+    return e / e.sum(dim=dim, keepdim=True)
+
+
 class AttentiveStatsPool(nn.Module):
     """Attentive weighted mean and std over time (tdnn.py:157-172); the
     variance is clamped at 1e-9 before the square root."""
@@ -162,7 +174,7 @@ class AttentiveStatsPool(nn.Module):
 
     def forward(self, x):
         alpha = torch.tanh(self.linear1(x))
-        alpha = torch.softmax(self.linear2(alpha), dim=1)
+        alpha = _softmax(self.linear2(alpha), dim=1)
         mean = torch.sum(alpha * x, dim=1)
         residuals = torch.sum(alpha * x * x, dim=1) - mean * mean
         std = torch.sqrt(torch.clamp(residuals, min=1e-9))
@@ -184,7 +196,7 @@ class ECAPA_TDNN(nn.Module):
         self.conv = Conv1x1(C * 3, C * 3)
         self.pooling = AttentiveStatsPool(C * 3, 128)
         self.bn1 = BatchNorm(C * 6)
-        self.linear = nn.Linear(C * 6, embd_dim)
+        self.linear = Linear(C * 6, embd_dim)
         self.bn2 = BatchNorm(embd_dim)
 
     def set_group(self, group):
@@ -229,12 +241,12 @@ class XVectorTDNN(nn.Module):
         super().__init__()
         convs, bns, c_in = [], [], in_channels
         for c, k, d in self.PLAN:
-            convs.append(nn.Conv1d(c_in, c, k, dilation=d))
+            convs.append(Conv1d(c_in, c, k, dilation=d))
             bns.append(BatchNorm(c))
             c_in = c
         self.tdnn = nn.ModuleList(convs)
         self.bn = nn.ModuleList(bns)
-        self.fc = nn.ModuleList([nn.Linear(2 * c_in, 512), nn.Linear(512, 512), nn.Linear(512, out_channels)])
+        self.fc = nn.ModuleList([Linear(2 * c_in, 512), Linear(512, 512), Linear(512, out_channels)])
         self.bn_fc = nn.ModuleList([BatchNorm(512), BatchNorm(512)])
         self.drop = Dropout(p_dropout)
 

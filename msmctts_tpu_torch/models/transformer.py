@@ -29,6 +29,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from msmctts_tpu_torch.ops.dropout import Dropout
+from msmctts_tpu_torch.parallel.precision import Conv1d, LayerNorm, Linear
 
 LAYERNORM_EPS = 1e-5
 NEG_INF = -1e9
@@ -62,9 +63,9 @@ class MultiHeadAttention(nn.Module):
                  dropout: float = 0.1, attn_dropout: float = 0.1):
         super().__init__()
         self.n_head, self.d_k, self.d_v = n_head, d_k, d_v
-        self.linear = nn.Linear(d_model, n_head * (2 * d_k + d_v))
-        self.fc = nn.Linear(n_head * d_v, d_model)
-        self.layer_norm = nn.LayerNorm(d_model, eps=LAYERNORM_EPS)
+        self.linear = Linear(d_model, n_head * (2 * d_k + d_v))
+        self.fc = Linear(n_head * d_v, d_model)
+        self.layer_norm = LayerNorm(d_model, eps=LAYERNORM_EPS)
         self.attn_dropout = Dropout(attn_dropout)
         self.dropout = Dropout(dropout)
 
@@ -74,10 +75,13 @@ class MultiHeadAttention(nn.Module):
         q = qkv[..., : self.d_k]
         k = qkv[..., self.d_k : 2 * self.d_k]
         v = qkv[..., 2 * self.d_k :]
-        attn = torch.einsum("bqhd,bkhd->bhqk", q, k) * (1.0 / np.sqrt(self.d_k))
+        # the JAX scale is a numpy scalar, which promotes a bf16 product to
+        # fp32 (msmctts_tpu/models/transformer.py:72-73); so does this cast
+        attn = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * (1.0 / np.sqrt(self.d_k))
         attn = attn.masked_fill(key_pad[:, None, None, :], NEG_INF)
         attn = self.attn_dropout(torch.softmax(attn, dim=-1))
-        out = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(B, T, self.n_head * self.d_v)
+        # einsum promotes its operands in JAX (transformer.py:77)
+        out = torch.einsum("bhqk,bkhd->bqhd", attn, v.to(attn.dtype)).reshape(B, T, self.n_head * self.d_v)
         return self.layer_norm(self.dropout(self.fc(out)) + x)
 
 
@@ -88,9 +92,9 @@ class ConvFFN(nn.Module):
         super().__init__()
         self.dropout = Dropout(dropout)
         pad = _same_padding(kernel_size)
-        self.w_1 = nn.Conv1d(d_model, d_inner, kernel_size, padding=pad)
-        self.w_2 = nn.Conv1d(d_inner, d_model, kernel_size, padding=pad)
-        self.layer_norm = nn.LayerNorm(d_model, eps=LAYERNORM_EPS)
+        self.w_1 = Conv1d(d_model, d_inner, kernel_size, padding=pad)
+        self.w_2 = Conv1d(d_inner, d_model, kernel_size, padding=pad)
+        self.layer_norm = LayerNorm(d_model, eps=LAYERNORM_EPS)
 
     def forward(self, x):
         h = self.w_2(F.relu(self.w_1(x.transpose(1, 2)))).transpose(1, 2)
@@ -177,13 +181,13 @@ class DurationPredictor(nn.Module):
     def __init__(self, input_size: int, filter_size: int, kernel: int = 3, dropout: float = 0.1):
         super().__init__()
         pad = _same_padding(kernel)
-        self.conv1d_1 = nn.Conv1d(input_size, filter_size, kernel, padding=pad)
-        self.layer_norm_1 = nn.LayerNorm(filter_size, eps=LAYERNORM_EPS)
+        self.conv1d_1 = Conv1d(input_size, filter_size, kernel, padding=pad)
+        self.layer_norm_1 = LayerNorm(filter_size, eps=LAYERNORM_EPS)
         self.dropout_1 = Dropout(dropout)
-        self.conv1d_2 = nn.Conv1d(filter_size, filter_size, kernel, padding=pad)
-        self.layer_norm_2 = nn.LayerNorm(filter_size, eps=LAYERNORM_EPS)
+        self.conv1d_2 = Conv1d(filter_size, filter_size, kernel, padding=pad)
+        self.layer_norm_2 = LayerNorm(filter_size, eps=LAYERNORM_EPS)
         self.dropout_2 = Dropout(dropout)
-        self.linear_layer = nn.Linear(filter_size, 1)
+        self.linear_layer = Linear(filter_size, 1)
 
     def forward(self, x, non_pad):
         x = x * non_pad

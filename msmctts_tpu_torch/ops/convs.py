@@ -20,6 +20,13 @@ The conv modules take torch's NCL / NCHW layout. ``hifigan_init`` marks the
 convs the JAX package draws from N(0, 0.01) (``weights.init_random`` reads
 it); the others are lecun-normal there. ``Conv1x1`` is the 1x1 conv the
 reference uses on [B, C, T]; here it maps [B, T, C] directly.
+
+Dtypes follow the JAX package under ``precision: bfloat16``
+(``parallel/precision.py``): the kernel is folded in fp32 from whatever
+dtype ``weight_v`` and ``weight_g`` hold and cast to the input's dtype, and
+the bias to the output's (``msmctts_tpu/ops/convs.py:31-34,89,97,137,145``);
+``Conv1x1`` is a ``flax.linen.Dense`` there, so input, weight and bias take
+their promoted dtype.
 """
 
 from __future__ import annotations
@@ -29,8 +36,14 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 
+def _to(t, dtype):
+    return None if t is None else t.to(dtype)
+
+
 def fold_weight_norm(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """Dense kernel ``v / max(||v||, 1e-12) * g``, norm over all axes but 0."""
+    """Dense kernel ``v / max(||v||, 1e-12) * g``, norm over all axes but 0,
+    in fp32 whatever the dtype of ``v`` and ``g`` (``msmctts_tpu/ops/convs.py:31-34``)."""
+    v, g = v.float(), g.float()
     norm = torch.sqrt(torch.sum(v * v, dim=tuple(range(1, v.dim())), keepdim=True))
     return v / torch.clamp(norm, min=1e-12) * g
 
@@ -81,7 +94,8 @@ class WNConv1d(_Folded):
         self._init_pair((out_channels, in_channels, kernel_size), out_channels, bias, hifigan_init)
 
     def forward(self, x):
-        return F.conv1d(x, self.kernel(), self.bias, padding=self.padding, dilation=self.dilation)
+        return F.conv1d(x, self.kernel().to(x.dtype), _to(self.bias, x.dtype), padding=self.padding,
+                        dilation=self.dilation)
 
 
 class WNConv2d(_Folded):
@@ -95,7 +109,8 @@ class WNConv2d(_Folded):
         self._init_pair((out_channels, in_channels, *kernel_size), out_channels, bias, False)
 
     def forward(self, x):
-        return F.conv2d(x, self.kernel(), self.bias, stride=self.stride, padding=self.padding)
+        return F.conv2d(x, self.kernel().to(x.dtype), _to(self.bias, x.dtype), stride=self.stride,
+                        padding=self.padding)
 
 
 class WNConvTranspose1d(_Folded):
@@ -110,9 +125,8 @@ class WNConvTranspose1d(_Folded):
         self._init_pair((in_channels, out_channels, kernel_size), out_channels, bias, hifigan_init)
 
     def forward(self, x):
-        return F.conv_transpose1d(
-            x, self.kernel(), self.bias, stride=self.stride, padding=self.padding
-        )
+        return F.conv_transpose1d(x, self.kernel().to(x.dtype), _to(self.bias, x.dtype), stride=self.stride,
+                                  padding=self.padding)
 
 
 class Conv1x1(nn.Module):
@@ -125,7 +139,8 @@ class Conv1x1(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_channels))
 
     def forward(self, x):
-        return F.linear(x, self.weight[:, :, 0], self.bias)
+        dt = torch.promote_types(torch.promote_types(x.dtype, self.weight.dtype), self.bias.dtype)
+        return F.linear(x.to(dt), self.weight[:, :, 0].to(dt), self.bias.to(dt))
 
 
 def refold(module: nn.Module):

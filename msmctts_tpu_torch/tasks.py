@@ -52,8 +52,18 @@ its shapes are recorded as ``("ae8", T)``, ``("syn8", Lt, F)`` and
 covers that decoder only: an ``ISTFTGenerator`` decodes monolithically, as
 in the JAX package.
 
-Everything else runs in fp32 on ``device`` (``cuda`` unless the caller asks
-for the CPU).
+``precision: bfloat16`` (``parallel/precision.py``) is applied as the JAX
+task's ``_cast`` applies it (``msmctts_tpu/tasks.py:241-243,289-296``): the
+inference networks hold their float parameters in bf16, cast when they are
+built and so rounded by every load, the frozen autoencoder's when it loads;
+codebooks and BatchNorm statistics are buffers and stay fp32, and the
+weight-norm caches are folded in fp32 from the rounded pairs. The inputs
+stay fp32, so most activations promote back to fp32 (the JAX package's
+promotion, which the port's layers follow). The int8 decoder under bf16
+raises: the JAX package builds it in the compute dtype, which the port's
+does not (ROADMAP A11a).
+
+Everything runs on ``device`` (``cuda`` unless the caller asks for the CPU).
 """
 
 from __future__ import annotations
@@ -70,6 +80,7 @@ from msmctts_tpu_torch.models.hifigan import receptive_field_frames
 from msmctts_tpu_torch.models.msmc_vqgan import MSMCVQGAN, MultiStageQuantizer
 from msmctts_tpu_torch.ops.int8_generator import Int8Decoder
 from msmctts_tpu_torch.parallel import mesh
+from msmctts_tpu_torch.parallel.precision import cast_parameters_, compute_dtype
 from msmctts_tpu_torch.registry import get_network, get_task, register_task
 from msmctts_tpu_torch.streaming import StreamingDecoder
 from msmctts_tpu_torch.utils.checkpoint import load_checkpoint
@@ -148,17 +159,19 @@ def build_task(config, device=None, mode: str = "infer"):
     return get_task(config.task["_name"])(config, device, mode)
 
 
-def load_frozen_autoencoder(checkpoint_path: str, config_path: Optional[str] = None, device=None):
+def load_frozen_autoencoder(checkpoint_path: str, config_path: Optional[str] = None, device=None,
+                            dtype: torch.dtype = torch.float32):
     """Load a frozen autoencoder, any registered network with a weight
     mapping (``MSMCVQGAN``, ``MSMCVQGANEmb``, ...), in ``eval()`` mode
     (module with weights, config) from a checkpoint, using its embedded
-    config when no config file is given."""
+    config when no config file is given; its float parameters rounded to
+    ``dtype`` (its codebooks stay fp32)."""
     ckpt = load_checkpoint(checkpoint_path)
     cfg = Config(config_path) if config_path else Config(ckpt["config"])
     node = cfg.task["autoencoder"]
     module = _build_network(node, resolve_device(device))
     _load_network(module, node["_name"], ckpt["state"], "autoencoder")
-    return module, cfg
+    return cast_parameters_(module, dtype), cfg
 
 
 def extract_codebooks(autoencoder) -> list:
@@ -199,6 +212,10 @@ class MSMCTTS(BaseTask):
         self.int8_smooth_alpha: Optional[float] = 1.0
         self.int8_float_sites: tuple = ()
         self._int8_state: Optional[Int8Decoder] = None
+        self.compute_dtype = compute_dtype(config)
+        if mode == "infer":  # the JAX task's _cast, before any load: loads then round as they copy
+            for module in self.networks.values():
+                cast_parameters_(module, self.compute_dtype)
 
     # -------------------------------------------------------------- mesh
     def use_mesh(self, group) -> "MSMCTTS":
@@ -237,7 +254,8 @@ class MSMCTTS(BaseTask):
         self._loaded_modules = True
         node = self.config.task.get("autoencoder", {})
         if "_checkpoint" in node and "autoencoder" not in self.networks:
-            module, _ = load_frozen_autoencoder(node["_checkpoint"], node.get("_config"), self.device)
+            module, _ = load_frozen_autoencoder(node["_checkpoint"], node.get("_config"), self.device,
+                                                self.compute_dtype)
             self.networks["autoencoder"] = module
 
     # ------------------------------------------------------------- infer
@@ -305,6 +323,10 @@ class MSMCTTS(BaseTask):
                 raise NotImplementedError(f"int8 PTQ kernels cover the HifiGANGenerator decoder only, not {name}")
             if mesh.world(self._group) > 1:
                 raise NotImplementedError("the int8 decoder over an inference group is not ported (ROADMAP A12c)")
+            if self.compute_dtype != torch.float32:
+                # the JAX package builds its Int8Decoder in the compute dtype
+                # (msmctts_tpu/tasks.py:382); this one computes in fp32 only
+                raise NotImplementedError("the int8 decoder under precision: bfloat16 is not ported (ROADMAP A11a)")
             self._int8_state = Int8Decoder(ae.decoder, ae.decoder_config, smooth_alpha=self.int8_smooth_alpha,
                                            float_sites=self.int8_float_sites)
         return self._int8_state

@@ -56,8 +56,10 @@ kernels when the run is on one, and writes it as a Chrome trace under
 ``profile_dir`` (the JAX trainer's ``jax.profiler`` window); a run that stops
 inside the window writes what it traced.
 
-fp32 only; the ``model`` axis of a ``mesh:`` node (tensor parallelism) and
-bf16 are not ported.
+``precision: bfloat16`` (``parallel/precision.py``): the optimizers keep
+the fp32 masters, and each trainer runs its forward passes on bf16 casts of
+them where the JAX trainer casts (``compute_dtype``). The ``model`` axis of
+a ``mesh:`` node (tensor parallelism) is not ported.
 """
 
 from __future__ import annotations
@@ -74,6 +76,7 @@ from msmctts_tpu_torch.config import component_kwargs
 from msmctts_tpu_torch.data.loader import DataLoader, to_device
 from msmctts_tpu_torch.ops.dropout import bind_generator
 from msmctts_tpu_torch.parallel import mesh
+from msmctts_tpu_torch.parallel.precision import compute_dtype
 from msmctts_tpu_torch.registry import get_dataset
 from msmctts_tpu_torch.training.optim import Optimizer
 from msmctts_tpu_torch.utils.checkpoint import (
@@ -126,9 +129,6 @@ class BaseTrainer:
     def __init__(self, config, task, group=None):
         if task.mode != "train":
             raise ValueError("a trainer needs a task built with mode='train'")
-        precision = str(config.get("precision", "float32")).lower()
-        if precision not in ("fp32", "float32"):
-            raise NotImplementedError(f"precision '{precision}' is not ported (fp32 only)")
         backend = str(config.get("checkpoint_backend", "pickle"))
         if backend == "orbax":
             raise NotImplementedError("checkpoint_backend: orbax is not ported (ROADMAP A7c); the port writes pickles")
@@ -138,6 +138,8 @@ class BaseTrainer:
         self.rank, self.world = mesh.rank(group), mesh.world(group)
         check_mesh_config(config, self.world)
         self.device = task.device
+        # bf16 compute over the fp32 masters the optimizers hold (parallel/precision.py)
+        self.compute_dtype = compute_dtype(config)
         self.save_dir = config.get("save_checkpoint_dir", "checkpoints")
         self.training_steps = int(config.get("training_steps", 1_000_000))
         self.iters_per_checkpoint = int(config.get("iters_per_checkpoint", 50_000))

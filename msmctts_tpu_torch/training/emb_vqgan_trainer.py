@@ -34,7 +34,11 @@ updated before the generator's gradient is pulled back, as in
 ``VQGANTrainer``. The autoencoder's forward runs once per step: its
 quantizer stages launch the statistics kernel twice per step
 (``ops/vq.vq_nearest_stats_sharded``, ``csrc/vq_stats.cu``), and the ECAPA
-global encoder's batch norms move their running statistics once.
+global encoder's batch norms move their running statistics once. Under
+``precision: bfloat16`` the autoencoder runs on bf16 casts of its
+parameters and of every float input but the lengths, and both
+discriminator passes as in ``VQGANTrainer``; the prosody estimator stays
+fp32 (``msmctts_tpu/training/emb_vqgan_trainer.py:138-141,262-265,319-322``).
 
 ``NASynEmbFSTrainer`` is ``PredictorTrainer`` with a teacher whose
 ``analysis`` reads ``emb`` (and ``pitch`` / ``energy`` where given): the
@@ -55,6 +59,7 @@ import torch
 
 from msmctts_tpu_torch.models.msmc_vqgan import crop_windows
 from msmctts_tpu_torch.parallel.mesh import all_reduce_sum, world
+from msmctts_tpu_torch.parallel.precision import cast_floats, functional
 from msmctts_tpu_torch.registry import register_trainer
 from msmctts_tpu_torch.training.losses import (
     feature_matching_loss,
@@ -184,7 +189,9 @@ class EmbVQGANTrainer(VQGANTrainer):
             target = crop_windows(batch["wav"][local], starts * self.frameshift, self.sample_lengths)
         self.ae_opt.zero_grad()
         self.d_opt.zero_grad()
-        out = self.ae(emb, lengths, **kwargs)
+        dt = self.compute_dtype  # every float input but the lengths cast (emb_vqgan_trainer.py:138-141)
+        out = functional(self.ae, dt)(cast_floats(emb, dt), lengths, **cast_floats(kwargs, dt))
+        target_c = cast_floats(target, dt)
         metrics = {}
 
         content = out.get("content_representations")
@@ -195,7 +202,7 @@ class EmbVQGANTrainer(VQGANTrainer):
 
         fake = out["decoder_outputs"][..., 0] if decode else None
         if gan:
-            fs, _, rs, _ = paired_disc_apply(self.disc, fake.detach(), target)
+            fs, _, rs, _ = paired_disc_apply(functional(self.disc, dt), fake.detach(), target_c)
             d_real, d_fake = lsgan_d_loss(rs, fs, self.group, windows=share)
             d_loss = d_real + d_fake
             d_loss.backward()
@@ -221,7 +228,7 @@ class EmbVQGANTrainer(VQGANTrainer):
             g = g - PROSODY_SCALE * metrics["g_prosody_loss"]  # the generator maximizes the estimator's error
         if gan:
             with _no_param_grads(self.disc):
-                fs, ff, _, rf = paired_disc_apply(self.disc, fake, target)
+                fs, ff, _, rf = paired_disc_apply(functional(self.disc, dt), fake, target_c)
             adv = lsgan_g_loss(fs, self.group, windows=share)
             fm = feature_matching_loss(ff, rf, self.group, windows=share)
             if self.lambda_fm == "auto":  # from the global losses
@@ -258,7 +265,13 @@ class EmbVQGANTrainer(VQGANTrainer):
 @register_trainer("NASynEmbFSTrainer")
 class NASynEmbFSTrainer(PredictorTrainer):
     """The QS-TTS predictor's trainer: ``PredictorTrainer`` whose teacher
-    analyses SSL embeddings (``emb_vqgan_trainer.py:423-554``)."""
+    analyses SSL embeddings (``emb_vqgan_trainer.py:423-554``). The JAX
+    trainer reads no ``precision``: it runs fp32 under ``bfloat16`` too,
+    and so does this one."""
+
+    def __init__(self, config, task, group=None, **kwargs):
+        super().__init__(config, task, group, **kwargs)
+        self.compute_dtype = torch.float32
 
     def teacher_states(self, batch):
         return self.frozen_autoencoder().analysis(

@@ -32,6 +32,11 @@ gradients over ranks before it clips. The metrics returned are the global
 values, equal on every rank. Per step that is one all-reduce per masked
 denominator (one per embedding-loss stage and one for the durations), one of
 the gradients and one of the metrics.
+
+Under ``precision: bfloat16`` the teacher's float parameters are rounded to
+bf16 when it loads (its codebooks stay fp32), ``mel`` is cast before its
+``analysis``, and the predictor runs on bf16 casts of its fp32 masters
+(``msmctts_tpu/training/predictor_trainer.py:72-78,113,127``).
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from __future__ import annotations
 import torch
 
 from msmctts_tpu_torch.parallel.mesh import all_reduce_sum, world
+from msmctts_tpu_torch.parallel.precision import cast_floats, functional
 from msmctts_tpu_torch.registry import register_trainer
 from msmctts_tpu_torch.tasks import load_frozen_autoencoder
 from msmctts_tpu_torch.training.base_trainer import BaseTrainer
@@ -81,7 +87,9 @@ class PredictorTrainer(BaseTrainer):
         """The teacher, loaded at the first call, in ``eval()`` mode."""
         if self.ae is None:
             node = self.config.task["autoencoder"]
-            self.ae, _ = load_frozen_autoencoder(node["_checkpoint"], node.get("_config"), self.device)
+            # the teacher runs in the compute dtype, its codebooks fp32 (predictor_trainer.py:72-78)
+            self.ae, _ = load_frozen_autoencoder(node["_checkpoint"], node.get("_config"), self.device,
+                                                 self.compute_dtype)
             self.ae.requires_grad_(False)
             self.ae.quantizer.set_group(self.group)  # the embedding losses' global denominators
         return self.ae
@@ -95,8 +103,9 @@ class PredictorTrainer(BaseTrainer):
 
     # ------------------------------------------------------------------ api
     def teacher_states(self, batch):
-        """The frozen teacher's quantizer states of the batch's features."""
-        return self.frozen_autoencoder().analysis(batch["mel"], batch["mel_length"])
+        """The frozen teacher's quantizer states of the batch's features
+        (``mel`` in the compute dtype, ``predictor_trainer.py:113``)."""
+        return self.frozen_autoencoder().analysis(cast_floats(batch["mel"], self.compute_dtype), batch["mel_length"])
 
     def train_step(self, batch, iteration):
         """One step on a device batch {'text', 'text_length', 'dur', 'mel',
@@ -107,8 +116,8 @@ class PredictorTrainer(BaseTrainer):
         self.predictor.train()
         self.opt.zero_grad()
         text_length, dur = batch["text_length"], batch["dur"]
-        out = self.predictor(batch["text"], text_length, dur=dur, feat=q["quantizer_outputs"],
-                             feat_length=q["quantizer_lengths"])
+        out = functional(self.predictor, self.compute_dtype)(
+            batch["text"], text_length, dur=dur, feat=q["quantizer_outputs"], feat_length=q["quantizer_lengths"])
         emb = self.ae.compute_embedding_loss(out["feat"], out["feat_length"], q, self.training_methods,
                                              self.loss_weights)
         metrics = {k: v for k, v in emb.items() if k != "total_loss"}

@@ -37,6 +37,13 @@ and ``lambda_fm: auto`` uses the global losses. The metrics returned are the
 global values, equal on every rank. Per step that is one all-reduce per
 quantizer stage, one per optimizer, one of the metrics and one per masked
 denominator.
+
+Under ``precision: bfloat16`` (``parallel/precision.py``) the autoencoder's
+forward runs on bf16 casts of its parameters and of ``mel``, and both
+discriminator passes on bf16 casts of the discriminator's parameters and of
+the target window (``msmctts_tpu/training/vqgan_trainer.py:198-199,340-371``);
+the losses read the fp32 ``mel`` and target, and the optimizers update the
+fp32 masters. ``evaluate`` runs the fp32 masters, as the JAX trainer's does.
 """
 
 from __future__ import annotations
@@ -48,6 +55,7 @@ import torch
 
 from msmctts_tpu_torch.models.msmc_vqgan import crop_windows
 from msmctts_tpu_torch.parallel.mesh import all_reduce_sum, world
+from msmctts_tpu_torch.parallel.precision import cast_floats, functional
 from msmctts_tpu_torch.registry import register_trainer
 from msmctts_tpu_torch.training.base_trainer import BaseTrainer
 from msmctts_tpu_torch.training.losses import (
@@ -189,7 +197,8 @@ class VQGANTrainer(BaseTrainer):
     def _warmup_step(self, batch):
         mel, mel_length = batch["mel"], batch["mel_length"]
         self.ae_opt.zero_grad()
-        out = self.ae(mel, mel_length, warmup=True)
+        dt = self.compute_dtype
+        out = functional(self.ae, dt)(cast_floats(mel, dt), mel_length, warmup=True)
         g, metrics = self._base_g_loss(out, mel, mel_length)
         g.backward()
         self.ae_opt.step()
@@ -217,12 +226,14 @@ class VQGANTrainer(BaseTrainer):
         self.d_opt.zero_grad()
 
         # one autoencoder forward; its graph waits for the generator loss
+        dt = self.compute_dtype
         window = {} if starts is None else dict(window_starts=starts, window_frames=self.frame_lengths)
-        out = self.ae(mel, mel_length, warmup=False, **window)
+        out = functional(self.ae, dt)(cast_floats(mel, dt), mel_length, warmup=False, **window)
         fake = out["decoder_outputs"][..., 0]
+        target_c = cast_floats(target, dt)  # the discriminator's input; the STFT terms read target
 
         # discriminator update on (detached fake, real)
-        fs, _, rs, _ = paired_disc_apply(self.disc, fake.detach(), target)
+        fs, _, rs, _ = paired_disc_apply(functional(self.disc, dt), fake.detach(), target_c)
         d_real, d_fake = lsgan_d_loss(rs, fs, self.group)
         d_loss = d_real + d_fake
         d_loss.backward()
@@ -236,7 +247,7 @@ class VQGANTrainer(BaseTrainer):
         metrics["stft_loss"] = stft_sum
         g = g + self.lambda_stft * stft_sum
         with _no_param_grads(self.disc):
-            fs, ff, _, rf = paired_disc_apply(self.disc, fake, target)
+            fs, ff, _, rf = paired_disc_apply(functional(self.disc, dt), fake, target_c)
         adv = lsgan_g_loss(fs, self.group)
         fm = feature_matching_loss(ff, rf, self.group)
         if self.lambda_fm == "auto":  # from the global losses
