@@ -170,8 +170,27 @@ Phases, each of which raises on failure:
      answering 4 requests (one streamed) against an in-process bf16 engine,
      no cold shape, kernel build or error; (d) one bf16 step of each phase
      (AE warmup, AE GAN, AM) from equal state, card vs CPU;
- 20. one JSON line describing each kernel;
- 21. last line: {"ok": true, "device": {...}}.
+ 20. the model options no shipped recipe sets and the int8 decoder under
+     bf16: (a) ``--int8`` under ``precision: bfloat16`` on the fixture:
+     analysis-synthesis of a batch of 4 (bucket 512; 2 ``vq_nearest``, 77
+     int8 products, no MRF kernel), every product bit-equal to plain and every
+     snap equal to plain on the path's inputs, relative L2 against the fp32
+     int8 and the bf16 float decodes, bf16 and fp32 int8 decode times in
+     turns, the bf16 int8 state card vs CPU; ``predict`` of phase 5's batch
+     with fp32's durations against the fp32 int8 predict; (b) the CSMSC AE
+     recipe with ``norm: True``, ``upsampling: residual`` and ``restart_dead``
+     (the fixture's encoder and codebook, half of each head's counts zeroed):
+     2 warmup + 2 GAN steps at batch 16 (kernel 2 twice a step, held against
+     plain), how many codewords the first step restarts, the batch statistics
+     moved and saved, one step card vs CPU, the checkpoint's
+     analysis-synthesis in ``residual`` and ``mapping`` modes (2 + 36
+     launches, held against plain); (c) the legacy ``TTS`` task with a
+     stand-in acoustic model (the port's ``Encoder``): its autoencoder ending
+     over the fixture and its vocoder ending (the CSMSC recipe's HiFi-GAN),
+     in process with launches and kernels against plain, then ``infer`` as a
+     subprocess against the in-process output;
+ 21. one JSON line describing each kernel;
+ 22. last line: {"ok": true, "device": {...}}.
 
 NCCL refuses two ranks on one device, so the two-rank phases use gloo, which
 moves CUDA tensors through host memory; the log names the backend. Their
@@ -2621,14 +2640,16 @@ ISTFT_LENGTHS = (512, 448, 389, 300)  # analysis-synthesis batch of 4, bucket 51
 ISTFT_LAYERS = 18  # 2 stages x 3 blocks x 3 dilations
 
 
-def _recipe_config(path, save_dir=None, warmup_steps=None, dropout=None, seed=1234, precision=None):
+def _recipe_config(path, save_dir=None, warmup_steps=None, dropout=None, seed=1234, precision=None, quantizer=None):
     """A shipped recipe's config with the smoke's save dir, warmup length,
-    seed, ``precision`` and (``dropout``) every dropout rate of the
-    autoencoder set."""
+    seed, ``precision``, (``dropout``) every dropout rate of the
+    autoencoder set and (``quantizer``) options of its quantizer_config."""
     from msmctts_tpu_torch.config import Config
 
     cfg = Config(path)
     cfg["seed"] = seed
+    if quantizer:
+        cfg.task["autoencoder"]["quantizer_config"].update(quantizer)
     if precision is not None:
         cfg["precision"] = precision
     if save_dir is not None:
@@ -2840,16 +2861,22 @@ def _from_fixture(trainer):
 
     state = train_state_to_jax(trainer.ae, trainer.disc)
     fixture = load_checkpoint(FIXTURE)["state"]
-    state["params"]["autoencoder"].update({k: v for k, v in fixture["params"]["autoencoder"].items() if k != "decoder"})
+    ae = state["params"]["autoencoder"]
+    for k, v in fixture["params"]["autoencoder"].items():
+        if k == "quantizer":  # a learned upsampler (up_i) of the options keeps its seeded weights
+            ae[k].update(v)
+        elif k != "decoder":
+            ae[k] = v
     state["codebook"] = fixture["codebook"]
     train_state_from_jax(state, trainer.ae, trainer.disc)
     return state
 
 
-def _step_card_vs_cpu(path, lengths, frameshift, seed, tag, what):
-    """One warmup and one GAN step of the recipe at ``path`` from equal state
-    on the card and on the CPU: 2 short utterances, dropout 0, given window
-    starts; the state is ``_from_fixture``'s."""
+def _step_card_vs_cpu(path, lengths, frameshift, seed, tag, what, quantizer=None):
+    """One warmup and one GAN step of the recipe at ``path`` (its quantizer
+    options updated by ``quantizer``) from equal state on the card and on
+    the CPU: 2 short utterances, dropout 0, given window starts; the state
+    is ``_from_fixture``'s."""
     from msmctts_tpu_torch.data.loader import to_device
     from msmctts_tpu_torch.training.base_trainer import metrics_to_host
     from msmctts_tpu_torch.weights import train_state_from_jax
@@ -2859,7 +2886,8 @@ def _step_card_vs_cpu(path, lengths, frameshift, seed, tag, what):
     starts = np.array([11, 3])
     out, state = {}, None
     for device in ("cuda", "cpu"):
-        cfg = _recipe_config(path, os.path.join(SMOKE_DIR, "ckpt_step_card_vs_cpu"), warmup_steps=1, dropout=0.0)
+        cfg = _recipe_config(path, os.path.join(SMOKE_DIR, "ckpt_step_card_vs_cpu"), warmup_steps=1, dropout=0.0,
+                             quantizer=quantizer)
         trainer = _seeded_trainer(cfg, device)
         if state is None:
             state = _from_fixture(trainer)
@@ -4813,6 +4841,388 @@ def phase_bf16(card, am_path, reference):
     return result
 
 
+# phase 20: the model options no shipped recipe sets (ROADMAP A7b) and the int8 decoder under bf16 (A11a)
+OPTIONS_DIR = os.path.join(SMOKE_DIR, "options")
+# the CSMSC AE recipe's quantizer with every option on: the first step restarts the
+# codewords whose counts were zeroed (half of each head's) that got fewer than 90
+# frames; a codeword that kept the fixture's count (>= 7.8) cannot fall below 0.9
+OPTIONS = {"norm": True, "upsampling": "residual", "restart_dead": 0.9}
+# the bf16 int8 decode, card vs CPU on the same state: bf16 activations, whose one-ulp
+# roundings (2^-8 relative) the two devices' fp32 sums can tip
+BF16_INT8_CPU_REL = 1e-2
+LEGACY_AM = "SmokeMelEncoder"  # the legacy TTS task's stand-in acoustic model
+LEGACY_LENGTHS = (256, 200, 132)  # mel frames of the legacy task's test list (multiples of 4)
+
+
+class SmokeMelEncoder(torch.nn.Module):
+    """A stand-in acoustic model for the legacy ``TTS`` task, which no
+    shipped recipe has: mel -> the port's ``Encoder`` (1x1, a 4-layer
+    ResStack, 1x1) -> ``out_dim`` channels, masked."""
+
+    def __init__(self, in_dim=80, out_dim=80, hidden=256):
+        super().__init__()
+        from msmctts_tpu_torch.models.modules import Encoder
+
+        self.enc = Encoder(in_dim, out_dim, hidden, kernel_size=5, n_layers=4)
+
+    def forward(self, mel, mel_length):
+        from msmctts_tpu_torch.ops.masking import sequence_mask
+
+        mask = sequence_mask(mel_length, mel.shape[1], dtype=torch.float32)[..., None]
+        return {"mel": self.enc(mel, mask), "mel_length": mel_length}
+
+
+def register_legacy_am():
+    """The stand-in acoustic model in the port's registry, with its weight
+    mapping (a JAX ``Encoder`` tree under ``enc``) in the task layer."""
+    from msmctts_tpu_torch import registry, tasks
+    from msmctts_tpu_torch.weights import encoder_from_jax
+
+    if LEGACY_AM not in registry.NETWORKS:
+        registry.register_network(LEGACY_AM)(SmokeMelEncoder)
+    tasks._FROM_JAX[LEGACY_AM] = lambda state, name, module: encoder_from_jax(state["params"][name], "enc")
+
+
+def _fixture_batch(seed):
+    rng = np.random.default_rng(seed)
+    lengths = np.array(ISTFT_LENGTHS)
+    mel = rng.normal(size=(len(lengths), FRAMES, 80)).astype(np.float32) * 0.5
+    mel *= (np.arange(FRAMES)[None, :] < lengths[:, None])[..., None]
+    return {"mel": mel, "mel_length": lengths}
+
+
+def _hold_recorded(q_calls, rb_calls, what):
+    """Every recorded snap and MRF layer of a path against its plain
+    version on the inputs the path gave it -> (snap rows, MRF worst error)."""
+    from msmctts_tpu_torch.ops import resblock as rb, vq
+
+    snaps = []
+    for x, e in [c[:2] for c in q_calls]:
+        idx, quant = vq.vq_nearest(x, e)
+        ref_idx, ref_quant = vq.vq_nearest_plain(x, e)
+        err, mism = _hold_snap(f"{what} snap N={x.shape[0]}", x, e, idx, quant, ref_idx, ref_quant)
+        snaps.append({"N": x.shape[0], "max_abs_err": err, "index_mismatches": mism})
+    worst = 0.0
+    for x, w1, b1, w2, b2, d, prepared in rb_calls:
+        worst = max(worst, _hold_resblock(rb, f"{what} C={x.shape[2]} T={x.shape[1]} d={d}", x, w1, b1, w2, b2, d,
+                                          prepared))
+    return snaps, worst
+
+
+def phase_int8_bf16(card, reference):
+    """(a) ``--int8`` under ``precision: bfloat16`` on the fixture: the
+    int8 decoder built in bf16 as the JAX task builds it."""
+    from msmctts_tpu_torch.config import Config
+    from msmctts_tpu_torch.models import predictor as predictor_mod, quantizer
+    from msmctts_tpu_torch.ops import int8_generator as i8
+    from msmctts_tpu_torch.tasks import build_task
+    from msmctts_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+
+    fixture = load_checkpoint(FIXTURE)
+    tasks = {}
+    for name in ("float32", "bfloat16"):
+        cfg = Config(fixture["config"])
+        cfg["precision"] = name
+        tasks[name] = build_task(cfg, device="cuda")
+        tasks[name].load_variables(fixture["state"])
+        tasks[name].int8_decoder = True
+    batch = _fixture_batch(20)
+    lengths = batch["mel_length"]
+    bf, fp = tasks["bfloat16"], tasks["float32"]
+    want = fp.analysis_synthesis(batch)["wav"]  # the first batch of each: quantize, calibrate, decode
+    bf.analysis_synthesis(batch)
+    dec = bf._int8_state
+    if dec.dtype != torch.bfloat16:
+        raise AssertionError(f"the bf16 task's int8 decoder computes in {dec.dtype}")
+    torch.cuda.synchronize()
+    _reset_counts()
+    i8.LAUNCHES["int8_conv1d"] = 0
+    with _Recorder(quantizer, "vq_nearest_sharded") as q_rec:
+        got = bf.analysis_synthesis(batch)["wav"]
+    torch.cuda.synchronize()
+    counts = {**_counts(), "int8_conv1d": i8.LAUNCHES["int8_conv1d"]}
+    _check_wavs(got, lengths, bf.networks["autoencoder"].frameshift_ratio, "bf16 int8 analysis-synthesis")
+    if counts != {"vq_nearest": 2, "vq_nearest_stats": 0, "fused_resblock_layer": 0, "int8_conv1d": INT8_SITES}:
+        raise AssertionError(f"bf16 int8 analysis-synthesis launches {counts}")
+    snaps, _ = _hold_recorded(q_rec.calls, [], "bf16 int8 analysis-synthesis")
+    rel_int8 = [_rel_l2(a, b) for a, b in zip(got, want)]
+    bf.int8_decoder = False
+    bf_float = bf.analysis_synthesis(batch)["wav"]
+    bf.int8_decoder = True
+    rel_float = [_rel_l2(a, b) for a, b in zip(got, bf_float)]
+    log(f"[20] bf16 int8 analysis-synthesis of the fixture B={len(lengths)} frames {lengths.tolist()}: launches {counts}; "
+        f"snaps vs plain {json.dumps(snaps)}; relative L2 vs fp32 int8 {[round(r, 4) for r in rel_int8]}, vs the bf16 "
+        f"float decoder {[round(r, 4) for r in rel_float]} (bound {INT8_TASK_REL})")
+    if max(rel_float) > INT8_TASK_REL:
+        raise AssertionError(f"bf16 int8 vs bf16 float decode: relative L2 {max(rel_float)} > {INT8_TASK_REL}")
+
+    # every product of one bf16 decode against its plain version, bit-equal int32
+    with torch.inference_mode():
+        mel_t, len_t = torch.as_tensor(batch["mel"], device="cuda"), torch.as_tensor(lengths, device="cuda")
+        feats = {k: t.networks["autoencoder"].encode_features(mel_t, len_t) for k, t in tasks.items()}
+    calls = _int8_sites(lambda: dec.apply(feats["bfloat16"]))
+    if len(calls) != INT8_SITES:
+        raise AssertionError(f"{len(calls)} int8 products in one bf16 decode, expected {INT8_SITES}")
+    for n, (xq, w_q, padding, dilation) in enumerate(calls):
+        if not torch.equal(i8.int8_conv1d(xq, w_q, padding, dilation), i8.int8_conv1d_plain(xq, w_q, padding, dilation)):
+            raise AssertionError(f"bf16 decode, int8 product {n} {tuple(xq.shape)} x {tuple(w_q.shape)}: sums differ")
+    decode_ms = {}
+    for _ in range(2):  # in turns
+        for name, t in tasks.items():
+            decode_ms.setdefault(name, []).append(time_ms(lambda: t._int8_state.apply(feats[name]), runs=3, reps=3, warmup=1))
+    log(f"[20] bf16 int8 products: all {len(calls)} sites' int32 sums bit-equal to the plain version; decode of "
+        f"B={len(lengths)} x {FRAMES} frames on {card} (CUDA events, in turns): bf16 int8 {decode_ms['bfloat16']} ms, "
+        f"fp32 int8 {decode_ms['float32']} ms")
+
+    # the same bf16 int8 state on the CPU (plain products) on the card's features, T = 64
+    small = feats["bfloat16"][:1, :64].contiguous()
+    card_wav, cpu_wav = dec.apply(small).float().cpu().numpy(), dec.apply(small.cpu()).float().numpy()
+    cpu_rel = _rel_l2(card_wav, cpu_wav)
+    log(f"[20] bf16 int8 decode T=64, card vs CPU (the same int8 state and features): relative L2 {cpu_rel:.3g}, "
+        f"max abs err {float(np.abs(card_wav - cpu_wav).max()):.3g}")
+    if cpu_rel > BF16_INT8_CPU_REL:
+        raise AssertionError(f"bf16 int8 decode, card vs CPU: relative L2 {cpu_rel}")
+    del tasks, feats
+
+    # predict of phase 5's batch of 4 with fp32's durations, bf16 int8 against fp32 int8
+    ck = load_checkpoint(reference["am_path"])
+    ck["config"]["precision"] = "bfloat16"
+    bf16_path = os.path.join(OPTIONS_DIR, "am_seeded_bf16.ckpt")
+    save_checkpoint(bf16_path, ck["state"], 0, ck["config"])
+    am = {"bfloat16": _load_tts_task(bf16_path, "cuda"), "float32": _load_tts_task(reference["am_path"], "cuda")}
+    forced = {**reference["batch"], "dur": np.asarray(reference["out"]["duration"], np.float32)}
+    pred = {}
+    for name, t in am.items():
+        t.int8_decoder = True
+        t.predict(forced)  # calibrates on this batch
+    torch.cuda.synchronize()
+    _reset_counts()
+    i8.LAUNCHES["int8_conv1d"] = 0
+    with _Recorder(predictor_mod, "vq_nearest_sharded") as p_rec, _Recorder(quantizer, "vq_nearest_sharded") as q_rec:
+        pred["bfloat16"] = am["bfloat16"].predict(forced)
+    torch.cuda.synchronize()
+    p_counts = {**_counts(), "int8_conv1d": i8.LAUNCHES["int8_conv1d"]}
+    if p_counts != {"vq_nearest": 4, "vq_nearest_stats": 0, "fused_resblock_layer": 0, "int8_conv1d": INT8_SITES}:
+        raise AssertionError(f"bf16 int8 predict launches {p_counts}")
+    p_snaps, _ = _hold_recorded(p_rec.calls + q_rec.calls, [], "bf16 int8 predict")
+    pred["float32"] = am["float32"].predict(forced)
+    p_rel = [_rel_l2(a, b) for a, b in zip(pred["bfloat16"]["wav"], pred["float32"]["wav"])]
+    warm = {}
+    for _ in range(3):
+        for name, t in am.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            t.predict(forced)
+            torch.cuda.synchronize()
+            warm.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+    log(f"[20] bf16 int8 predict B=4 (fp32's durations): launches {p_counts} (the predictor's 2 snaps and the "
+        f"synthesis's 2; no MRF kernel), snaps vs plain {json.dumps(p_snaps)}; relative L2 vs fp32 "
+        f"int8 predict {[round(r, 4) for r in p_rel]}; warm ms bf16 int8 {[round(w, 1) for w in warm['bfloat16']]}, "
+        f"fp32 int8 {[round(w, 1) for w in warm['float32']]}")
+    return {"launches": counts, "snaps": snaps, "rel_vs_fp32_int8": rel_int8, "rel_vs_bf16_float": rel_float,
+            "decode_ms": decode_ms, "cpu_rel": cpu_rel, "predict_launches": p_counts, "predict_snaps": p_snaps,
+            "predict_rel_vs_fp32_int8": p_rel, "predict_warm_ms": warm}
+
+
+def phase_options_training(card):
+    """(b) The CSMSC AE recipe at full width with ``OPTIONS`` in its
+    quantizer_config: 2 warmup + 2 GAN steps at batch 16, one step card vs
+    CPU, the checkpoint through analysis-synthesis in ``residual`` and
+    ``mapping`` modes."""
+    from msmctts_tpu_torch.config import Config
+    from msmctts_tpu_torch.models import hifigan, quantizer
+    from msmctts_tpu_torch.tasks import build_task
+    from msmctts_tpu_torch.utils.checkpoint import load_checkpoint
+
+    restarted, stats0 = [], {}
+
+    def make():
+        cfg = _recipe_config(AE_YAML, os.path.join(OPTIONS_DIR, "ckpt_ae"), warmup_steps=2, quantizer=OPTIONS)
+        trainer = _seeded_trainer(cfg, "cuda")
+        _from_fixture(trainer)
+        q = trainer.ae.quantizer
+        if q.transposed_conv is None or len(q.preprocessor[0]) != 4:
+            raise AssertionError("the options' autoencoder has no learned upsampler or batch norm")
+        with torch.no_grad():
+            for vq_stage in q.quantizer:
+                vq_stage.cluster_size[:, ::2] = 0.0
+        for name, b in trainer.ae.named_buffers():
+            if name.endswith(("running_mean", "running_var")):
+                stats0[name] = b.clone()
+        for vq_stage in q.quantizer:
+            vq_stage.register_forward_hook(lambda m, a, o: restarted.append(int((m.cluster_size == 1.0).sum())))
+        return trainer
+
+    batch_np, lengths, _ = _training_batch()
+    res = _recipe_training(make, batch_np, lengths, card, "[20]", "options")
+    first, hk = restarted[:2], VQ_H * VQ_K
+    log(f"[20] options {json.dumps(OPTIONS)}: the first step restarted {first} of {hk} codewords per stage")
+    if not 0 < sum(first) < 2 * hk:
+        raise AssertionError(f"the first step restarted {first} codewords: expected some, not all")
+    ckpt = load_checkpoint(res["checkpoint"])
+    stats = ckpt["state"]["model_state"]["batch_stats"]["quantizer"]
+    # quantizer.preprocessor.<i>.3.running_<mean|var> -> prenorm_<i> {mean, var}
+    saved = {k: np.asarray(stats[f"prenorm_{k.split('.')[2]}"]["mean" if k.endswith("mean") else "var"]) for k in stats0}
+    moved = {k: float(np.abs(saved[k] - stats0[k].cpu().numpy()).max()) for k in stats0}
+    log(f"[20] batch_stats in the checkpoint {sorted(stats)}; moved from the start by {json.dumps(moved)}")
+    if sorted(stats) != ["prenorm_0", "prenorm_1"] or min(moved.values()) == 0.0:
+        raise AssertionError(f"the quantizer's batch statistics did not move or were not saved: {moved}")
+    step = _step_card_vs_cpu(AE_YAML, (120, 88), 300, 20, "[20]", "options", quantizer=OPTIONS)
+
+    # the checkpoint through the inference task, in both learned modes
+    batch = _fixture_batch(21)
+    modes = {}
+    for mode in ("residual", "mapping"):
+        cfg = Config(ckpt["config"])
+        cfg.task["autoencoder"]["quantizer_config"]["upsampling"] = mode
+        task = build_task(cfg, device="cuda")
+        task.load_variables(ckpt["state"])
+        task.analysis_synthesis(batch)
+        torch.cuda.synchronize()
+        _reset_counts()
+        with _Recorder(quantizer, "vq_nearest_sharded") as q_rec, _Recorder(hifigan, "fused_resblock_layer") as rb_rec:
+            out = task.analysis_synthesis(batch)
+        torch.cuda.synchronize()
+        counts = _counts()
+        _check_wavs(out["wav"], batch["mel_length"], task.networks["autoencoder"].frameshift_ratio,
+                    f"{mode} analysis-synthesis")
+        if counts != {"vq_nearest": 2, "vq_nearest_stats": 0, "fused_resblock_layer": 36}:
+            raise AssertionError(f"{mode} analysis-synthesis launches {counts}")
+        snaps, rb_worst = _hold_recorded(q_rec.calls, rb_rec.calls, f"{mode} analysis-synthesis")
+        modes[mode] = {"launches": counts, "snaps": snaps, "resblock_max_abs_err": rb_worst,
+                       "margin": task.padding_reach_frames()}
+        log(f"[20] {mode} upsampling, the trained checkpoint's analysis-synthesis B=4: launches {counts}; snaps vs "
+            f"plain {json.dumps(snaps)}; 36 MRF layers vs plain max abs err {rb_worst:.3g}; frame margin "
+            f"{modes[mode]['margin']}")
+        del task
+    return {"training": res, "restarted_first_step": first, "batch_stats_moved": moved, "card_vs_cpu": step,
+            "modes": modes}
+
+
+def _legacy_state(ending):
+    """The legacy task's config and checkpoint state: the stand-in acoustic
+    model (seeded) with the fixture's autoencoder, or with a seeded vocoder
+    of the CSMSC recipe's HiFi-GAN (gains in [0.5, 1.5])."""
+    from msmctts_tpu_torch.config import Config
+    from msmctts_tpu_torch.models.hifigan import HifiGANGenerator
+    from msmctts_tpu_torch.utils.checkpoint import load_checkpoint
+    from msmctts_tpu_torch.weights import encoder_to_jax, generator_to_jax, init_random, state_dict_numpy
+
+    fixture = load_checkpoint(FIXTURE)
+    ae_node = fixture["config"]["task"]["autoencoder"]
+    dims = ae_node["quantizer_config"]["embedding_dims"]
+    out_dim = 80 if ending == "vocoder" else dims * len(ae_node["encoder_config"]["downsample_scales"])
+    am = SmokeMelEncoder(80, out_dim)
+    init_random(am, 7)
+    task = {"_name": "TTS", "acoustic_model": {"_name": LEGACY_AM, "in_dim": 80, "out_dim": out_dim}}
+    state = {"params": {"acoustic_model": encoder_to_jax(state_dict_numpy(am), "enc")}}
+    if ending == "autoencoder":
+        task["autoencoder"] = ae_node
+        state["params"]["autoencoder"] = fixture["state"]["params"]["autoencoder"]
+        state["codebook"] = fixture["state"]["codebook"]
+    else:
+        node = dict(Config(AE_YAML).task["autoencoder"]["decoder_config"], num_mels=80)
+        voc = HifiGANGenerator(**node)
+        init_random(voc, 8)
+        _audible(voc, 8)
+        task["vocoder"] = {"_name": "HifiGANGenerator", **node}
+        state["params"]["vocoder"] = generator_to_jax(state_dict_numpy(voc))
+    mel_dir = os.path.join(OPTIONS_DIR, "legacy", "mel")
+    config = {
+        "task": task,
+        "dataset": {"_name": "MelDataset", "samplerate": 24000, "feature": ["mel"],
+                    "feature_path": [os.path.join(mel_dir, "{}.npy")], "dimension": [80], "frameshift": [300],
+                    "padding_value": [-4], "segment_length": -1, "id_list": None},
+        "save_features": [["wav", ".npy"]],
+    }
+    return config, state
+
+
+def phase_legacy_tts(card):
+    """(c) The legacy ``TTS`` task on the card, its autoencoder ending over
+    the fixture and its vocoder ending (the CSMSC recipe's HiFi-GAN): in
+    process with launches and kernels held to plain, then ``infer`` as a
+    subprocess on a test list of mel files against the in-process output."""
+    from msmctts_tpu_torch.config import Config
+    from msmctts_tpu_torch.models import hifigan, quantizer
+    from msmctts_tpu_torch.tasks import build_task
+    from msmctts_tpu_torch.utils.checkpoint import save_checkpoint
+
+    register_legacy_am()
+    d = os.path.join(OPTIONS_DIR, "legacy")
+    os.makedirs(os.path.join(d, "mel"), exist_ok=True)
+    rng = np.random.default_rng(22)
+    names = [f"legacy{i}" for i in range(len(LEGACY_LENGTHS))]
+    mels = [(rng.normal(size=(n, 80)) * 0.5).astype(np.float32) for n in LEGACY_LENGTHS]
+    for name, mel in zip(names, mels):
+        np.save(os.path.join(d, "mel", f"{name}.npy"), mel)
+    test_list = os.path.join(d, "test.yaml")
+    with open(test_list, "w") as f:
+        json.dump({name: {"mel": os.path.join(d, "mel", f"{name}.npy")} for name in names}, f)  # JSON is YAML
+    T = max(LEGACY_LENGTHS)
+    batch = {"mel": np.stack([np.pad(m, ((0, T - len(m)), (0, 0)), constant_values=-4.0) for m in mels]),
+             "mel_length": np.array(LEGACY_LENGTHS)}
+    result, runs = {}, []
+    for ending, want_counts in (("autoencoder", {"vq_nearest": 2, "vq_nearest_stats": 0, "fused_resblock_layer": 36}),
+                                ("vocoder", {"vq_nearest": 0, "vq_nearest_stats": 0, "fused_resblock_layer": 36})):
+        config, state = _legacy_state(ending)
+        task = build_task(Config(config), device="cuda")
+        task.load_variables(state)
+        task.infer_step(batch)
+        torch.cuda.synchronize()
+        _reset_counts()
+        with _Recorder(quantizer, "vq_nearest_sharded") as q_rec, _Recorder(hifigan, "fused_resblock_layer") as rb_rec:
+            out = task.infer_step(batch)
+        torch.cuda.synchronize()
+        counts = _counts()
+        ratio = out["wav"][0].shape[0] // LEGACY_LENGTHS[0]
+        _check_wavs(out["wav"], batch["mel_length"], ratio, f"legacy TTS ({ending})")
+        if counts != want_counts or ratio != 300:
+            raise AssertionError(f"legacy TTS ({ending}): launches {counts}, {ratio} samples a frame")
+        snaps, rb_worst = _hold_recorded(q_rec.calls, rb_rec.calls, f"legacy TTS ({ending})")
+        ckpt = os.path.join(d, f"tts_{ending}.ckpt")
+        save_checkpoint(ckpt, state, 1, config)
+        out_dir = os.path.join(d, f"out_{ending}")
+        runs.append(["-m", ckpt, "-t", test_list, "-o", out_dir])
+        result[ending] = {"launches": counts, "snaps": snaps, "resblock_max_abs_err": rb_worst, "wav": out["wav"],
+                          "out_dir": out_dir}
+        del task
+    # both checkpoints through infer in one subprocess (one start-up)
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    code = ("import json, sys, chip_smoke; chip_smoke.register_legacy_am(); "
+            "from msmctts_tpu_torch.infer import main; [main(args) for args in json.loads(sys.argv[1])]")
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", code, json.dumps(runs)], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"legacy TTS infer failed:\n{res.stdout[-4000:]}\n{res.stderr[-4000:]}")
+    for ending, r in result.items():
+        # each line alone in the CLI (batch 1, its own frame bucket) against the in-process batch's row
+        out_dir, wavs = r.pop("out_dir"), r.pop("wav")
+        r["cli_err"] = max(float(np.abs(np.load(os.path.join(out_dir, f"{name}_wav.npy")) - w).max())
+                           for name, w in zip(names, wavs))
+        log(f"[20] legacy TTS, {ending} ending: launches per batch of {len(names)} {r['launches']}; snaps vs plain "
+            f"{json.dumps(r['snaps'])}; MRF layers vs plain max abs err {r['resblock_max_abs_err']:.3g}; infer as a "
+            f"subprocess vs in process: max abs err {r['cli_err']:.3g}")
+        if r["cli_err"] > AS_TOL:
+            raise AssertionError(f"legacy TTS infer ({ending}) vs in process: {r['cli_err']}")
+    log(f"[20] legacy TTS: infer over both checkpoints as one subprocess on {card}: {cli_s:.1f} s")
+    result["cli_s"] = cli_s
+    return result
+
+
+def phase_options(card, reference):
+    """Phase 20, (a) to (c)."""
+    t0 = time.perf_counter()
+    os.makedirs(OPTIONS_DIR, exist_ok=True)
+    result = {"int8_bf16": phase_int8_bf16(card, reference), "training": phase_options_training(card),
+              "legacy_tts": phase_legacy_tts(card)}
+    result["phase_s"] = time.perf_counter() - t0
+    log(f"[20] options phase {result['phase_s']:.1f}s")
+    return result
+
+
 def _device_rows(prof):
     """[{name, count, device_ms}] of a profile's kernels, the longest first."""
     from torch.autograd import DeviceType
@@ -4907,7 +5317,9 @@ def main(argv=None):
     tools = timed("17", phase_quality_tools, gen, env["nvidia_smi"], with_profile=bool(args.out))
     lj = timed("18", phase_ljspeech, gen, env["nvidia_smi"])
     bf16 = timed("19", phase_bf16, env["nvidia_smi"], tts_ref["am_path"], tts_ref)
+    opts = timed("20", phase_options, env["nvidia_smi"], tts_ref)
     bf_vq, bf_am, bf_inf = bf16["vqgan"], bf16["am"], bf16["inference"]
+    o_i8, o_tr, o_tts = opts["int8_bf16"], opts["training"], opts["legacy_tts"]
     lj_as, lj_tr, lj_tools, lj_daemon = lj["analysis_synthesis"], lj["training"], lj["tools"], lj["daemon"]
     t_qat, t_mcd, t_dbg, t_eval = tools["qat"], tools["as_mcd"], tools["debug"], tools["evaluate"]
     launches_qat = lambda key: {"precompute": t_qat["launches_precompute"][key], "sweep_fp32": t_mcd["launches"][key],
@@ -4962,6 +5374,17 @@ def main(argv=None):
             # each launch held against plain on its inputs
             "launches_bf16": {"am_step": 2, "predict_batch": bf_inf["launches"]["vq_nearest"]},
             "bf16": {"am_step": bf_am["snap"], "predict": bf_inf["snap"]},
+            # phase 20: bf16 --int8 on the fixture (analysis-synthesis B=4, predict B=4), the options' checkpoint
+            # through analysis-synthesis in both learned upsampling modes, the legacy TTS task's autoencoder
+            # ending; every launch held against plain on its inputs
+            "launches_options": {"int8_bf16_analysis_synthesis_batch": o_i8["launches"]["vq_nearest"],
+                                 "int8_bf16_predict_batch": o_i8["predict_launches"]["vq_nearest"],
+                                 **{f"{m}_analysis_synthesis_batch": o_tr["modes"][m]["launches"]["vq_nearest"]
+                                    for m in o_tr["modes"]},
+                                 "legacy_tts_autoencoder_batch": o_tts["autoencoder"]["launches"]["vq_nearest"]},
+            "options": {"int8_bf16": o_i8["snaps"] + o_i8["predict_snaps"],
+                        **{m: o_tr["modes"][m]["snaps"] for m in o_tr["modes"]},
+                        "legacy_tts": o_tts["autoencoder"]["snaps"]},
         },
         {
             "name": "vq_nearest_stats", "route": "cuda", "source": "msmctts_tpu_torch/csrc/vq_stats.cu",
@@ -4991,6 +5414,11 @@ def main(argv=None):
             "launches_bf16": 2,
             "bf16": [{k: r[k] for k in ("N", "valid", "device_ms", "ms", "plain_ms", "bound_ms", "sums_max_abs_err")}
                      for r in bf_vq["stats"]],
+            # phase 20: the CSMSC AE recipe with norm: True, residual upsampling and restart_dead (batch 16,
+            # bucket 400), both calls of one step on the path's inputs
+            "launches_options": o_tr["training"]["launches_per_step"]["vq_nearest_stats"],
+            "options": [{k: r[k] for k in ("N", "valid", "device_ms", "ms", "plain_ms", "bound_ms", "sums_max_abs_err")}
+                        for r in o_tr["training"]["stats"]],
         },
         {
             "name": "vq_nearest_stats_sharded", "route": "cuda", "source": "msmctts_tpu_torch/csrc/vq_stats.cu",
@@ -5077,6 +5505,16 @@ def main(argv=None):
             # phase 19: a bf16 predict (B=4, bucket 512): its 36 layers read fp32, held against plain on their inputs
             "launches_bf16": bf_inf["launches"]["fused_resblock_layer"],
             "bf16": {"max_abs_err": bf_inf["resblock_max_abs_err"], "shapes": bf_inf["resblock_shapes"]},
+            # phase 20: none under bf16 --int8; 36 per analysis-synthesis batch of the options' checkpoint in
+            # each learned mode and per batch of the legacy TTS task (autoencoder and vocoder endings),
+            # every layer held against plain on its inputs
+            "launches_options": {"int8_bf16_analysis_synthesis_batch": o_i8["launches"]["fused_resblock_layer"],
+                                 **{f"{m}_analysis_synthesis_batch": o_tr["modes"][m]["launches"]["fused_resblock_layer"]
+                                    for m in o_tr["modes"]},
+                                 **{f"legacy_tts_{e}_batch": o_tts[e]["launches"]["fused_resblock_layer"]
+                                    for e in ("autoencoder", "vocoder")}},
+            "options": {"max_abs_err": max([o_tr["modes"][m]["resblock_max_abs_err"] for m in o_tr["modes"]]
+                                           + [o_tts[e]["resblock_max_abs_err"] for e in ("autoencoder", "vocoder")])},
             "tolerance": {**RB_TOL, "max_abs": RB_MAX_ABS},
             "shapes": f"per decode: the 36 CSMSC MRF layers at B={B}, {FRAMES} frames; bound_ms counts the kernel's operations, "
                       "three TF32 tensor-core products per fp32 product at 495 TFLOP/s; bound_fp32_ms the same products as "
@@ -5095,10 +5533,10 @@ def main(argv=None):
                        "sharded_kernels": shard_res, "nccl_world_1": nccl_res, "dp_training": dp_train,
                        "dp_inference": dp_infer, "am_training": am_res, "am_step_card_vs_cpu": am_cpu,
                        "am_entry_point": am_cli, "serving": serving, "qs_tts": qs, "istft": istft, "int8": int8,
-                       "quality_tools": tools, "ljspeech": lj, "bf16": bf16,
+                       "quality_tools": tools, "ljspeech": lj, "bf16": bf16, "options": opts,
                        "phase_s": spent, "wall_s": time.perf_counter() - t_start}, f, indent=1)
-    log(f"[20] seconds per phase {json.dumps(spent)}")
-    log(f"[20] wall {time.perf_counter() - t_start:.1f}s on {env['nvidia_smi']}")
+    log(f"[end] seconds per phase {json.dumps(spent)}")
+    log(f"[end] wall {time.perf_counter() - t_start:.1f}s on {env['nvidia_smi']}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": env["name"], "count": env["count"]}}))
     return 0

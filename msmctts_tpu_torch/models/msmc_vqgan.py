@@ -5,24 +5,28 @@ the codebook EMA moves and the prior-prediction losses are returned.
 
 Names follow the reference (``in_linear``, ``encoder.encoders.i``,
 ``quantizer.quantizer.i`` / ``preprocessor.i`` / ``postprocessor.i`` /
-``predictor.i``, ``frame_decoder``, ``mel_predictor``, ``decoder``). The
-residual chain upsamples by repetition (``upsampling: repeat``, the mode of
-every shipped recipe); the learned modes and ``norm: True`` raise.
+``predictor.i`` / ``transposed_conv.i``, ``frame_decoder``,
+``mel_predictor``, ``decoder``). The residual chain upsamples by repetition
+(``upsampling: repeat``, the mode of every shipped recipe), by a learned
+weight-norm transposed conv (``mapping``) or by both, the conv's output
+through dropout (``residual``; ``msmc_vqgan.py:168-181,274-282``). ``norm:
+True`` appends a :class:`~msmctts_tpu_torch.models.modules.TorchBatchNorm`
+to each stage's preprocessor (``preprocessor.i.3``, the JAX package's
+``batch_stats`` ``prenorm_i``).
 """
 
 from __future__ import annotations
 
-import math
 from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 
 from msmctts_tpu_torch.models.hifigan import generator_upsample_ratio
-from msmctts_tpu_torch.models.modules import PriorPredictor
+from msmctts_tpu_torch.models.modules import PriorPredictor, TorchBatchNorm
 from msmctts_tpu_torch.models.quantizer import EMAQuantizer
 from msmctts_tpu_torch.models.transformer import FFTBlocks
-from msmctts_tpu_torch.ops.convs import Conv1x1
+from msmctts_tpu_torch.ops.convs import Conv1x1, WNConvTranspose1d
 from msmctts_tpu_torch.ops.dropout import Dropout
 from msmctts_tpu_torch.ops.masking import positions_from_lengths, sequence_mask
 from msmctts_tpu_torch.parallel.mesh import all_reduce_sum
@@ -126,10 +130,9 @@ class MultiStageQuantizer(nn.Module):
         use_pallas="auto",
     ):
         super().__init__()
-        if upsampling != "repeat":
-            raise NotImplementedError(f"upsampling '{upsampling}' is not ported (only 'repeat')")
-        if norm:
-            raise NotImplementedError("quantizer norm: True (TorchBatchNorm) is not ported")
+        if upsampling not in ("repeat", "mapping", "residual"):
+            raise ValueError(f"unknown upsampling '{upsampling}'")
+        self.upsampling = upsampling
         self.upsample_scales = list(upsample_scales)
         self.update_codebook = update_codebook
         self.group = None  # see set_group
@@ -142,7 +145,8 @@ class MultiStageQuantizer(nn.Module):
             EMAQuantizer(dims[i], sizes[i], n_head=n_heads, restart_dead=restart_dead) for i in range(n_stage)
         )
         self.preprocessor = nn.ModuleList(
-            nn.Sequential(Conv1x1(M if i == 0 else 2 * M, dims[i]), nn.Tanh(), Conv1x1(dims[i], dims[i]))
+            nn.Sequential(Conv1x1(M if i == 0 else 2 * M, dims[i]), nn.Tanh(), Conv1x1(dims[i], dims[i]),
+                          *([TorchBatchNorm(dims[i])] if norm else []))
             for i in range(n_stage)
         )
         self.postprocessor = nn.ModuleList(
@@ -153,26 +157,52 @@ class MultiStageQuantizer(nn.Module):
         self.predictor = nn.ModuleDict(
             {str(i): PriorPredictor(M, dims[i], **dict(prior_config or {})) for i in range(1, n_stage)}
         )
+        # learned upsamplers: k = 2u for even u, else 2u + 1, padding (k - u) // 2,
+        # so that each gives exactly u frames a frame
+        self.transposed_conv = None
+        if upsampling != "repeat":
+            kernels = [2 * u if u % 2 == 0 else 2 * u + 1 for u in self.upsample_scales]
+            self.transposed_conv = nn.ModuleList(
+                WNConvTranspose1d(M, M, k, u, (k - u) // 2) for k, u in zip(kernels, self.upsample_scales)
+            )
+
+    def _upsample(self, i: int, residual):
+        """The residual chain's step from stage i's rate to the next's."""
+        u = self.upsample_scales[i]
+        if self.transposed_conv is None:
+            return repeat_upsample(residual, u)
+        t = self.transposed_conv[i](residual.transpose(1, 2)).transpose(1, 2)
+        if self.upsampling == "mapping":
+            return t
+        return repeat_upsample(residual, u) + self.dropout(t)
 
     def padding_reach_frames(self) -> int:
-        """Fine frames past a sequence's end that reach its valid frames
-        through the residual chain: each prior predictor's ResStack
-        convolves the residual with its padded frames unmasked, as the JAX
-        package's does, over its radius at its stage's rate (one more frame
-        for a partly valid coarse frame)."""
+        """Output frames before the end of a frame bucket whose residual
+        differs from the same frames in a larger bucket, where the padding
+        goes on: the zeros a conv pads with at the bucket's end are not the
+        activations of padded frames, as in the JAX package. Walking from
+        the coarsest stage, each prior predictor's ResStack convolves the
+        residual, padded frames unmasked, over its radius (one more frame
+        for a partly valid coarse frame); repetition scales the reach to the
+        next rate, and a learned upsampler adds its padding there."""
         reach = 0
-        for i, pred in self.predictor.items():
-            radius = sum(conv.padding for conv in pred.enc.in_layers)
-            reach = max(reach, (radius + 1) * math.prod(self.upsample_scales[int(i):]))
+        for i, u in enumerate(self.upsample_scales):
+            if str(i) in self.predictor:
+                reach += sum(conv.padding for conv in self.predictor[str(i)].enc.in_layers) + 1
+            reach *= u
+            if self.transposed_conv is not None:
+                reach += self.transposed_conv[i].padding
         return reach
 
     def set_group(self, group):
         """Train data-parallel over ``group`` (``parallel/mesh.py``): every
-        stage's codebook statistics and the prior losses' denominators then
-        cover the batch rows of all ranks. ``None`` returns to one process."""
+        stage's codebook statistics, batch-norm statistics and restart draws
+        and the prior losses' denominators then cover the batch rows of all
+        ranks. ``None`` returns to one process."""
         self.group = group
-        for q in self.quantizer:
-            q.group = group
+        for m in self.modules():
+            if isinstance(m, (EMAQuantizer, TorchBatchNorm)):
+                m.group = group
 
     def forward(self, stages: List[Tuple[Optional[torch.Tensor], torch.Tensor]], from_encoder: bool = True):
         """stages: [(embedding|None, length)] — fine-to-coarse when
@@ -213,7 +243,7 @@ class MultiStageQuantizer(nn.Module):
             quant_indices.append(indices)
             pred_states.append(dict(predictor_outputs=pred_quant, target_outputs=quant, target_indices=indices,
                                     target_lengths=length))
-            residual = repeat_upsample(residual, self.upsample_scales[i])
+            residual = self._upsample(i, residual)
 
         out = dict(
             residual_output=residual,

@@ -24,15 +24,29 @@ Under data parallelism the trainer gives the module its process group
 and ``ema_update`` runs on every rank on equal inputs, so the replicated
 codebooks stay bit-equal. Every snap goes through
 ``ops/vq.vq_nearest_sharded`` (the rank's rows, no collective).
+
+``restart_dead > 0`` re-seeds, after each EMA update, every codeword whose
+EMA count fell below it from a row of the batch (``quantizer.py:190-203``):
+its codeword and ``embed_avg`` become that row, its count 1.0. The rows are
+drawn from the trainer's ``torch.Generator`` (bound by
+``ops/dropout.bind_generator``) over the *global* batch's B * T rows; under
+a group each rank fills the seeds of the rows it holds, zeros elsewhere, and
+one ``all_reduce`` sums them, so W ranks restart what one rank restarts.
+``sort=True`` returns the nearest-first ranking of every codeword from the
+plain distances (``codebook_distances``), as the JAX package takes it from
+its unfused path; ``sample`` draws codewords from the EMA counts.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn as nn
 
 from msmctts_tpu_torch.ops.masking import sequence_mask
 from msmctts_tpu_torch.ops.vq import vq_nearest_sharded, vq_nearest_stats_sharded
+from msmctts_tpu_torch.parallel.mesh import all_reduce_sum, rank, world
 
 
 def codebook_distances(x, embed):
@@ -73,17 +87,18 @@ class EMAQuantizer(nn.Module):
 
     decay = 0.99  # of the EMA of cluster sizes and codeword sums
     eps = 1e-5  # Laplace smoothing of the cluster sizes
+    binds_generator = True  # ops/dropout.bind_generator sets ``generator``
 
     def __init__(self, embed_dim: int, n_embed: int, n_head: int = 1, restart_dead: float = 0.0):
         super().__init__()
         if embed_dim % n_head:
             raise ValueError(f"embed_dim {embed_dim} does not split into {n_head} heads")
-        if restart_dead > 0:
-            raise NotImplementedError("restart_dead > 0 (dead-codeword restarts) is not ported")
         self.n_head = n_head
         self.n_embed = n_embed
         self.sub_dim = embed_dim // n_head
+        self.restart_dead = float(restart_dead)
         self.group = None  # parallel.mesh.Group of a data-parallel trainer
+        self.generator = None  # the trainer's; the restarts' rows are drawn from it
         embed = torch.randn(n_head, self.sub_dim, n_embed)
         self.register_buffer("embed", embed)
         self.register_buffer("cluster_size", torch.zeros(n_head, n_embed))
@@ -97,17 +112,43 @@ class EMAQuantizer(nn.Module):
         return quant.reshape(B, T, D).to(x.dtype), idx
 
     @torch.no_grad()
-    def ema_update(self, counts, sums):
+    def ema_update(self, counts, sums, rows=None):
         """EMA of cluster sizes and codeword sums, then the Laplace-smoothed
-        codebook (``quantizer.py:184-188``), written in place."""
+        codebook (``quantizer.py:184-188``), written in place; with
+        ``restart_dead``, the dead codewords re-seeded from ``rows``
+        [N, H, d] (this rank's fp32 rows of the batch)."""
         K = self.n_embed
         new_cs = self.cluster_size * self.decay + (1.0 - self.decay) * counts
         new_ea = self.embed_avg * self.decay + (1.0 - self.decay) * sums
         n = new_cs.sum(dim=-1, keepdim=True)  # [H, 1]
         smoothed = (new_cs + self.eps) / (n + K * self.eps) * n  # [H, K]
+        new_embed = new_ea / smoothed[:, None, :]
+        if self.restart_dead > 0:
+            seeds = self.restart_seeds(rows)
+            dead = (new_cs < self.restart_dead)[:, None, :]  # [H, 1, K]
+            new_embed = torch.where(dead, seeds, new_embed)
+            new_ea = torch.where(dead, seeds, new_ea)
+            new_cs = torch.where(dead[:, 0, :], torch.ones_like(new_cs), new_cs)
         self.cluster_size.copy_(new_cs)
         self.embed_avg.copy_(new_ea)
-        self.embed.copy_(new_ea / smoothed[:, None, :])
+        self.embed.copy_(new_embed)
+
+    @torch.no_grad()
+    def restart_seeds(self, rows):
+        """Candidate seeds [H, d, K]: for every (head, codeword) one row of
+        the global batch's, drawn uniformly from the trainer's generator
+        (every rank draws the same indices); the rank holding the row fills
+        it in and one all-reduce gives every rank all of them."""
+        if self.generator is None:
+            raise RuntimeError("restart_dead needs a generator: call bind_generator(model, generator) first")
+        H, K = self.n_head, self.n_embed
+        N = rows.shape[0]
+        draw = torch.randint(0, N * world(self.group), (H, K), generator=self.generator, device=rows.device)
+        local = draw - rank(self.group) * N
+        held = (local >= 0) & (local < N)
+        heads = torch.arange(H, device=rows.device)[:, None]
+        seeds = rows[local.clamp(0, N - 1), heads] * held[..., None]  # [H, K, d]
+        return all_reduce_sum(seeds, self.group).transpose(1, 2)
 
     def forward(self, x, lengths=None, update: bool = True, sort: bool = False):
         """x [B, T, D] -> (quantized (straight-through), diff [B, T, D] fp32,
@@ -115,10 +156,12 @@ class EMAQuantizer(nn.Module):
         moves iff the module is in training mode and ``update``; frames at
         t >= lengths[b] are left out of its statistics, which cover the
         batch rows of every rank of ``self.group``. The codewords
-        returned are those of the codebook before the update."""
-        if sort:
-            raise NotImplementedError("sort=True (full codeword ranking) is not ported")
+        returned are those of the codebook before the update. ``sort=True``
+        returns in place of the indices the nearest-first ranking of the
+        codewords, [B, T, H, K], or [B, T, K] for one head (the reference
+        shape; ``quantizer.py:216-219``)."""
         B, T, D = x.shape
+        ranking = self.rank_codewords(x) if sort else None
         if self.training and update:
             if lengths is None:
                 mask = torch.ones(B * T, dtype=torch.float32, device=x.device)
@@ -128,7 +171,7 @@ class EMAQuantizer(nn.Module):
             idx, quant, counts, sums = vq_nearest_stats_sharded(xf, self.embed, mask, self.group)
             indices = idx.reshape(B, T, self.n_head)
             quant = quant.reshape(B, T, D)
-            self.ema_update(counts, sums)
+            self.ema_update(counts, sums, xf)
         else:
             quant, indices = self.quantize(x.detach().float())
         # commitment diff in float32 from the fp32 codewords; gradients reach
@@ -136,7 +179,30 @@ class EMAQuantizer(nn.Module):
         diff = torch.square(quant - x.float())
         quant = quant.to(x.dtype)
         quant_st = x + (quant - x).detach()
-        return quant_st, diff, indices
+        return quant_st, diff, (indices if ranking is None else ranking)
+
+    @torch.no_grad()
+    def rank_codewords(self, x):
+        """Every codeword's rank by distance to each row of x [B, T, D],
+        nearest first (a stable sort, as ``jnp.argsort``): int32 [B, T, H, K],
+        [B, T, K] for one head."""
+        B, T, _ = x.shape
+        dist = codebook_distances(x.detach().float().reshape(B, T, self.n_head, self.sub_dim), self.embed)
+        ranking = torch.argsort(dist, dim=-1, stable=True).to(torch.int32)
+        return ranking[:, :, 0] if self.n_head == 1 else ranking
+
+    @torch.no_grad()
+    def sample(self, generator, batch_shape):
+        """Codewords drawn from the EMA counts (``quantizer.py:244-259``): per
+        head, indices ~ Categorical(max(cluster_size, eps) / sum) from
+        ``generator`` -> (indices [*batch_shape, H] int64, codewords
+        [*batch_shape, H, d])."""
+        batch_shape = tuple(batch_shape)
+        n = math.prod(batch_shape)
+        probs = torch.clamp(self.cluster_size, min=self.eps)  # [H, K]
+        idx = torch.multinomial(probs / probs.sum(dim=-1, keepdim=True), n, replacement=True, generator=generator)
+        idx = idx.T.reshape(*batch_shape, self.n_head)
+        return idx, lookup_codes(idx, self.embed)
 
     def compute_triple_loss(self, pred, target_indices, reduction: str = "mean", margin: float = 1e-6):
         """Triplet loss of predictions [B, T, D] against the codebook

@@ -50,10 +50,12 @@ def sinusoid_position_table(n_position: int, d_hid: int) -> np.ndarray:
     return table.astype(np.float32)
 
 
-def _same_padding(kernel_size: int) -> int:
-    if kernel_size % 2 == 0:
-        raise NotImplementedError(f"even conv kernel {kernel_size}: 'SAME' padding is asymmetric")
-    return (kernel_size - 1) // 2
+def _same_padding(kernel_size: int):
+    """flax's ``"SAME"`` padding of a stride-1 conv: (k - 1) // 2 frames
+    before, k // 2 after (``msmctts_tpu/models/transformer.py:101-103``).
+    torch's ``"same"`` splits an even kernel's padding the same way, so an
+    odd kernel keeps its symmetric int and an even one takes ``"same"``."""
+    return (kernel_size - 1) // 2 if kernel_size % 2 else "same"
 
 
 class MultiHeadAttention(nn.Module):

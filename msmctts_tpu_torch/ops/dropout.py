@@ -51,8 +51,13 @@ class Dropout(nn.Module):
 
 def bind_generator(module: nn.Module, generator: Optional[torch.Generator], shard: Tuple[int, int] = (0, 1)):
     """Make every :class:`Dropout` under ``module`` draw from ``generator``,
-    as rank ``shard[0]`` of ``shard[1]`` equal blocks of the global batch."""
+    as rank ``shard[0]`` of ``shard[1]`` equal blocks of the global batch,
+    and every other module that says ``binds_generator`` (an
+    ``EMAQuantizer``'s codeword restarts, which take their rank from their
+    group) draw from it too."""
     for m in module.modules():
         if isinstance(m, Dropout):
             m.generator = generator
             m.shard = shard
+        elif getattr(m, "binds_generator", False):
+            m.generator = generator

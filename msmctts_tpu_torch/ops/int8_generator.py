@@ -28,10 +28,13 @@ versions compute the same int32 sums exactly: one fp64 product per tap,
 whose integer partial sums stay far below 2^53 (at most
 k * C_in * 127^2 < 2^31 for every generator here).
 
-The port serves in fp32 (the JAX package serves in its compute dtype, fp32
-for the shipped recipes); its calibration observes the activations through
-the graph in bf16, as the JAX package's does. Inference only: no gradient is
-defined.
+``Int8Decoder`` serves in the ``dtype`` it is built with, the task's compute
+dtype as in the JAX package (``msmctts_tpu/tasks.py:379-386``): fp32 for the
+shipped recipes, bf16 under ``precision: bfloat16``, where the dequantized
+activations, the float sites and the ``tanh`` output are bf16 and the
+int8 products and the fp32 ``conv_post`` are as in fp32. Its calibration
+observes the activations through the graph in bf16 whatever it serves in,
+as the JAX package's does. Inference only: no gradient is defined.
 """
 
 from __future__ import annotations
@@ -394,12 +397,12 @@ class Int8Decoder:
     ``calibrate(feats)`` observes per-site per-input-channel amax on the
     decoder inputs (the first batch), applies the SmoothQuant fold
     (``smooth_alpha``; None disables it) and freezes per-tensor scales with
-    ``headroom``; ``apply(feats)`` then runs the static-scale graph.
-    ``qparams`` and ``scales`` keep numpy leaves and python floats, as the JAX
-    package's do; their copies on the features' device are made once after
-    each calibration."""
+    ``headroom``; ``apply(feats)`` then runs the static-scale graph with its
+    activations in ``dtype``. ``qparams`` and ``scales`` keep numpy leaves
+    and python floats, as the JAX package's do; their copies on the
+    features' device are made once after each calibration."""
 
-    def __init__(self, generator, decoder_config, headroom: float = 1.1,
+    def __init__(self, generator, decoder_config, headroom: float = 1.1, dtype: torch.dtype = torch.float32,
                  smooth_alpha: Optional[float] = 1.0, float_sites=()):
         self.decoder_config = {k: (list(v) if isinstance(v, (list, tuple)) else v)
                                for k, v in dict(decoder_config).items()}
@@ -410,6 +413,7 @@ class Int8Decoder:
         self._qparams_base = _quantize_folded(self._folded, self.decoder_config, float_sites=self.float_sites)
         self.qparams = self._qparams_base
         self.headroom = float(headroom)
+        self.dtype = dtype
         self.smooth_alpha = smooth_alpha
         self.scales: Optional[dict] = None
         self._device = {}  # copies on a device: (what, device) -> tree
@@ -441,7 +445,7 @@ class Int8Decoder:
         if self.scales is None:
             raise RuntimeError("Int8Decoder.calibrate(feats) must run first")
         return int8_generator_apply(self._on("qparams", feats.device), feats, self.decoder_config,
-                                    act_scales=self._on("scales", feats.device))
+                                    act_scales=self._on("scales", feats.device), dtype=self.dtype)
 
 
 def _observe_act_amax(qparams, batches, decoder_config) -> dict:

@@ -59,9 +59,17 @@ built and so rounded by every load, the frozen autoencoder's when it loads;
 codebooks and BatchNorm statistics are buffers and stay fp32, and the
 weight-norm caches are folded in fp32 from the rounded pairs. The inputs
 stay fp32, so most activations promote back to fp32 (the JAX package's
-promotion, which the port's layers follow). The int8 decoder under bf16
-raises: the JAX package builds it in the compute dtype, which the port's
-does not (ROADMAP A11a).
+promotion, which the port's layers follow). The int8 decoder is built in the
+compute dtype, as the JAX task builds its own (``msmctts_tpu/tasks.py:382``):
+under bf16 it quantizes the rounded decoder weights, calibrates on the
+features the bf16 autoencoder gives it and returns a bf16 waveform, which
+the task hands on as fp32 arrays (every bf16 value is one).
+
+``TTS`` is the legacy v1 task (``msmctts_tpu/tasks.py:100-198``): a generic
+``acoustic_model`` -> mel, then the autoencoder's ``synthesis`` over the mel
+split into per-stage chunks and average-pooled by the cumulative
+``downsample_scales``, or a ``vocoder`` network, or with neither the mel
+itself.
 
 Everything runs on ``device`` (``cuda`` unless the caller asks for the CPU).
 """
@@ -77,7 +85,7 @@ import torch
 from msmctts_tpu_torch.config import Config, component_kwargs
 from msmctts_tpu_torch.data.datasets import FRAME_BUCKETS, bucket_length
 from msmctts_tpu_torch.models.hifigan import receptive_field_frames
-from msmctts_tpu_torch.models.msmc_vqgan import MSMCVQGAN, MultiStageQuantizer
+from msmctts_tpu_torch.models.msmc_vqgan import MSMCVQGAN, MultiStageQuantizer, _ceil_div, avg_pool_1d
 from msmctts_tpu_torch.ops.int8_generator import Int8Decoder
 from msmctts_tpu_torch.parallel import mesh
 from msmctts_tpu_torch.parallel.precision import cast_parameters_, compute_dtype
@@ -88,6 +96,7 @@ from msmctts_tpu_torch.utils.device import exact_fp32, resolve_device
 from msmctts_tpu_torch.weights import (
     attr_predictor_from_jax,
     emb_autoencoder_from_jax,
+    generator_from_jax,
     load_numpy_state,
     msmc_vqgan_from_jax,
     multi_stage_predictor_from_jax,
@@ -113,6 +122,10 @@ _FROM_JAX = {
     "UnivNetDiscriminator": lambda state, name, module: univnet_discriminator_from_jax(
         state["params"][name], periods=module.mpd.periods
     ),
+    # a legacy TTS task's vocoder
+    "HifiGANGenerator": lambda state, name, module: generator_from_jax(state["params"][name]),
+    "MSGenerator": lambda state, name, module: generator_from_jax(state["params"][name]),
+    "ISTFTGenerator": lambda state, name, module: generator_from_jax(state["params"][name]),
 }
 
 
@@ -127,9 +140,10 @@ def _load_network(module, node_name: str, state: dict, name: str):
     load_numpy_state(module, _FROM_JAX[node_name](state, name, module))
 
 
-# The networks inference runs. Others in a recipe (the GAN discriminator)
-# are training state and are built in train mode only.
-INFERENCE_NETWORKS = ("autoencoder", "predictor")
+# The networks inference runs (the legacy TTS task's acoustic model and
+# vocoder among them). Others in a recipe (the GAN discriminator) are
+# training state and are built in train mode only.
+INFERENCE_NETWORKS = ("autoencoder", "predictor", "acoustic_model", "vocoder")
 
 
 class BaseTask:
@@ -291,12 +305,14 @@ class MSMCTTS(BaseTask):
         waveform, which the frame bucket otherwise decides: the decoder's
         activations over padded frames are not the zeros its convs pad with
         at the end of the bucket (its receptive field, plus the iSTFT window
-        of an ``ISTFTGenerator``), and each prior predictor of the
-        autoencoder's residual chain convolves the padded residual, as the
-        JAX package's does (``MultiStageQuantizer.padding_reach_frames``).
-        An utterance followed by at least this many padded frames decodes
-        the same in any larger bucket. Loads the frozen autoencoder, as the
-        first ``infer_step`` would."""
+        of an ``ISTFTGenerator``), and the autoencoder's residual chain
+        convolves the padded residual in its prior predictors and learned
+        upsamplers, as the JAX package's does
+        (``MultiStageQuantizer.padding_reach_frames``). A frame decoder
+        zeroes the padded frames between the two, so the larger reach
+        counts; without one the two add up. An utterance followed by at
+        least this many padded frames decodes the same in any larger bucket.
+        Loads the frozen autoencoder, as the first ``infer_step`` would."""
         if self.training_mode != "train_autoencoder" and not self._loaded_modules:
             self.pre_infer()
         ae = self.networks.get("autoencoder")
@@ -308,7 +324,8 @@ class MSMCTTS(BaseTask):
             spec_frames = math.prod(int(u) for u in cfg["upsample_rates"])
             reach += -(-int(cfg.get("istft_n_fft", 40)) // (int(cfg.get("istft_hop", 10)) * spec_frames))
         if isinstance(getattr(ae, "quantizer", None), MultiStageQuantizer):
-            reach = max(reach, ae.quantizer.padding_reach_frames())
+            chain = ae.quantizer.padding_reach_frames()
+            reach = max(reach, chain) if getattr(ae, "frame_decoder", None) is not None else reach + chain
         return reach
 
     def _int8(self) -> Int8Decoder:
@@ -323,12 +340,8 @@ class MSMCTTS(BaseTask):
                 raise NotImplementedError(f"int8 PTQ kernels cover the HifiGANGenerator decoder only, not {name}")
             if mesh.world(self._group) > 1:
                 raise NotImplementedError("the int8 decoder over an inference group is not ported (ROADMAP A12c)")
-            if self.compute_dtype != torch.float32:
-                # the JAX package builds its Int8Decoder in the compute dtype
-                # (msmctts_tpu/tasks.py:382); this one computes in fp32 only
-                raise NotImplementedError("the int8 decoder under precision: bfloat16 is not ported (ROADMAP A11a)")
-            self._int8_state = Int8Decoder(ae.decoder, ae.decoder_config, smooth_alpha=self.int8_smooth_alpha,
-                                           float_sites=self.int8_float_sites)
+            self._int8_state = Int8Decoder(ae.decoder, ae.decoder_config, dtype=self.compute_dtype,
+                                           smooth_alpha=self.int8_smooth_alpha, float_sites=self.int8_float_sites)
         return self._int8_state
 
     def _decode(self, feats):
@@ -340,7 +353,7 @@ class MSMCTTS(BaseTask):
         i8 = self._int8()
         if i8.scales is None:
             i8.calibrate(feats)
-        return i8.apply(feats)[..., 0]
+        return i8.apply(feats)[..., 0].float()
 
     @torch.inference_mode()
     def analysis_synthesis(self, batch: dict) -> dict:
@@ -489,7 +502,8 @@ class MSMCTTS(BaseTask):
                     "the ISTFT decoder is already tail-cheap: use the monolithic path"
                 )
             if self.int8_decoder:
-                sd = StreamingDecoder.from_feature_fn(lambda f: self._int8().apply(f), ae.decoder_config, chunk_frames)
+                sd = StreamingDecoder.from_feature_fn(lambda f: self._int8().apply(f).float(), ae.decoder_config,
+                                                      chunk_frames)
             else:
                 sd = StreamingDecoder.from_generator(ae.decoder, ae.decoder_config, chunk_frames)
             self._streamers[key] = sd
@@ -540,3 +554,68 @@ class MSMCTTS(BaseTask):
                     return
 
         return meta, chunks()
+
+
+@register_task("TTS")
+class TTS(BaseTask):
+    """The legacy v1 task (``msmctts_tpu/tasks.py:100-198``): an
+    ``acoustic_model`` network takes the batch and gives a mel (or a dict
+    with ``mel`` and ``mel_length``); the autoencoder, where the task has
+    one with loaded weights, synthesizes from it, else a ``vocoder``
+    network, else the mel is the output. Its networks are loaded with the
+    state's params and codebook, as the JAX task loads them; it keeps no
+    precision policy, as that one keeps none."""
+
+    def __init__(self, config, device=None, mode: str = "infer"):
+        super().__init__(config, device, mode)
+        self.samplerate = config.dataset["samplerate"]
+        self.loaded: set = set()  # networks with weights
+
+    def load_variables(self, state: dict):
+        for name, module in self.networks.items():
+            if name in state.get("params", {}):
+                _load_network(module, self.network_configs[name]["_name"], state, name)
+                self.loaded.add(name)
+
+    def _tensor(self, x):
+        return torch.as_tensor(np.asarray(x), device=self.device)
+
+    def _synthesize(self, mel, mel_length):
+        """The mel split into one chunk of channels per stage, each pooled
+        by the cumulative ``downsample_scales`` (``msmctts_tpu/tasks.py:158-176``),
+        through the autoencoder's ``synthesis`` -> [B, T * ratio, 1]."""
+        ae = self.networks["autoencoder"]
+        scales = list(ae.encoder.downsample_scales)
+        C = mel.shape[-1]
+        if C % len(scales):
+            raise ValueError(f"a mel of {C} channels does not split into {len(scales)} stages")
+        preds, lengths, cum = [], [], 1
+        for scale, chunk in zip(scales, mel.split(C // len(scales), dim=-1)):
+            cum *= scale
+            preds.append(avg_pool_1d(chunk, cum))
+            lengths.append(_ceil_div(mel_length, cum))
+        return ae.synthesis(preds[::-1], lengths[::-1])
+
+    @torch.inference_mode()
+    def infer_step(self, batch: dict) -> dict:
+        mel_length = np.asarray(batch.get("mel_length", batch.get("text_length")))
+        am_out = self.networks["acoustic_model"](**{k: self._tensor(v) for k, v in batch.items()})
+        out = {}
+        if isinstance(am_out, dict):
+            mel = am_out["mel"]
+            out["mel_length"] = np.asarray(am_out["mel_length"].cpu() if "mel_length" in am_out else mel_length)
+        else:
+            mel = am_out
+            out["mel_length"] = mel_length
+        if "autoencoder" in self.networks and "autoencoder" in self.loaded:
+            wav = self._synthesize(mel, self._tensor(mel_length).long())
+        elif "vocoder" in self.networks and "vocoder" in self.loaded:
+            wav = self.networks["vocoder"](mel)
+        else:
+            mel = mel.float().cpu().numpy()
+            out["mel"] = [m[: int(l)] for m, l in zip(mel, out["mel_length"])]
+            return out
+        wav = wav.float().cpu().numpy()
+        ratio = wav.shape[1] // mel.shape[1]
+        out["wav"] = [w[: int(l) * ratio, 0] for w, l in zip(wav, out["mel_length"])]
+        return out

@@ -18,9 +18,10 @@ either package.
 
 The discriminator is not converted (inference never needs it, and a resumed
 GAN phase re-estimates it quickly); no optimizer state is carried over. A
-quantizer with ``norm: True`` (its BatchNorm statistics) raises
-``NotImplementedError``, as ``weights.msmc_vqgan_from_jax`` does (ROADMAP
-A7b). Needs neither jax nor a GPU.
+quantizer with ``norm: True`` carries its BatchNorm statistics
+(``preprocessor.<i>.3.running_mean`` / ``running_var``) into
+``model_state.batch_stats``, and learned upsamplers (``transposed_conv.<i>``)
+into the params, as the JAX tool does. Needs neither jax nor a GPU.
 """
 
 from __future__ import annotations
@@ -59,14 +60,15 @@ def stack_codebook_heads(sd: dict) -> dict:
 
 
 def convert(sd: dict) -> dict:
-    """Numpy state dict of a whole task -> {'params': ..., 'codebook': ...}."""
+    """Numpy state dict of a whole task -> {'params': ..., 'codebook': ...
+    [, 'model_state': {'batch_stats': ...}]}."""
     state = {"params": {}}
     if any(k.startswith("autoencoder.") for k in sd):
-        if any(re.fullmatch(r"autoencoder\.quantizer\.preprocessor\.\d+\.3\.running_mean", k) for k in sd):
-            raise NotImplementedError("quantizer norm: True (batch_stats) is not ported (ROADMAP A7b)")
         v = msmc_vqgan_to_jax(stack_codebook_heads(sd), "autoencoder")
         state["params"]["autoencoder"] = v["params"]
         state["codebook"] = v["codebook"]
+        if v["batch_stats"]:  # quantizer norm: True running stats
+            state["model_state"] = {"batch_stats": v["batch_stats"]}
     if any(k.startswith("predictor.") for k in sd):
         state["params"]["predictor"] = multi_stage_predictor_to_jax(sd, "predictor")
     skipped = sorted({k.split(".", 1)[0] for k in sd} - {"autoencoder", "predictor"})

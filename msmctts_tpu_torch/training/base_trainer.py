@@ -119,7 +119,7 @@ def check_mesh_config(config, world: int):
     (-1 or absent = any) is the number of ranks to expect."""
     node = dict(config.get("mesh") or {})
     if int(node.get("model", 1) or 1) > 1:
-        raise NotImplementedError("mesh.model > 1 (tensor parallelism) is not ported")
+        raise NotImplementedError("mesh.model > 1 (tensor parallelism) is not ported (ROADMAP A11b)")
     n_data = int(node.get("data", -1) or -1)
     if n_data != -1 and n_data != world:
         raise ValueError(f"the config asks for mesh.data = {n_data} but the run has {world} rank(s)")

@@ -134,13 +134,23 @@ def res_stack_from_jax(params: dict, prefix: str = "") -> StateDict:
         elif name.startswith("res_skip_"):
             out.update(wn_conv_from_jax(p, f"{pre}res_skip_layers.{name.split('_')[-1]}"))
         elif name == "cond_layer":
-            raise NotImplementedError("ResStack global conditioning is not ported")
+            out.update(wn_conv_from_jax(p, f"{pre}cond_layer"))
     return out
 
 
 def prior_predictor_from_jax(params: dict, prefix: str = "") -> StateDict:
     pre = _pre(prefix)
     out = res_stack_from_jax(params["enc"], f"{pre}enc")
+    out.update(conv1x1_from_jax(params["proj"], f"{pre}proj"))
+    return out
+
+
+def encoder_from_jax(params: dict, prefix: str = "") -> StateDict:
+    """JAX ``models.modules.Encoder`` params -> port state_dict (``pre`` and
+    ``proj`` are Dense there, 1x1 convs here)."""
+    pre = _pre(prefix)
+    out = conv1x1_from_jax(params["pre"], f"{pre}pre")
+    out.update(res_stack_from_jax(params["enc"], f"{pre}enc"))
     out.update(conv1x1_from_jax(params["proj"], f"{pre}proj"))
     return out
 
@@ -176,7 +186,10 @@ def generator_from_jax(params: dict, prefix: str = "") -> StateDict:
     return (ms_generator_from_jax if "generator" in params else hifigan_generator_from_jax)(params, prefix)
 
 
-def multi_stage_quantizer_from_jax(params: dict, codebook: dict, prefix: str = "") -> StateDict:
+def multi_stage_quantizer_from_jax(params: dict, codebook: dict, prefix: str = "",
+                                   batch_stats: Optional[dict] = None) -> StateDict:
+    """The quantizer's params and codebook, and with ``norm: True`` its
+    ``batch_stats`` (``prenorm_i`` {mean, var} -> ``preprocessor.i.3``)."""
     pre = _pre(prefix)
     out: StateDict = {}
     for name in codebook:
@@ -189,14 +202,16 @@ def multi_stage_quantizer_from_jax(params: dict, codebook: dict, prefix: str = "
         if f"prior_{i}" in params:
             out.update(prior_predictor_from_jax(params[f"prior_{i}"], f"{pre}predictor.{i}"))
         if f"up_{i}" in params:
-            raise NotImplementedError("learned quantizer upsampling is not ported")
+            out.update(wn_conv_transpose1d_from_jax(params[f"up_{i}"], f"{pre}transposed_conv.{i}"))
+        if batch_stats and f"prenorm_{i}" in batch_stats:
+            out[f"{pre}preprocessor.{i}.3.running_mean"] = _np(batch_stats[f"prenorm_{i}"]["mean"])
+            out[f"{pre}preprocessor.{i}.3.running_var"] = _np(batch_stats[f"prenorm_{i}"]["var"])
     return out
 
 
 def msmc_vqgan_from_jax(variables: dict, prefix: str = "") -> StateDict:
-    """JAX MSMCVQGAN variables {'params', 'codebook'} -> port state_dict."""
-    if variables.get("batch_stats"):
-        raise NotImplementedError("quantizer norm: True (batch_stats) is not ported")
+    """JAX MSMCVQGAN variables {'params', 'codebook'[, 'batch_stats']} ->
+    port state_dict."""
     pre = _pre(prefix)
     params = variables["params"]
     out = dense_from_jax(params["in_linear"], f"{pre}in_linear")
@@ -204,7 +219,8 @@ def msmc_vqgan_from_jax(variables: dict, prefix: str = "") -> StateDict:
         out.update(fft_blocks_from_jax(block, f"{pre}encoder.encoders.{int(name.split('_')[-1])}"))
     out.update(
         multi_stage_quantizer_from_jax(
-            params["quantizer"], variables["codebook"]["quantizer"], f"{pre}quantizer"
+            params["quantizer"], variables["codebook"]["quantizer"], f"{pre}quantizer",
+            (variables.get("batch_stats") or {}).get("quantizer"),
         )
     )
     out.update(generator_from_jax(params["decoder"], f"{pre}decoder"))
@@ -404,7 +420,8 @@ def emb_autoencoder_from_jax(variables: dict, prefix: str = "") -> StateDict:
     if "encoder" in params:
         out.update(mams_encoder_from_jax(params["encoder"], f"{pre}encoder"))
     if "quantizer" in params:
-        out.update(multi_stage_quantizer_from_jax(params["quantizer"], codebook["quantizer"], f"{pre}quantizer"))
+        out.update(multi_stage_quantizer_from_jax(params["quantizer"], codebook["quantizer"], f"{pre}quantizer",
+                                                  stats.get("quantizer")))
     elif "embed" in codebook.get("quantizer", {}):  # the frozen k-means codebook [1, d, K]
         out[f"{pre}quantizer.embed"] = _np(codebook["quantizer"]["embed"])
     if "global_encoder" in params:
@@ -505,7 +522,15 @@ def res_stack_to_jax(sd: StateDict, prefix: str = "") -> dict:
         params[f"in_{i}"] = wn_conv_to_jax(s, f"in_layers.{i}")
     for i in _layer_indices(s, r"res_skip_layers\.(\d+)\."):
         params[f"res_skip_{i}"] = wn_conv_to_jax(s, f"res_skip_layers.{i}")
+    if any(k.startswith("cond_layer.") for k in s):
+        params["cond_layer"] = wn_conv_to_jax(s, "cond_layer")
     return params
+
+
+def encoder_to_jax(sd: StateDict, prefix: str = "") -> dict:
+    """Port ``Encoder`` state_dict -> JAX params."""
+    s = _sub(sd, prefix)
+    return {"pre": conv1x1_to_jax(s, "pre"), "enc": res_stack_to_jax(s, "enc"), "proj": conv1x1_to_jax(s, "proj")}
 
 
 def prior_predictor_to_jax(sd: StateDict, prefix: str = "") -> dict:
@@ -546,9 +571,10 @@ def generator_to_jax(sd: StateDict, prefix: str = "") -> dict:
 
 
 def multi_stage_quantizer_to_jax(sd: StateDict, prefix: str = ""):
-    """-> (params, codebook) trees of the JAX MultiStageQuantizer."""
+    """-> (params, codebook, batch_stats) trees of the JAX
+    MultiStageQuantizer; ``batch_stats`` is {} without ``norm: True``."""
     s = _sub(sd, prefix)
-    params, codebook = {}, {}
+    params, codebook, stats = {}, {}, {}
     for i in _layer_indices(s, r"quantizer\.(\d+)\."):
         q = _sub(s, f"quantizer.{i}")
         codebook[f"vq_{i}"] = {k: _np(q[k]) for k in ("embed", "cluster_size", "embed_avg")}
@@ -558,13 +584,20 @@ def multi_stage_quantizer_to_jax(sd: StateDict, prefix: str = ""):
         params[f"post_{i}_b"] = dense_to_jax(s, f"postprocessor.{i}.2")
         if i > 0:
             params[f"prior_{i}"] = prior_predictor_to_jax(s, f"predictor.{i}")
-    return params, codebook
+        if any(k.startswith(f"transposed_conv.{i}.") for k in s):
+            params[f"up_{i}"] = wn_conv_transpose1d_to_jax(s, f"transposed_conv.{i}")
+        if f"preprocessor.{i}.3.running_mean" in s:
+            stats[f"prenorm_{i}"] = {"mean": _np(s[f"preprocessor.{i}.3.running_mean"]),
+                                     "var": _np(s[f"preprocessor.{i}.3.running_var"])}
+    return params, codebook, stats
 
 
 def msmc_vqgan_to_jax(sd: StateDict, prefix: str = "") -> dict:
-    """Port MSMCVQGAN state_dict -> JAX variables {'params', 'codebook'}."""
+    """Port MSMCVQGAN state_dict -> JAX variables {'params', 'codebook',
+    'batch_stats'} (``batch_stats`` {} without ``norm: True``, as the JAX
+    trainer leaves it)."""
     s = _sub(sd, prefix)
-    q_params, q_codebook = multi_stage_quantizer_to_jax(s, "quantizer")
+    q_params, q_codebook, q_stats = multi_stage_quantizer_to_jax(s, "quantizer")
     params = {
         "in_linear": dense_to_jax(s, "in_linear"),
         "quantizer": q_params,
@@ -578,7 +611,8 @@ def msmc_vqgan_to_jax(sd: StateDict, prefix: str = "") -> dict:
         params["frame_decoder"] = fft_blocks_to_jax(s, "frame_decoder")
     if any(k.startswith("mel_predictor.") for k in s):
         params["mel_predictor"] = dense_to_jax(s, "mel_predictor")
-    return {"params": params, "codebook": {"quantizer": q_codebook}}
+    return {"params": params, "codebook": {"quantizer": q_codebook},
+            "batch_stats": {"quantizer": q_stats} if q_stats else {}}
 
 
 def multi_stage_predictor_to_jax(sd: StateDict, prefix: str = "") -> dict:
@@ -694,7 +728,9 @@ def emb_autoencoder_to_jax(sd: StateDict, prefix: str = "") -> dict:
             enc["pitch_encoder"] = {f"c{j}": conv1d_to_jax(s, f"encoder.pitch_encoder.{2 * j}") for j in range(4)}
         params["encoder"] = enc
     if has("quantizer.quantizer."):
-        params["quantizer"], codebook["quantizer"] = multi_stage_quantizer_to_jax(s, "quantizer")
+        params["quantizer"], codebook["quantizer"], q_stats = multi_stage_quantizer_to_jax(s, "quantizer")
+        if q_stats:
+            stats["quantizer"] = q_stats
     elif "quantizer.embed" in s:
         codebook["quantizer"] = {"embed": _np(s["quantizer.embed"])}
     if has("global_encoder."):
@@ -730,7 +766,7 @@ def train_state_to_jax(autoencoder: nn.Module, discriminator: nn.Module) -> dict
     return {
         "params": {"autoencoder": ae["params"], "discriminator": disc},
         "codebook": ae["codebook"],
-        "model_state": {"batch_stats": {}},
+        "model_state": {"batch_stats": ae["batch_stats"]},
     }
 
 

@@ -23,7 +23,7 @@ faster one, so these tests hold it to JAX's bf16 run, not to its fp32 run:
     AE + AM pair under bf16 against JAX's task: indices and durations
     equal, the wav within a stated tolerance;
   * ``NASynEmbFSTrainer`` under bf16 equals its fp32 run (the JAX trainer
-    reads no precision); ``--int8`` under bf16 raises.
+    reads no precision); ``--int8`` under bf16 against JAX's bf16 int8 task.
 
 Tolerances (JAX under matmul precision "highest", the port's TF32 off).
   * Step metrics vs JAX bf16: 2e-3 relative (observed: up to 3.3e-4; the
@@ -478,15 +478,22 @@ def test_predict_stream_and_engine_under_bf16(tiny_pair):
 
 
 def test_int8_decoder_under_bf16_raises(tiny_pair):
-    tck = t_load_checkpoint(tiny_pair["ae"])
-    tconfig = TConfig(tck["config"])
-    tconfig["precision"] = "bfloat16"
-    ttask = t_build_task(tconfig, device="cpu")
-    ttask.load_variables(tck["state"])
-    ttask.int8_decoder = True
-    batch = {"mel": np.zeros((1, 16, MEL_DIM), np.float32), "mel_length": np.array([16])}
-    with pytest.raises(NotImplementedError, match="A11"):
-        ttask.infer_step(batch)
+    """``--int8`` under bf16 (ROADMAP A11a, once refused): the int8 decoder is built
+    in the compute dtype, as the JAX task builds it, and its analysis-
+    synthesis follows JAX's bf16 int8 decode (``tests/test_torch_legacy_tts.py``
+    bounds it site by site; 5e-2 relative L2 here, observed: equal)."""
+    rng = np.random.default_rng(8)
+    batch = {"mel": rng.normal(size=(2, 16, MEL_DIM)).astype(np.float32), "mel_length": np.array([16, 9])}
+    jtask, ttask = _bf16_tasks(tiny_pair["ae"])
+    jtask.int8_decoder = ttask.int8_decoder = True
+    with jax.default_matmul_precision("highest"):
+        want = jtask.infer_step(batch)["wav"]
+    got = ttask.infer_step(batch)["wav"]
+    assert ttask._int8().dtype == torch.bfloat16
+    for a, b in zip(got, want):
+        b = np.asarray(b, np.float32)
+        assert a.shape == b.shape and np.abs(b).max() > 1e-3
+        assert np.linalg.norm(a - b) <= 5e-2 * np.linalg.norm(b)
 
 
 # ------------------------------------------------------------------ QS-TTS

@@ -300,11 +300,26 @@ def test_convert_matches_the_jax_tool(tmp_path, monkeypatch, capsys, n_heads):
 
 
 def test_convert_refuses_quantizer_batch_norm(tmp_path):
+    """A reference checkpoint with ``norm: True`` (each stage's BatchNorm1d
+    statistics at ``preprocessor.<i>.3``, once refused: ROADMAP A7b) and learned
+    upsamplers (``transposed_conv.<i>``): converted as the JAX tool converts
+    it, the statistics into ``model_state.batch_stats``."""
+    import tools.convert_torch_checkpoint as j_convert
+
+    rng = np.random.default_rng(5)
     sd = _reference_state_dict(str(tmp_path), 2)
-    sd["autoencoder.quantizer.preprocessor.0.3.running_mean"] = np.zeros(16, np.float32)
-    sd["autoencoder.quantizer.preprocessor.0.3.running_var"] = np.ones(16, np.float32)
-    with pytest.raises(NotImplementedError, match="A7b"):
-        t_convert.convert(sd)
+    for i in range(2):
+        sd[f"autoencoder.quantizer.preprocessor.{i}.3.running_mean"] = rng.normal(size=16).astype(np.float32)
+        sd[f"autoencoder.quantizer.preprocessor.{i}.3.running_var"] = rng.uniform(0.5, 2, size=16).astype(np.float32)
+        sd[f"autoencoder.quantizer.preprocessor.{i}.3.num_batches_tracked"] = np.array(7)
+        k = (4, 3)[i]
+        sd[f"autoencoder.quantizer.transposed_conv.{i}.weight_v"] = rng.normal(size=(16, 16, k)).astype(np.float32)
+        sd[f"autoencoder.quantizer.transposed_conv.{i}.weight_g"] = rng.uniform(0.5, 1.5, size=(16, 1, 1)).astype(np.float32)
+        sd[f"autoencoder.quantizer.transposed_conv.{i}.bias"] = rng.normal(size=16).astype(np.float32)
+    got, want = t_convert.convert(sd), j_convert.convert(sd)
+    assert _same_tree(got, want) > 50
+    assert sorted(got["model_state"]["batch_stats"]["quantizer"]) == ["prenorm_0", "prenorm_1"]
+    assert {"up_0", "up_1"} <= set(got["params"]["autoencoder"]["quantizer"])
 
 
 # ------------------------------------------------------ synthesize --static-frames

@@ -170,10 +170,13 @@ def test_ema_quantizer_moves_only_in_training_mode_with_update(rng):
     assert not torch.equal(tq.embed, before["embed"])
     total = tq.cluster_size.sum() - before["cluster_size"].sum() * 0.99
     assert float(total) == pytest.approx(0.01 * 2 * 9 * 2, rel=1e-5)  # (1 - decay) * frames * heads
-    with pytest.raises(NotImplementedError):
-        tq(x, sort=True)
-    with pytest.raises(NotImplementedError):
-        TEMAQuantizer(16, 8, n_head=2, restart_dead=0.5)
+    # the nearest-first ranking (held to JAX's in test_torch_model_options.py)
+    # starts at the nearest codeword, and the restart threshold is kept
+    tq.eval()
+    _, _, ranking = tq(x, sort=True)
+    _, _, nearest = tq(x)
+    assert ranking.shape == (2, 9, 2, 8) and torch.equal(ranking[..., 0], nearest)
+    assert TEMAQuantizer(16, 8, n_head=2, restart_dead=0.5).restart_dead == 0.5
 
 
 # ------------------------------------------------------------- STFT, mel

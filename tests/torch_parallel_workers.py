@@ -126,6 +126,24 @@ def run_steps(trainer, batch, iterations, starts, group=None):
                 rng=trainer.generator.get_state().numpy().copy())
 
 
+def run_restart_steps(trainer, batch, iterations, group=None):
+    """``run_steps`` (no fixed windows), with the number of codewords each
+    quantizer forward restarted: their count is exactly 1.0 after it."""
+    restarted = []
+    hooks = [q.register_forward_hook(lambda m, a, o: restarted.append(int((m.cluster_size == 1.0).sum())))
+             for q in trainer.ae.quantizer.quantizer]
+    out = run_steps(trainer, batch, iterations, None, group)
+    for h in hooks:
+        h.remove()
+    out["restarted"] = restarted
+    return out
+
+
+def restart_steps_rank(group, device, config_dict, state, batch, iterations):
+    torch.set_num_threads(2)
+    return run_restart_steps(build_trainer(config_dict, state, group), batch, iterations, group)
+
+
 def train_steps_rank(group, device, config_dict, state, batch, iterations, starts):
     torch.set_num_threads(2)
     return run_steps(build_trainer(config_dict, state, group), batch, iterations, starts, group)
