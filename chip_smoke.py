@@ -51,8 +51,9 @@ Phases, each of which raises on failure:
      synthetic batch, dropout on, with per-step times, peak memory, the
      teacher's snap (2 ``vq_nearest`` launches per step) held against its
      plain version at its N, the teacher unchanged; one step on the card
-     against the CPU; the ``train`` entry point as a subprocess on a small
-     corpus written here, then ``predict`` from its checkpoint;
+     against the CPU; the ``train`` entry point (its main, in process: 2
+     steps behind the feed's prefetcher, the teacher's 4 snaps counted) on a
+     small corpus written here, then ``predict`` from its checkpoint;
  13. serving at the full width of the CSMSC AM recipe (phase 5's seeded
      predictor, the fixture's autoencoder): a ``BatchingEngine`` (batch 4,
      text length 256, frame cap 512) warmed over its 13 shapes; one
@@ -79,9 +80,10 @@ Phases, each of which raises on failure:
      on the ECAPA encoder, pitch / energy and the prosody estimator; (c) ``NASynEmbFSTrainer`` at the predictor recipe's width,
      batch 64 (bucket 768), dropout on, (b)'s synthesizer as its teacher (2
      ``vq_nearest`` per step, held against plain at N = 12 288 and 49 152;
-     teacher unchanged); (d) both recipes through ``python -m
-     msmctts_tpu_torch.train`` on a corpus written here, and ``infer`` from
-     the synthesizer's checkpoint;
+     teacher unchanged); (d) both recipes through the train entry point
+     (``msmctts_tpu_torch.train.main``, behind the feed; the predictor's 2
+     steps count the teacher's 4 snaps) on a corpus written here, and
+     ``infer`` from the synthesizer's checkpoint, all in process;
  15. the ISTFT recipe (``examples/csmsc/configs/msmc_vq_gan_istft.yaml``) at
      full width and depth on seeded weights: (a) analysis-synthesis of a batch
      of 4 (bucket 512) with launches (2 ``vq_nearest``, 18
@@ -96,8 +98,9 @@ Phases, each of which raises on failure:
      one warmup and one GAN step from equal state against the CPU; (c)
      ``predict`` through the CSMSC AM recipe (seeded) over (b)'s autoencoder
      (4 ``vq_nearest``, 18 MRF launches), ``predict_stream`` refused; (d) the
-     recipe through ``python -m msmctts_tpu_torch.train`` (2 steps, into the
-     GAN phase) on a corpus written here, and ``infer`` from its checkpoint;
+     recipe through the train entry point (2 steps, into the GAN phase,
+     behind the feed; 4 ``vq_nearest_stats``) on a corpus written here, and
+     ``infer`` from its checkpoint (2 + 18 launches an utterance), in process;
  16. the int8 HiFi-GAN decoder on the trained fixture: (a) calibrated on the
      first batch it decodes; analysis-synthesis of a batch of 4 (bucket 512)
      against the fp32 decode (relative L2 below the JAX package's 0.05), 77
@@ -117,12 +120,13 @@ Phases, each of which raises on failure:
      memory, the fake-quant gap before and after, the fake-quant forward
      against the true int8 decode), one step card vs CPU, the written
      checkpoint through ``Int8Decoder`` (77 products bit-equal to plain,
-     relative L2 against fp32 beside the fixture's PTQ), then ``python -m
-     msmctts_tpu_torch.tools.qat_int8 --steps 4`` and ``infer --int8`` of its
-     output; (b) the AS-MCD sweep over the fixture and (a)'s checkpoint
-     against reference wavs that are the fixture's fp32 decode of the
-     corpus's mel: fp32 on the card (counted), ``--int8`` (``python -m``),
-     fp32 on the CPU (within 0.01 dB of the card); (c) ``debug_step`` and
+     relative L2 against fp32 beside the fixture's PTQ), then the QAT tool's
+     main with ``--steps 4`` and ``infer --int8`` of its output (2 + 77
+     launches an utterance), in process; (b) the AS-MCD sweep over the
+     fixture and (a)'s checkpoint against reference wavs that are the
+     fixture's fp32 decode of the corpus's mel: fp32 (counted) and
+     ``--int8`` on the card, fp32 on the CPU (within 0.01 dB of the card),
+     in process; (c) ``debug_step`` and
      ``infer --debug``: indices against the plain snap, embeddings, wavs
      against the CPU; (d) the CSMSC AE recipe through ``train`` at batch 16
      for 2 steps with ``eval_inteval_iters: 2`` and a recording writer:
@@ -144,14 +148,14 @@ Phases, each of which raises on failure:
      one GAN step (the recipe's UnivNet discriminator) from equal state
      against the CPU; (c) (b)'s checkpoint through ``python -m
      msmctts_tpu_torch.tools.strip_checkpoint --f16``, a seeded full-width
-     LJSpeech AM over it, ``synthesize --static-frames 512`` against
-     ``predict``, then ``tools.load_test --spawn`` driving ``python -m
+     LJSpeech AM over it, ``synthesize --static-frames 512`` (in process)
+     against ``predict``, then ``tools.load_test --spawn`` driving ``python -m
      msmctts_tpu_torch.serve`` at batch 8 with 1, 4 and 16 clients (24
      requests each, 8 streamed probes; no error, no cold shape, no kernel
      build); (d) ``python -m msmctts_tpu_torch.train --profile DIR`` for 15
      steps on a corpus written here, whose trace must name kernel 2; (e) a
      reference-named checkpoint of seeded modules through
-     ``tools.convert_torch_checkpoint`` and ``infer`` on the result against
+     ``tools.convert_torch_checkpoint`` and ``infer`` (in process) on the result against
      ``predict`` of the original modules;
  19. ``precision: bfloat16`` (the JAX package's policy: bf16-rounded weights,
      fp32 masters, codebooks and losses, every op in JAX's promoted dtype):
@@ -166,9 +170,9 @@ Phases, each of which raises on failure:
      for bf16: duration flips against fp32 with their rounding margins, then
      with fp32's durations the relative L2 against fp32's wav, 4 + 36
      launches, every snap and MRF layer of the call held against plain on
-     its inputs; ``python -m msmctts_tpu_torch.serve`` over that checkpoint
-     answering 4 requests (one streamed) against an in-process bf16 engine,
-     no cold shape, kernel build or error; (d) one bf16 step of each phase
+     its inputs; the daemon's engine (``serve.build_engine``) and HTTP
+     handler over that checkpoint, in process, answering 4 requests (one
+     streamed) against a bf16 engine, no cold shape, kernel build or error; (d) one bf16 step of each phase
      (AE warmup, AE GAN, AM) from equal state, card vs CPU;
  20. the model options no shipped recipe sets and the int8 decoder under
      bf16: (a) ``--int8`` under ``precision: bfloat16`` on the fixture:
@@ -187,10 +191,38 @@ Phases, each of which raises on failure:
      launches, held against plain); (c) the legacy ``TTS`` task with a
      stand-in acoustic model (the port's ``Encoder``): its autoencoder ending
      over the fixture and its vocoder ending (the CSMSC recipe's HiFi-GAN),
-     in process with launches and kernels against plain, then ``infer`` as a
-     subprocess against the in-process output;
- 21. one JSON line describing each kernel;
- 22. last line: {"ok": true, "device": {...}}.
+     in process with launches and kernels against plain, then ``infer``'s
+     main, in process, against the in-process output;
+ 21. the train feed and exported artifacts: (a) two synthetic corpora at the
+     CSMSC recipes' shapes written to a temporary directory (64 utterances of
+     221-400 frames with 24 kHz 16-bit PCM, 64 of 240-760 frames with phones
+     and durations); the AE (batch 16) and AM (batch 64) datasets read in
+     bulk by the native reader and file by file, in turns, and through the
+     recipe's DataLoader, in batches per second (the native reader must be
+     taken); ``train()`` of the AE recipe, 5 steps a run from one state,
+     with ``device_prefetch`` 2 / 0 and ``wire_compression`` true / false /
+     "full", in turns, with the loop time of each step, kernel 2 twice a
+     step (held against plain on the last step's inputs), and the runs on
+     the int16 wire against those without it (losses, codebook after step
+     5) within ``WIRE_NOISE_X`` times the spread of one setting's two runs;
+     (b)
+     phase 5's serving weights exported at batch 4, text buckets 64 / 128 and
+     512 frames for cuda (seconds per program), phase 5's batch through the
+     artifact in process (4 ``vq_nearest`` + 36 ``fused_resblock_layer``,
+     each held against plain) and in a fresh process that imports no model
+     module, both against ``predict`` at 512 static frames (frames equal,
+     wav within ``AS_TOL``); an ``--int8`` artifact (4 + 77 int8 products, no
+     MRF kernel, each product bit-equal to plain) against the int8
+     ``predict``; ``python -m msmctts_tpu_torch.serve --artifact`` answering
+     4 requests, each equal to an in-process engine on the artifact (no cold
+     shape, kernel build or error); ``predict`` warm with the wrappers'
+     direct launches against every wrapper through its ``msmctts::``
+     operator, in turns, and the host time of one ``vq_nearest`` call both
+     ways. ``--feed-ab`` runs only a longer A/B of the feed (phase 1, then
+     ``train()`` with the default feed, no prefetch, the loop's feed before
+     the prefetcher and prefetch without the wire, 12 steps a run, 4 turns);
+ 22. one JSON line describing each kernel;
+ 23. last line: {"ok": true, "device": {...}}.
 
 NCCL refuses two ranks on one device, so the two-rank phases use gloo, which
 moves CUDA tensors through host memory; the log names the backend. Their
@@ -1680,8 +1712,9 @@ def _write_am_corpus(d, n_symbols, n_utts=16, seed=5):
 
 
 def phase_am_entry_point(card):
-    """``python -m msmctts_tpu_torch.train`` on the AM recipe for 2 steps at
-    batch 8 on a corpus written here, then ``predict`` from its checkpoint."""
+    """The train entry point (``msmctts_tpu_torch.train.main``, in process) on
+    the AM recipe for 2 steps at batch 8 on a corpus written here, with the
+    teacher's snaps counted, then ``predict`` from its checkpoint."""
     import shutil
 
     import yaml
@@ -1702,16 +1735,29 @@ def phase_am_entry_point(card):
     cfg_path = os.path.join(SMOKE_DIR, "am_cli.yaml")
     with open(cfg_path, "w") as fh:
         yaml.safe_dump(cfg.to_dict(), fh)
-    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    from msmctts_tpu_torch import train
+
+    # in process (phase 18 runs the CLI's own process): the steps' teacher
+    # snaps behind the feed's prefetcher are counted
+    torch.cuda.synchronize()
+    _reset_counts()
     t0 = time.perf_counter()
-    res = subprocess.run([sys.executable, "-m", "msmctts_tpu_torch.train", "-c", cfg_path, "--max-steps", "2", "--log-every", "1"],
-                         cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    trainer = train.main(["-c", cfg_path, "--max-steps", "2", "--log-every", "1"])
+    torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    train_counts = _counts()
+    del trainer
+    torch.cuda.empty_cache()
     path = os.path.join(cfg["save_checkpoint_dir"], "model_2")
-    if res.returncode != 0 or "step 2" not in res.stdout or not os.path.exists(path):
-        raise AssertionError(f"the train entry point failed ({res.returncode}):\n{res.stdout[-4000:]}\n{res.stderr[-4000:]}")
-    last = [line for line in res.stdout.splitlines() if "step 2" in line][-1]
-    log(f"[12] train entry point, 2 AM steps at batch 8 ({wall:.1f}s with start-up and checkpoint): {last.strip()}")
+    logs = [f for f in os.listdir(cfg["save_checkpoint_dir"]) if f.endswith(".log")]
+    text = "".join(open(os.path.join(cfg["save_checkpoint_dir"], f)).read() for f in logs)
+    if "step 2" not in text or not os.path.exists(path):
+        raise AssertionError(f"the train entry point wrote no step 2 / model_2:\n{text[-4000:]}")
+    if train_counts != {"vq_nearest": 4, "vq_nearest_stats": 0, "fused_resblock_layer": 0}:
+        raise AssertionError(f"2 AM steps through train(): launches {train_counts}, expected the teacher's 2 snaps a step")
+    last = [line for line in text.splitlines() if "step 2" in line][-1]
+    log(f"[12] train entry point, in process, 2 AM steps at batch 8 ({wall:.1f}s with start-up and checkpoint; launches "
+        f"{train_counts}): {last.strip()}")
 
     ck = load_checkpoint(path)
     task = build_task(Config(ck["config"]), device="cuda")
@@ -1729,7 +1775,7 @@ def phase_am_entry_point(card):
         raise AssertionError(f"predict from the AM checkpoint: launches {counts}, expected 4 VQ and 36 resblock")
     log(f"[12] predict from {os.path.relpath(path, ROOT)} on {card} (durations given, frames {b['mel_length'].tolist()}): "
         f"wav {[w.shape[0] for w in out['wav']]} samples, launches {counts}")
-    return {"wall_s": wall, "last_line": last.strip(), "predict_launches": counts}
+    return {"wall_s": wall, "last_line": last.strip(), "predict_launches": counts, "train_launches": train_counts}
 
 
 # ------------------------------------------------------------- serving
@@ -2546,8 +2592,10 @@ def _write_qs_corpus(d, n_symbols, n_utts=12, seed=18):
 
 
 def phase_qs_entry_points(card):
-    """(d) Both recipes through ``python -m msmctts_tpu_torch.train`` on a
-    corpus written here, and the synthesizer through ``infer``."""
+    """(d) Both recipes through the train entry point and the synthesizer's
+    checkpoint through ``infer``, all in process (phase 18 runs ``train`` as
+    a process, phases 13 and 16 the daemon and ``infer``), on a corpus
+    written here."""
     import shutil
 
     import yaml
@@ -2557,16 +2605,6 @@ def phase_qs_entry_points(card):
     d = os.path.join(SMOKE_DIR, "qs_corpus")
     n_symbols = list(Config(PRED_YAML).task["predictor"]["n_symbols"])
     ids, frames = _write_qs_corpus(d, n_symbols)
-    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
-
-    def run(what, *args):
-        t0 = time.perf_counter()
-        res = subprocess.run([sys.executable, "-m", *args], cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
-        wall = time.perf_counter() - t0
-        if res.returncode != 0:
-            raise AssertionError(f"{what} failed ({res.returncode}):\n{res.stdout[-4000:]}\n{res.stderr[-4000:]}")
-        return res, wall
-
     syn = Config(SYN_YAML)
     syn["save_checkpoint_dir"] = os.path.join(SMOKE_DIR, "ckpt_qs_syn_cli")
     shutil.rmtree(syn["save_checkpoint_dir"], ignore_errors=True)
@@ -2576,12 +2614,18 @@ def phase_qs_entry_points(card):
     syn_path = os.path.join(SMOKE_DIR, "qs_syn_cli.yaml")
     with open(syn_path, "w") as fh:
         yaml.safe_dump(syn.to_dict(), fh)
-    res, wall = run("train (synthesizer recipe)", "msmctts_tpu_torch.train", "-c", syn_path, "--max-steps", "2", "--log-every", "1")
+    from msmctts_tpu_torch import train
+
+    t0 = time.perf_counter()  # in process: phase 18 runs the CLI's own process
+    train.main(["-c", syn_path, "--max-steps", "2", "--log-every", "1"])
+    wall = time.perf_counter() - t0
     syn_ckpt = os.path.join(syn["save_checkpoint_dir"], "model_2")
-    last = [line for line in res.stdout.splitlines() if "step 2" in line]
+    text = "".join(open(os.path.join(syn["save_checkpoint_dir"], f)).read()
+                   for f in os.listdir(syn["save_checkpoint_dir"]) if f.endswith(".log"))
+    last = [line for line in text.splitlines() if "step 2" in line]
     if not last or not os.path.exists(syn_ckpt):
-        raise AssertionError(f"the synthesizer recipe's train run wrote no model_2:\n{res.stdout[-3000:]}")
-    log(f"[14] train entry point, synthesizer recipe, 2 steps at batch 4 ({wall:.1f}s): {last[-1].strip()}")
+        raise AssertionError(f"the synthesizer recipe's train run wrote no model_2:\n{text[-3000:]}")
+    log(f"[14] train entry point, in process, synthesizer recipe, 2 steps at batch 4 ({wall:.1f}s): {last[-1].strip()}")
 
     test_list = os.path.join(SMOKE_DIR, "qs_test.yaml")
     with open(test_list, "w") as fh:
@@ -2589,14 +2633,19 @@ def phase_qs_entry_points(card):
                         for u in ids[:3]}, fh)
     out_dir = os.path.join(SMOKE_DIR, "qs_infer")
     shutil.rmtree(out_dir, ignore_errors=True)
-    res, infer_wall = run("infer (synthesizer)", "msmctts_tpu_torch.infer", "-m", syn_ckpt, "-t", test_list, "-o", out_dir)
     from scipy.io import wavfile
+
+    from msmctts_tpu_torch import infer
+
+    t0 = time.perf_counter()
+    infer.main(["-m", syn_ckpt, "-t", test_list, "-o", out_dir])  # in process: phase 13 runs the CLI's own process
+    infer_wall = time.perf_counter() - t0
 
     lengths = {u: wavfile.read(os.path.join(out_dir, f"{u}_wav.wav"))[1].shape[0] for u in ids[:3]}
     want = {u: int(n) * 200 for u, n in zip(ids[:3], frames[:3])}
     if lengths != want or len(set(lengths.values())) < 2:
         raise AssertionError(f"infer wrote wavs of {lengths} samples, expected {want}, distinct")
-    log(f"[14] infer entry point ({infer_wall:.1f}s): {res.stdout.strip().splitlines()[-1]}; wav samples {lengths}")
+    log(f"[14] infer entry point, in process ({infer_wall:.1f}s): wav samples {lengths}")
 
     pred = _qs_pred_config(syn_ckpt, os.path.join(SMOKE_DIR, "ckpt_qs_pred_cli"))
     shutil.rmtree(pred["save_checkpoint_dir"], ignore_errors=True)
@@ -2606,14 +2655,28 @@ def phase_qs_entry_points(card):
     pred_path = os.path.join(SMOKE_DIR, "qs_pred_cli.yaml")
     with open(pred_path, "w") as fh:
         yaml.safe_dump(pred.to_dict(), fh)
-    res, pred_wall = run("train (predictor recipe)", "msmctts_tpu_torch.train", "-c", pred_path, "--max-steps", "2", "--log-every", "1")
-    last_p = [line for line in res.stdout.splitlines() if "step 2" in line]
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    trainer = train.main(["-c", pred_path, "--max-steps", "2", "--log-every", "1"])
+    torch.cuda.synchronize()
+    pred_wall = time.perf_counter() - t0
+    pred_counts = _counts()
+    del trainer
+    torch.cuda.empty_cache()
+    text_p = "".join(open(os.path.join(pred["save_checkpoint_dir"], f)).read()
+                     for f in os.listdir(pred["save_checkpoint_dir"]) if f.endswith(".log"))
+    last_p = [line for line in text_p.splitlines() if "step 2" in line]
     if not last_p or not os.path.exists(os.path.join(pred["save_checkpoint_dir"], "model_2")):
-        raise AssertionError(f"the predictor recipe's train run wrote no model_2:\n{res.stdout[-3000:]}")
-    log(f"[14] train entry point, predictor recipe against that checkpoint, 2 steps at batch 8 ({pred_wall:.1f}s): "
-        f"{last_p[-1].strip()}")
+        raise AssertionError(f"the predictor recipe's train run wrote no model_2:\n{text_p[-3000:]}")
+    if pred_counts != {"vq_nearest": 4, "vq_nearest_stats": 0, "fused_resblock_layer": 0}:
+        raise AssertionError(f"2 QS predictor steps through train(): launches {pred_counts}, expected the teacher's 2 "
+                             f"snaps a step")
+    log(f"[14] train entry point, in process, predictor recipe against that checkpoint, 2 steps at batch 8 "
+        f"({pred_wall:.1f}s; launches {pred_counts}): {last_p[-1].strip()}")
     return {"train_wall_s": wall, "infer_wall_s": infer_wall, "predictor_train_wall_s": pred_wall,
-            "wav_samples": lengths, "last_lines": [last[-1].strip(), last_p[-1].strip()]}
+            "predictor_train_launches": pred_counts, "wav_samples": lengths,
+            "last_lines": [last[-1].strip(), last_p[-1].strip()]}
 
 
 def phase_qs_tts(gen, card, with_profile=False):
@@ -3007,12 +3070,17 @@ def _write_mel_corpus(d, n_utts=12, seed=17, frameshift=300, sr=24000):
 
 
 def phase_istft_entry_points(card):
-    """(d) ``python -m msmctts_tpu_torch.train`` on the ISTFT recipe for 2
-    steps (warmup, then GAN) over a corpus written here, then ``infer`` from
-    its checkpoint on 3 utterances."""
+    """(d) The train entry point (``msmctts_tpu_torch.train.main``, in
+    process: phase 18 runs it as a process) on the ISTFT recipe for 2 steps
+    (warmup, then GAN) behind the feed over a corpus written here, then
+    ``infer`` (in process) from its checkpoint on 3 utterances, each run's
+    launches counted."""
     import shutil
 
     import yaml
+    from scipy.io import wavfile
+
+    from msmctts_tpu_torch import infer, train
 
     d = os.path.join(SMOKE_DIR, "istft_corpus")
     ids, frames = _write_mel_corpus(d)
@@ -3024,36 +3092,46 @@ def phase_istft_entry_points(card):
     cfg_path = os.path.join(SMOKE_DIR, "istft_cli.yaml")
     with open(cfg_path, "w") as fh:
         yaml.safe_dump(cfg.to_dict(), fh)
-    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
-
-    def run(what, *args):
-        t0 = time.perf_counter()
-        res = subprocess.run([sys.executable, "-m", *args], cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
-        wall = time.perf_counter() - t0
-        if res.returncode != 0:
-            raise AssertionError(f"{what} failed ({res.returncode}):\n{res.stdout[-4000:]}\n{res.stderr[-4000:]}")
-        return res, wall
-
-    res, wall = run("train (ISTFT recipe)", "msmctts_tpu_torch.train", "-c", cfg_path, "--max-steps", "2", "--log-every", "1")
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    trainer = train.main(["-c", cfg_path, "--max-steps", "2", "--log-every", "1"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    train_counts = _counts()
+    del trainer
+    torch.cuda.empty_cache()
     ckpt = os.path.join(cfg["save_checkpoint_dir"], "model_2")
-    last = [line for line in res.stdout.splitlines() if "step 2" in line]
+    text = "".join(open(os.path.join(cfg["save_checkpoint_dir"], f)).read()
+                   for f in os.listdir(cfg["save_checkpoint_dir"]) if f.endswith(".log"))
+    last = [line for line in text.splitlines() if "step 2" in line]
     if not last or not os.path.exists(ckpt) or "d_loss" not in last[-1]:
-        raise AssertionError(f"the ISTFT recipe's train run wrote no GAN step 2 / model_2:\n{res.stdout[-3000:]}")
-    log(f"[15] train entry point, ISTFT recipe, 2 steps at batch 4 ({wall:.1f}s): {last[-1].strip()}")
+        raise AssertionError(f"the ISTFT recipe's train run wrote no GAN step 2 / model_2:\n{text[-3000:]}")
+    if train_counts["vq_nearest_stats"] != 4:
+        raise AssertionError(f"2 ISTFT steps through train(): launches {train_counts}, expected 2 statistics calls a step")
+    log(f"[15] train entry point, in process, ISTFT recipe, 2 steps at batch 4 ({wall:.1f}s; launches {train_counts}): "
+        f"{last[-1].strip()}")
     test_list = os.path.join(SMOKE_DIR, "istft_test.yaml")
     with open(test_list, "w") as fh:
         yaml.safe_dump({u: {"mel": os.path.join(d, "mel", f"{u}.npy")} for u in ids[:3]}, fh)
     out_dir = os.path.join(SMOKE_DIR, "istft_infer")
     shutil.rmtree(out_dir, ignore_errors=True)
-    res, infer_wall = run("infer (ISTFT)", "msmctts_tpu_torch.infer", "-m", ckpt, "-t", test_list, "-o", out_dir)
-    from scipy.io import wavfile
-
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    infer.main(["-m", ckpt, "-t", test_list, "-o", out_dir])
+    torch.cuda.synchronize()
+    infer_wall = time.perf_counter() - t0
+    infer_counts = _counts()
     lengths = {u: wavfile.read(os.path.join(out_dir, f"{u}_wav.wav"))[1].shape[0] for u in ids[:3]}
     want = {u: f * 300 for u, f in zip(ids[:3], frames[:3])}
-    if lengths != want:
-        raise AssertionError(f"infer wrote wavs of {lengths} samples, expected {want}")
-    log(f"[15] infer entry point ({infer_wall:.1f}s): {res.stdout.strip().splitlines()[-1]}; wav samples {lengths}")
-    return {"train_wall_s": wall, "infer_wall_s": infer_wall, "wav_samples": lengths, "last_line": last[-1].strip()}
+    want_counts = {"vq_nearest": 2 * 3, "vq_nearest_stats": 0, "fused_resblock_layer": 18 * 3}  # one utterance a batch
+    if lengths != want or infer_counts != want_counts:
+        raise AssertionError(f"infer wrote wavs of {lengths} samples (expected {want}), launches {infer_counts} "
+                             f"(expected {want_counts})")
+    log(f"[15] infer entry point, in process ({infer_wall:.1f}s): wav samples {lengths}, launches {infer_counts}")
+    return {"train_wall_s": wall, "infer_wall_s": infer_wall, "wav_samples": lengths, "last_line": last[-1].strip(),
+            "train_launches": train_counts, "infer_launches": infer_counts}
 
 
 def phase_istft(gen, card, with_profile=False):
@@ -3540,8 +3618,8 @@ def phase_qat(gen, card, corpus, with_profile=False):
     """(a) The tool's precompute on the card (kernels 1 and 5 held against
     plain at its shapes), QAT steps at the tool's defaults with a
     calibration refresh, one step card vs CPU, the written checkpoint served
-    through ``Int8Decoder``, then the tool and ``infer --int8`` as
-    subprocesses."""
+    through ``Int8Decoder``, then the tool and ``infer --int8`` of its
+    output, in process."""
     import shutil
 
     from msmctts_tpu_torch.config import Config
@@ -3708,37 +3786,54 @@ def phase_qat(gen, card, corpus, with_profile=False):
         raise AssertionError(f"QAT checkpoint int8: {len(calls)} products, differing {bad}, rel {rel['qat']}")
     del served
 
-    # the tool and infer --int8 as a user runs them
+    # the tool as a user runs it
     cli_out = os.path.join(QAT_DIR, "cli_qat")
-    res, tool_s = _subprocess("tools.qat_int8", "msmctts_tpu_torch.tools.qat_int8", "--ckpt", corpus["base"],
-                             "--id-list", corpus["lists"]["train"], "--steps", "4", "--out", cli_out)
-    line = json.loads(res.stdout.strip().splitlines()[-1])
+    from msmctts_tpu_torch.tools import qat_int8
+
+    t0 = time.perf_counter()  # the tool's main, in process
+    line = qat_int8.main(["--ckpt", corpus["base"], "--id-list", corpus["lists"]["train"], "--steps", "4",
+                          "--out", cli_out])
+    tool_s = time.perf_counter() - t0
     if line.get("out") != cli_out or line.get("steps") != 4 or not os.path.exists(cli_out):
         raise AssertionError(f"the QAT tool's last line {line}")
-    log(f"[17] python -m msmctts_tpu_torch.tools.qat_int8 --steps 4 ({tool_s:.1f}s): {json.dumps(line)}")
-    out_dir = os.path.join(QAT_DIR, "infer_int8")
-    shutil.rmtree(out_dir, ignore_errors=True)
-    res, inf_s = _subprocess("infer --int8", "msmctts_tpu_torch.infer", "-m", cli_out, "-t", corpus["lists"]["sweep"],
-                             "-o", out_dir, "--int8")
+    log(f"[17] the QAT tool, in process, --steps 4 ({tool_s:.1f}s): {json.dumps(line)}")
     from scipy.io import wavfile
 
+    from msmctts_tpu_torch import infer
+
+    out_dir = os.path.join(QAT_DIR, "infer_int8")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    torch.cuda.synchronize()
+    _reset_counts()
+    i8.LAUNCHES["int8_conv1d"] = 0
+    t0 = time.perf_counter()  # in process: phase 16 runs infer --int8 as its own process
+    infer.main(["-m", cli_out, "-t", corpus["lists"]["sweep"], "-o", out_dir, "--int8"])
+    torch.cuda.synchronize()
+    inf_s = time.perf_counter() - t0
+    inf_counts = {**_counts(), "int8_conv1d": i8.LAUNCHES["int8_conv1d"]}
+    want_counts = {"vq_nearest": 2 * SWEEP_UTTS, "vq_nearest_stats": 0, "fused_resblock_layer": 0,
+                   # one utterance a batch, and the first batch once more through the
+                   # dynamic int8 graph, whose activations calibrate the static scales
+                   "int8_conv1d": INT8_SITES * (SWEEP_UTTS + 1)}
     lengths_out = {u: wavfile.read(os.path.join(out_dir, f"{u}_wav.wav"))[1].shape[0] for u in corpus["ids"][:SWEEP_UTTS]}
     want_len = {u: f * hop for u, f in zip(corpus["ids"][:SWEEP_UTTS], corpus["frames"][:SWEEP_UTTS])}
-    if lengths_out != want_len:
-        raise AssertionError(f"infer --int8 of the QAT checkpoint wrote {lengths_out}, expected {want_len}")
-    log(f"[17] infer --int8 of the tool's checkpoint ({inf_s:.1f}s): {res.stdout.strip().splitlines()[-1]}")
+    if lengths_out != want_len or inf_counts != want_counts:
+        raise AssertionError(f"infer --int8 of the QAT checkpoint wrote {lengths_out} (expected {want_len}), "
+                             f"launches {inf_counts} (expected {want_counts})")
+    log(f"[17] infer --int8 of the tool's checkpoint, in process ({inf_s:.1f}s): wav samples {lengths_out}, "
+        f"launches {inf_counts}")
     return {"precompute_ms": pre_ms, "launches_precompute": pre_counts, "snap": snap_rows, "resblock": rb,
             "calibration_ms": calib_ms, "step_first_ms": step_ms[0], "step_warm_ms": warm, "step_ms": step_ms,
             "peak_gib": peak_gib, "gap": [gap0, gap1], "fq_vs_int8_rel": [fq0, fq1], "card_vs_cpu": {
                 "loss_rel": loss_rel, **upd}, "int8_rel_l2": rel, "checkpoint": out,
-            "tool_s": tool_s, "infer_int8_s": inf_s, "tool_line": line, "profile": profile}
+            "tool_s": tool_s, "tool_line": line, "infer_int8_s": inf_s, "infer_int8_launches": inf_counts,
+            "profile": profile}
 
 
 def phase_as_mcd(card, corpus):
-    """(b) The sweep over the fixture and the QAT checkpoint: fp32 on the card
-    (in process, counted), ``--int8`` on the card (``python -m``), fp32 on
-    the CPU; the reference wavs are the fixture's fp32 decode of each
-    utterance's mel."""
+    """(b) The sweep over the fixture and the QAT checkpoint: fp32 (counted)
+    and ``--int8`` on the card, fp32 on the CPU, all in process; the
+    reference wavs are the fixture's fp32 decode of each utterance's mel."""
     from msmctts_tpu_torch.config import Config
     from msmctts_tpu_torch.data.datasets import save_wav
     from msmctts_tpu_torch.data.loader import finite_loader
@@ -3769,13 +3864,14 @@ def phase_as_mcd(card, corpus):
     want = {"vq_nearest": 2 * n_batches, "vq_nearest_stats": 0, "fused_resblock_layer": 36 * n_batches}
     if counts != want:
         raise AssertionError(f"sweep launches {counts}, expected {want}")
-    res, int8_s = _subprocess("as_mcd_sweep --int8", "msmctts_tpu_torch.tools.as_mcd_sweep", *args, "--int8")
-    int8_line = json.loads(res.stdout.strip().splitlines()[-1])
+    t0 = time.perf_counter()
+    int8_line = as_mcd_sweep.main([*args, "--int8", "--device", "cuda"])
+    int8_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     cpu_line = as_mcd_sweep.main([*args, "--device", "cpu"])
     cpu_s = time.perf_counter() - t0
     log(f"[17] AS-MCD sweep, fp32 on the card ({card_s:.1f}s, launches {counts}): {json.dumps(card_line)}")
-    log(f"[17] AS-MCD sweep, --int8 on the card ({int8_s:.1f}s, python -m): {json.dumps(int8_line)}")
+    log(f"[17] AS-MCD sweep, --int8 on the card ({int8_s:.1f}s): {json.dumps(int8_line)}")
     log(f"[17] AS-MCD sweep, fp32 on the CPU ({cpu_s:.1f}s): {json.dumps(cpu_line)}")
     diff = {k: abs(card_line["snapshots"][k] - cpu_line["snapshots"][k]) for k in card_line["snapshots"]}
     if sorted(card_line["snapshots"]) != sorted(int8_line["snapshots"]) or len(diff) != 2 or max(diff.values()) > MCD_CPU_TOL:
@@ -4037,8 +4133,11 @@ def phase_lj_tools(card, ae_ckpt, seed=1234):
     rng = np.random.default_rng(seed)
     text = _lj_phones(rng, 64)  # ~330 frames: padded in the static bucket of 512
     wav_path = os.path.join(LJ_DIR, "synthesize_static.wav")
-    res, syn_s = _subprocess("synthesize --static-frames", "msmctts_tpu_torch.synthesize", "-m", am_path, "--text", text,
-                             "-o", wav_path, "--static-frames", str(LJ_STATIC_FRAMES))
+    from msmctts_tpu_torch import synthesize
+
+    t0 = time.perf_counter()  # in process: phase 5 runs the CLI's own process
+    synthesize.main(["-m", am_path, "--text", text, "-o", wav_path, "--static-frames", str(LJ_STATIC_FRAMES)])
+    syn_s = time.perf_counter() - t0
     sr, pcm = wavfile.read(wav_path)
     tokens = np.array([[int(t)] for t in text.split()])
     task.static_max_frames = LJ_STATIC_FRAMES
@@ -4049,8 +4148,8 @@ def phase_lj_tools(card, ae_ckpt, seed=1234):
     want_wav = want["wav"][0]
     _check_wavs([want_wav], want["mel_length"], LJ_HOP, "LJSpeech predict")
     err = float(np.abs(pcm / 32767.0 - want_wav).max()) if pcm.shape == want_wav.shape else float("inf")
-    log(f"[18] synthesize --static-frames {LJ_STATIC_FRAMES} ({syn_s:.1f}s): {res.stdout.strip().splitlines()[-1]}; "
-        f"{pcm.shape[0]} samples at {sr} Hz vs predict in process ({int(want['mel_length'][0])} frames, launches "
+    log(f"[18] synthesize --static-frames {LJ_STATIC_FRAMES}, in process ({syn_s:.1f}s): "
+        f"{pcm.shape[0]} samples at {sr} Hz vs predict ({int(want['mel_length'][0])} frames, launches "
         f"{counts}): max abs err {err:.3g}")
     if sr != LJ_SR or not err <= AS_TOL or counts != {"vq_nearest": 4, "vq_nearest_stats": 0, "fused_resblock_layer": 36}:
         raise AssertionError(f"synthesize --static-frames vs predict: sr {sr}, err {err}, launches {counts}")
@@ -4320,8 +4419,11 @@ def phase_lj_convert(card, seed=1234):
         yaml.safe_dump({u: {"text": t} for u, t in texts.items()}, fh)
     out_dir = os.path.join(LJ_DIR, "converted_infer")
     shutil.rmtree(out_dir, ignore_errors=True)
-    res, infer_s = _subprocess("infer (converted)", "msmctts_tpu_torch.infer", "-m", converted, "-t", test_list,
-                               "-o", out_dir)
+    from msmctts_tpu_torch import infer
+
+    t0 = time.perf_counter()  # in process: phases 13 and 16 run the CLI's own process
+    infer.main(["-m", converted, "-t", test_list, "-o", out_dir])
+    infer_s = time.perf_counter() - t0
     worst, frames = 0.0, {}
     for uid, t in texts.items():
         # padded to its text bucket, as the test list's loader pads it: the duration
@@ -4596,7 +4698,6 @@ class _Recorder:
 
 def phase_bf16_inference(card, am_path, reference):
     """(c) predict at batch 4 and a few daemon requests under bf16."""
-    import queue
     import threading
 
     from msmctts_tpu_torch.models import hifigan, predictor as predictor_mod, quantizer
@@ -4718,20 +4819,28 @@ def phase_bf16_inference(card, am_path, reference):
         alone = {t: eng.synthesize(t, timeout=SERVE_TIMEOUT_S) for t in texts}
     finally:
         eng.stop()
-    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    cmd = [sys.executable, "-m", "msmctts_tpu_torch.serve", "-m", bf16_path, "--port", "0", "--batch-size", str(SERVE_B),
-           "--max-frames", str(BF16_SERVE_FRAMES)]
+    # the daemon's engine and HTTP handler in this process (phases 13, 16 and 18
+    # run the daemon's own process): serve's build_engine over the bf16 checkpoint
+    import argparse
+    from http.server import ThreadingHTTPServer
+
+    from msmctts_tpu_torch import serve
+
     builds_before = cuda_build.build_count()
     t0 = time.perf_counter()
-    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    lines = queue.Queue()
-    threading.Thread(target=lambda: [lines.put(line) for line in proc.stdout], daemon=True).start()
+    args = argparse.Namespace(artifact=None, model=bf16_path, config=None, device="cuda", int8=False, static_frames=None,
+                              sample_rate=None, batch_size=SERVE_B, window_ms=15.0, max_frames=BF16_SERVE_FRAMES,
+                              max_queue=256, stream_chunk_frames=SERVE_CHUNK)
+    served = serve.build_engine(args).start(warmup={"text_lengths": None, "include_streaming": None})
+    ready = threading.Event()
+    ready.set()
+    server = ThreadingHTTPServer(("127.0.0.1", 0), serve.make_handler(served, ready, SERVE_TIMEOUT_S))
+    threading.Thread(target=server.serve_forever, daemon=True).start()
     try:
-        warm_line = _wait_for_line(lines, "warmup:", proc, SERVE_TIMEOUT_S, tag="[19]")
-        if not warm_line.rstrip().endswith("kernel builds 0)"):
-            raise AssertionError(f"the bf16 daemon built kernels at startup: {warm_line.rstrip()}")
-        port = int(_wait_for_line(lines, "serving on", proc, 60, tag="[19]").rsplit(":", 1)[1])
+        port = server.server_port
         ready_s = time.perf_counter() - t0
+        log(f"[19] bf16 engine: warmup ran {len(served._warm_shapes)} serving shapes in {served.warmup_s:.3f}s "
+            f"(streaming={'warm' if served._streaming_warm else 'off'}, kernel builds {cuda_build.build_count() - builds_before})")
         requests = [(t, False) for t in texts] + [(texts[-1], True)]
         results = [None] * len(requests)
 
@@ -4746,12 +4855,9 @@ def phase_bf16_inference(card, am_path, reference):
         status, data, _, _ = _http(port, "GET", "/stats")
         stats = json.loads(data)
     finally:
-        proc.terminate()
-        try:
-            proc.wait(30)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.wait(30)
+        server.shutdown()
+        server.server_close()
+        served.stop()
     served_err = 0.0
     for (t, stream), r in zip(requests, results):
         if r is None or r[0] != 200:
@@ -4764,7 +4870,7 @@ def phase_bf16_inference(card, am_path, reference):
         raise AssertionError(f"bf16 daemon: /stats {stats}, served vs in-process {served_err}")
     if cuda_build.build_count() != builds_before:
         raise AssertionError("this process built a kernel during the bf16 daemon's run")
-    log(f"[19] bf16 daemon ready in {ready_s:.1f}s: {len(requests)} requests (1 streamed), served vs in-process bf16 engine "
+    log(f"[19] bf16 daemon (in process) ready in {ready_s:.1f}s: {len(requests)} requests (1 streamed), served vs the bf16 engine "
         f"max abs err {served_err:.3g}; /stats cold_shapes {stats['cold_shapes']}, kernel_builds {stats['kernel_builds']}, "
         f"errors {stats['errors']}")
     del task, fp32
@@ -5141,8 +5247,9 @@ def _legacy_state(ending):
 def phase_legacy_tts(card):
     """(c) The legacy ``TTS`` task on the card, its autoencoder ending over
     the fixture and its vocoder ending (the CSMSC recipe's HiFi-GAN): in
-    process with launches and kernels held to plain, then ``infer`` as a
-    subprocess on a test list of mel files against the in-process output."""
+    process with launches and kernels held to plain, then ``infer``'s main
+    (in process: phase 16 runs infer as its own process) on a test list of
+    mel files against the in-process output."""
     from msmctts_tpu_torch.config import Config
     from msmctts_tpu_torch.models import hifigan, quantizer
     from msmctts_tpu_torch.tasks import build_task
@@ -5187,27 +5294,24 @@ def phase_legacy_tts(card):
         result[ending] = {"launches": counts, "snaps": snaps, "resblock_max_abs_err": rb_worst, "wav": out["wav"],
                           "out_dir": out_dir}
         del task
-    # both checkpoints through infer in one subprocess (one start-up)
-    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    code = ("import json, sys, chip_smoke; chip_smoke.register_legacy_am(); "
-            "from msmctts_tpu_torch.infer import main; [main(args) for args in json.loads(sys.argv[1])]")
+    # both checkpoints through infer's main, in process (phase 16 runs infer as its own process)
+    from msmctts_tpu_torch import infer
+
     t0 = time.perf_counter()
-    res = subprocess.run([sys.executable, "-c", code, json.dumps(runs)], cwd=ROOT, env=env, capture_output=True,
-                         text=True, timeout=600)
+    for args in runs:
+        infer.main(args)
     cli_s = time.perf_counter() - t0
-    if res.returncode != 0:
-        raise AssertionError(f"legacy TTS infer failed:\n{res.stdout[-4000:]}\n{res.stderr[-4000:]}")
     for ending, r in result.items():
         # each line alone in the CLI (batch 1, its own frame bucket) against the in-process batch's row
         out_dir, wavs = r.pop("out_dir"), r.pop("wav")
         r["cli_err"] = max(float(np.abs(np.load(os.path.join(out_dir, f"{name}_wav.npy")) - w).max())
                            for name, w in zip(names, wavs))
         log(f"[20] legacy TTS, {ending} ending: launches per batch of {len(names)} {r['launches']}; snaps vs plain "
-            f"{json.dumps(r['snaps'])}; MRF layers vs plain max abs err {r['resblock_max_abs_err']:.3g}; infer as a "
-            f"subprocess vs in process: max abs err {r['cli_err']:.3g}")
+            f"{json.dumps(r['snaps'])}; MRF layers vs plain max abs err {r['resblock_max_abs_err']:.3g}; infer "
+            f"vs the task's batch: max abs err {r['cli_err']:.3g}")
         if r["cli_err"] > AS_TOL:
             raise AssertionError(f"legacy TTS infer ({ending}) vs in process: {r['cli_err']}")
-    log(f"[20] legacy TTS: infer over both checkpoints as one subprocess on {card}: {cli_s:.1f} s")
+    log(f"[20] legacy TTS: infer over both checkpoints, in process, on {card}: {cli_s:.1f} s")
     result["cli_s"] = cli_s
     return result
 
@@ -5221,6 +5325,581 @@ def phase_options(card, reference):
     result["phase_s"] = time.perf_counter() - t0
     log(f"[20] options phase {result['phase_s']:.1f}s")
     return result
+
+
+# ------------------------------------------------ the train feed and export
+# Phase 21: the train feed (the native bulk reader, the wire format, the
+# device prefetcher) at the CSMSC recipes' shapes, through train(); then the
+# serving weights of phase 5 exported as torch.export programs, run in this
+# process, in a fresh one and behind ``serve --artifact``.
+FEED_UTTS = 64  # utterances of each synthetic corpus
+FEED_AE_FRAMES, FEED_AM_FRAMES = (221, 400), AM_LENGTHS  # frames per utterance: the AE and AM step's buckets 400 / 768
+FEED_STEPS = 5  # steps per train() run: 1 warmup, 4 GAN; the loop time of steps 3-5 is kept
+FEED_RUNS = ((2, True), (0, True), (2, False), (2, "full"))  # (device_prefetch, wire_compression)
+FEED_TURNS = 2
+# wire true vs false on 16-bit PCM (bit-equal inputs) against the spread of two
+# runs of one setting from the same state (the card's own run-to-run noise)
+WIRE_NOISE_X = 8
+# --feed-ab: the default feed against no prefetch and against the loop's feed
+# before it (to_device on the loop's thread), more steps and turns
+FEED_AB_RUNS = ((2, True), (0, True), ("to_device", False), (2, False))
+FEED_AB_STEPS, FEED_AB_TURNS = 12, 4
+LOADER_BATCHES = 6  # batches timed per loader and reading path
+EXPORT_B, EXPORT_BUCKETS, EXPORT_FRAMES = 4, (64, 128), 512
+
+
+def _write_feed_corpus(d, n_symbols, frames, with_wav, seed):
+    """FEED_UTTS utterances of ``frames`` frames: mel [T, 80], (``with_wav``)
+    16-bit PCM of T x 300 samples at 24 kHz, and phone / duration books of
+    24-96 phones whose durations sum to T. -> the list file."""
+    from msmctts_tpu_torch.data.datasets import save_wav
+
+    rng = np.random.default_rng(seed)
+    for sub in ("mel", "wav"):
+        os.makedirs(os.path.join(d, sub), exist_ok=True)
+    ids, phones, durs = [], [], []
+    for i in range(FEED_UTTS):
+        uid, f = f"feed{i:03d}", int(rng.integers(frames[0], frames[1] + 1))
+        n = int(rng.integers(AM_PHONES[0], AM_PHONES[1] + 1))
+        cuts = np.sort(rng.choice(np.arange(1, f), size=n - 1, replace=False))
+        dur = np.diff(np.concatenate([[0], cuts, [f]]))
+        np.save(os.path.join(d, "mel", f"{uid}.npy"), (rng.normal(size=(f, 80)) * 0.5).astype(np.float32))
+        if with_wav:
+            save_wav(os.path.join(d, "wav", f"{uid}.wav"), rng.normal(size=f * 300) * 0.1, 24000)
+        ids.append(uid)
+        phones.append(uid + "|" + " ".join("_".join(str(v) for v in row) for row in _text(rng, [n], n_symbols, n)[0]))
+        durs.append(uid + "|" + " ".join(str(int(v)) for v in dur))
+    for name, lines in (("train.list", ids), ("phone.txt", phones), ("dur.txt", durs)):
+        with open(os.path.join(d, name), "w") as fh:
+            fh.write("\n".join(lines) + "\n")
+    return os.path.join(d, "train.list")
+
+
+def _feed_configs(ae_dir, am_dir):
+    from msmctts_tpu_torch.config import Config
+
+    ae = _recipe_config(AE_YAML, warmup_steps=1)
+    ae.dataset["id_list"] = os.path.join(ae_dir, "train.list")
+    ae.dataset["feature_path"] = [os.path.join(ae_dir, "mel", "{}.npy"), os.path.join(ae_dir, "wav", "{}.wav")]
+    am = Config(AM_YAML)
+    am.dataset["id_list"] = os.path.join(am_dir, "train.list")
+    am.dataset["feature_path"] = [os.path.join(am_dir, "phone.txt"), os.path.join(am_dir, "dur.txt"),
+                                  os.path.join(am_dir, "mel", "{}.npy")]
+    return ae, am
+
+
+def _loader_rates(cfg, batch_size, tag):
+    """Batches per second of the recipe's dataset read in bulk by the native
+    reader (``parse_cases``) and file by file, in turns, and through the
+    recipe's DataLoader (its worker threads)."""
+    from msmctts_tpu_torch.data.loader import DataLoader
+    from msmctts_tpu_torch.training.base_trainer import build_dataset_from_config
+
+    cfg = type(cfg)(cfg.to_dict())
+    cfg.dataset["pre_load"] = False  # every batch from its files
+    ds = build_dataset_from_config(cfg, training=True)
+    chunks = [list(range(i * batch_size, (i + 1) * batch_size)) for i in range(LOADER_BATCHES)]
+    paths = {"native": lambda c: ds.parse_cases(c), "per_file": lambda c: [ds[i] for i in c]}
+    rates = {k: [] for k in paths}
+    frame_buckets = set()
+    for _ in range(2):
+        for name, read in paths.items():
+            t0 = time.perf_counter()
+            for c in chunks:
+                frame_buckets.add(ds.collate_fn(read(c))["mel"].shape[1])
+            rates[name].append(LOADER_BATCHES / (time.perf_counter() - t0))
+    workers = int(cfg.get("dataloader", {}).get("num_workers", 4))
+    t0 = time.perf_counter()  # from the start of its threads: its queue holds batches made ahead
+    it = iter(DataLoader(ds, batch_size=batch_size, num_workers=workers, seed=1234))
+    for _ in range(4 * LOADER_BATCHES):
+        next(it)
+    loader = 4 * LOADER_BATCHES / (time.perf_counter() - t0)
+    it.close()
+    row = {"batch": batch_size, "frame_buckets": sorted(frame_buckets), "native_per_s": rates["native"],
+           "per_file_per_s": rates["per_file"], "loader_per_s": loader, "workers": workers}
+    log(f"[21] {tag} loader, batch {batch_size} (frame buckets {sorted(frame_buckets)}): batches/s native "
+        f"{[round(r, 2) for r in rates['native']]}, per file {[round(r, 2) for r in rates['per_file']]} (in turns), "
+        f"the recipe's DataLoader with {workers} workers {loader:.2f} over its first {4 * LOADER_BATCHES}")
+    return row
+
+
+def _feed_trainer(cfg, prefetch, wire, save_dir):
+    """The AE recipe's trainer over the feed corpus with the two keys set
+    (``prefetch`` "to_device": the loop's feed before the prefetcher); its
+    checkpoint writes are left out. Every run starts from the same state:
+    ``_feed_run`` rewinds it."""
+    from msmctts_tpu_torch.config import component_kwargs
+    from msmctts_tpu_torch.registry import get_trainer
+    from msmctts_tpu_torch.tasks import build_task
+
+    cfg = type(cfg)(cfg.to_dict())
+    cfg["save_checkpoint_dir"] = save_dir
+    depth = 0 if prefetch == "to_device" else prefetch
+    cfg["dataloader"] = {**cfg["dataloader"], "wire_compression": wire, "device_prefetch": depth}
+    task = build_task(cfg, device="cuda", mode="train")
+    trainer = get_trainer(cfg.trainer["_name"])(cfg, task, **component_kwargs(cfg.trainer))
+    trainer.save = lambda: setattr(trainer, "_last_saved_iteration", trainer.iteration)
+    trainer.to_device_feed = prefetch == "to_device"
+    return trainer
+
+
+class _ToDeviceFeed:
+    """The loop's feed before the prefetcher: ``to_device(next(batches))``
+    on the loop's thread, no wire format."""
+
+    def __init__(self, it, device, mode=True, depth=2):
+        self._it, self.device = it, device
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        from msmctts_tpu_torch.data.loader import to_device
+
+        return to_device(next(self._it), self.device)
+
+    def close(self):
+        pass
+
+
+def _rewind(trainer):
+    """The state a fresh trainer starts train() from: train() re-initialises
+    the weights from the seed but carries the iteration, the optimizers'
+    moments and counts and the dropout / window generator on."""
+    trainer.iteration = 0
+    trainer.generator.manual_seed(trainer.seed)
+    for opt in trainer.optimizers.values():
+        opt.opt.state.clear()
+        opt.count = 0
+
+
+def _feed_run(trainer, steps=FEED_STEPS, record_stats=False):
+    """One train() of ``steps`` steps from the rewound state: the loop time of
+    each step (entry to entry, the last to train()'s return), its metrics,
+    the codebooks after each step, the kernels it launched."""
+    from msmctts_tpu_torch.models import quantizer
+    from msmctts_tpu_torch.training import base_trainer
+
+    _rewind(trainer)
+    step, starts, metrics, codebooks = trainer.train_step, [], [], []
+
+    def timed(batch, it, **kw):
+        starts.append(time.perf_counter())
+        out = step(batch, it, **kw)
+        metrics.append({k: float(v) for k, v in out.items()})
+        codebooks.append([q.embed.detach().clone() for q in trainer.ae.quantizer.quantizer])
+        return out
+
+    trainer.train_step = timed
+    rec = _Recorder(quantizer, "vq_nearest_stats_sharded") if record_stats else None
+    feed = base_trainer.DevicePrefetcher
+    if trainer.to_device_feed:
+        base_trainer.DevicePrefetcher = _ToDeviceFeed
+    torch.cuda.synchronize()
+    _reset_counts()
+    try:
+        if rec is not None:
+            with rec:
+                trainer.train(max_steps=steps, log_every=1)
+        else:
+            trainer.train(max_steps=steps, log_every=1)
+        torch.cuda.synchronize()
+    finally:
+        trainer.train_step = step
+        base_trainer.DevicePrefetcher = feed
+    starts.append(time.perf_counter())
+    loop_ms = [(b - a) * 1e3 for a, b in zip(starts, starts[1:])]
+    return {"loop_ms": loop_ms, "warm_ms": statistics.median(loop_ms[2:]), "metrics": metrics, "launches": _counts(),
+            "codebooks": codebooks, "stats_calls": rec.calls if rec is not None else []}
+
+
+def _hold_stats_calls(calls, what):
+    """Recorded ``vq_nearest_stats_sharded`` calls (x, embed, mask, group)
+    against the plain version on their inputs: idx, quant and counts exact,
+    sums within ``VQS_TOL``."""
+    from msmctts_tpu_torch.ops import vq
+
+    rows = []
+    for x, e, mask, _ in calls:
+        got, ref = vq.vq_nearest_stats(x, e, mask), vq.vq_nearest_stats_plain(x, e, mask)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got[:3], ref[:3])):
+            raise AssertionError(f"{what} N={x.shape[0]}: idx, quant or counts differ from the plain version")
+        err = float((got[3] - ref[3]).abs().max())
+        if not torch.allclose(got[3], ref[3], **VQS_TOL):
+            raise AssertionError(f"{what} N={x.shape[0]}: sums differ by {err}")
+        rows.append({"N": x.shape[0], "valid": int(mask.sum()), "sums_max_abs_err": err})
+    log(f"[21] {what}: kernel 2 vs plain on the path's inputs {json.dumps(rows)}")
+    return rows
+
+
+def phase_feed(card, tmp):
+    """(a) the feed: the native reader at the recipes' batches, then
+    train() in turns over device_prefetch and wire_compression."""
+    from msmctts_tpu_torch.data import native
+
+    ae_dir, am_dir = os.path.join(tmp, "ae_corpus"), os.path.join(tmp, "am_corpus")
+    n_symbols = list(_am_config().task["predictor"]["n_symbols"])
+    t0 = time.perf_counter()
+    _write_feed_corpus(ae_dir, n_symbols, FEED_AE_FRAMES, True, 21)
+    _write_feed_corpus(am_dir, n_symbols, FEED_AM_FRAMES, False, 22)
+    ae_cfg, am_cfg = _feed_configs(ae_dir, am_dir)
+    log(f"[21] feed corpora: {FEED_UTTS} utterances of {FEED_AE_FRAMES[0]}-{FEED_AE_FRAMES[1]} frames (mel 80, 24 kHz "
+        f"16-bit PCM) and {FEED_UTTS} of {FEED_AM_FRAMES[0]}-{FEED_AM_FRAMES[1]} frames (mel, phones, durations) "
+        f"written in {time.perf_counter() - t0:.1f}s")
+    before = native.batch_reads()
+    rates = {"ae": _loader_rates(ae_cfg, int(ae_cfg["dataloader"]["batch_size"]), "AE recipe"),
+             "am": _loader_rates(am_cfg, int(am_cfg["dataloader"]["batch_size"]), "AM recipe")}
+    if not native.native_available() or native.batch_reads() <= before:
+        raise AssertionError(f"the native reader was not taken (available {native.native_available()}, "
+                             f"batch reads {native.batch_reads() - before})")
+
+    runs = _feed_turns(ae_cfg, tmp, FEED_RUNS, FEED_STEPS, FEED_TURNS, record_stats=True)
+    stats = _hold_stats_calls(runs[FEED_RUNS[0]][0]["stats_calls"][-2:], "train() behind the feed, last step")
+    # PCM audio: the int16 wire carries the same waveform, so the runs differ by no
+    # more than two runs of one setting from the same state differ on this card
+    # (its run-to-run noise): every step's losses and the codebook after the last step
+    wire = _wire_vs_noise(runs)
+    full_rel = max(_loss_rel(a, b) for a, b in zip(runs[(2, "full")][0]["metrics"], runs[(2, False)][0]["metrics"]))
+    warm = {f"prefetch {p}, wire {w}": [round(r["warm_ms"], 1) for r in runs[(p, w)]] for p, w in FEED_RUNS}
+    log(f"[21] train() of the AE recipe at batch 16 on {card}, {FEED_STEPS} steps a run from one state ({FEED_TURNS} "
+        f"turns), warm loop ms of steps 3-{FEED_STEPS} per run: {json.dumps(warm)}; launches per run "
+        f"{runs[FEED_RUNS[0]][0]['launches']}; wire true vs false: losses {wire['diff_loss']:.3g} relative, codebook "
+        f"{wire['diff_codebook']:.3g} after step {FEED_STEPS}, against the spread of one setting's two runs "
+        f"{wire['noise_loss']:.3g} / {wire['noise_codebook']:.3g} (bound x{WIRE_NOISE_X}); full vs false "
+        f"{full_rel:.3g} relative (bf16 mel: not held)")
+    return {"loaders": rates, "warm_ms": warm, "loop_ms": {f"{p}/{w}": [r["loop_ms"] for r in runs[(p, w)]]
+                                                           for p, w in FEED_RUNS},
+            "wire_vs_off": wire, "full_vs_off_rel": full_rel, "stats": stats,
+            "launches_per_run": runs[FEED_RUNS[0]][0]["launches"], "native_batch_reads": native.batch_reads() - before}
+
+
+def _feed_turns(cfg, tmp, settings, steps, turns, record_stats=False):
+    """train() of each setting (device_prefetch, wire_compression) for
+    ``steps`` steps from one state, the settings in turns (reversed every
+    other turn); kernel 2 twice a step. -> {setting: [run per turn]}."""
+    trainers = {run: _feed_trainer(cfg, *run, os.path.join(tmp, f"ckpt_{run[0]}_{run[1]}")) for run in settings}
+    runs = {run: [] for run in settings}
+    for turn in range(turns):
+        for run in (settings if turn % 2 == 0 else settings[::-1]):
+            res = _feed_run(trainers[run], steps, record_stats=record_stats and turn == 0 and run == settings[0])
+            want = {"vq_nearest": 0, "vq_nearest_stats": 2 * steps, "fused_resblock_layer": 0}
+            if res["launches"] != want:
+                raise AssertionError(f"train() with device_prefetch {run[0]}, wire {run[1]}: launches {res['launches']}")
+            runs[run].append(res)
+    del trainers
+    torch.cuda.empty_cache()
+    return runs
+
+
+def _loss_rel(x, y):
+    return max(abs(x[k] - y[k]) / max(abs(y[k]), 1e-6) for k in y)
+
+
+def _codebook_diff(a, b):
+    """Max abs difference of two runs' codebooks after their last step."""
+    return max(float((p - q).abs().max()) for p, q in zip(a["codebooks"][-1], b["codebooks"][-1]))
+
+
+def _wire_vs_noise(runs):
+    """Wire true against false, turn by turn, held to ``WIRE_NOISE_X`` times
+    the spread between the two turns of each of them (the same setting from
+    the same state)."""
+    on, off = runs[(2, True)], runs[(2, False)]
+    loss = lambda a, b: max(_loss_rel(x, y) for x, y in zip(a["metrics"], b["metrics"]))
+    diff_loss = max(loss(a, b) for a, b in zip(on, off))
+    diff_cb = max(_codebook_diff(a, b) for a, b in zip(on, off))
+    noise_loss = max(loss(r[0], r[1]) for r in (on, off))
+    noise_cb = max(_codebook_diff(r[0], r[1]) for r in (on, off))
+    out = {"diff_loss": diff_loss, "diff_codebook": diff_cb, "noise_loss": noise_loss, "noise_codebook": noise_cb}
+    if diff_loss > WIRE_NOISE_X * noise_loss or diff_cb > WIRE_NOISE_X * noise_cb:
+        raise AssertionError(f"train() on the int16 wire vs off beyond {WIRE_NOISE_X}x the card's run-to-run spread: {out}")
+    return out
+
+
+def feed_ab(card):
+    """``--feed-ab``: warm AE steps through train() with the default feed
+    (prefetch 2, int16 wire), no prefetch, the loop's feed before the
+    prefetcher (to_device on the loop's thread) and prefetch without the
+    wire, FEED_AB_STEPS steps a run in FEED_AB_TURNS turns."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="msmctts_feed_ab_")
+    try:
+        d = os.path.join(tmp, "ae_corpus")
+        _write_feed_corpus(d, list(_am_config().task["predictor"]["n_symbols"]), FEED_AE_FRAMES, True, 21)
+        cfg = _feed_configs(d, d)[0]
+        runs = _feed_turns(cfg, tmp, FEED_AB_RUNS, FEED_AB_STEPS, FEED_AB_TURNS)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rows = {}
+    for p, w in FEED_AB_RUNS:
+        gan = [ms for r in runs[(p, w)] for ms in r["loop_ms"][2:]]  # GAN steps 3-12 of every run
+        rows[f"{p}/{w}"] = {"median_ms": statistics.median(gan), "per_turn_median_ms": [r["warm_ms"] for r in runs[(p, w)]],
+                            "steps": len(gan)}
+    log(f"[ab] train() of the AE recipe at batch 16 on {card}, {FEED_AB_STEPS} steps a run from one state, "
+        f"{FEED_AB_TURNS} turns: warm GAN loop ms {json.dumps(rows)}")
+    return rows
+
+
+def _export_holds(art, batch, what, int8=False):
+    """Run the artifact once on ``batch`` with every kernel launch recorded:
+    -> (outputs, launches, snap rows, MRF worst error, int8 products held)."""
+    from msmctts_tpu_torch.ops import int8_generator as i8, resblock as rb, vq
+
+    torch.cuda.synchronize()
+    _reset_counts()
+    i8.LAUNCHES["int8_conv1d"] = 0
+    with _Recorder(vq, "vq_nearest") as q_rec, _Recorder(rb, "fused_resblock_layer") as rb_rec, \
+            _Recorder(i8, "_int8_conv1d_im2col") as i8_rec:
+        wav, wav_length, mel_length = art.run(batch["text"], batch["text_length"])
+        torch.cuda.synchronize()
+    counts = {**_counts(), "int8_conv1d": i8.LAUNCHES["int8_conv1d"]}
+    want = {"vq_nearest": 4, "vq_nearest_stats": 0, "fused_resblock_layer": 0 if int8 else 36,
+            "int8_conv1d": INT8_SITES if int8 else 0}
+    if counts != want:
+        raise AssertionError(f"{what}: launches {counts}, expected {want}")
+    snaps, rb_worst = _hold_recorded(q_rec.calls, rb_rec.calls, what)
+    for n, (xq, w_q, padding, dilation) in enumerate(i8_rec.calls):
+        y, ref = i8.int8_conv1d(xq, w_q, padding, dilation), i8.int8_conv1d_plain(xq, w_q, padding, dilation)
+        if not torch.equal(y, ref):
+            raise AssertionError(f"{what}: int8 product {n} differs from the plain version")
+    return (wav, wav_length, mel_length), counts, snaps, rb_worst, len(i8_rec.calls)
+
+
+def _against_predict(wavs, mel_length, want, what):
+    """Durations (frame totals) equal and each wav within AS_TOL of ``want``'s."""
+    if not np.array_equal(np.asarray(mel_length), np.asarray(want["mel_length"])):
+        raise AssertionError(f"{what}: frames {np.asarray(mel_length).tolist()}, predict {want['mel_length'].tolist()}")
+    err = 0.0
+    for a, b in zip(wavs, want["wav"]):
+        if a.shape != b.shape:
+            raise AssertionError(f"{what}: {a.shape} samples, predict {b.shape}")
+        err = max(err, float(np.abs(a - b).max()))
+    if err > AS_TOL:
+        raise AssertionError(f"{what}: wav max abs err {err} against predict")
+    return err
+
+
+def phase_export(card, am_path, reference, tmp):
+    """(b) export of phase 5's serving weights and the artifacts' runs."""
+    import queue
+    import threading
+
+    from msmctts_tpu_torch.export import ExportedTTS, save_artifacts
+    from msmctts_tpu_torch.ops import cuda_build
+    from msmctts_tpu_torch.serving import BatchingEngine
+    from msmctts_tpu_torch.serve import pcm16
+
+    task = _load_tts_task(am_path, "cuda")
+    batch = reference["batch"]  # phase 5's batch: 24 / 57 / 96 / 128 phones in text bucket 128
+    art_dir, i8_dir = os.path.join(tmp, "artifact"), os.path.join(tmp, "artifact_int8")
+    m = save_artifacts(task, art_dir, EXPORT_B, EXPORT_BUCKETS, EXPORT_FRAMES, task.samplerate, platforms=("cuda",))
+    sizes = {n: os.path.getsize(os.path.join(art_dir, n)) / 1e6 for n in m["export_s"]}
+    log(f"[21] exported phase 5's serving weights at batch {EXPORT_B}, text buckets {list(EXPORT_BUCKETS)}, "
+        f"{EXPORT_FRAMES} frames for cuda: seconds per program {json.dumps({n: round(s, 1) for n, s in m['export_s'].items()})}, "
+        f"MB {json.dumps({n: round(s, 1) for n, s in sizes.items()})}")
+    task.static_max_frames = EXPORT_FRAMES
+    want = task.predict(batch)
+    task.static_max_frames = None
+
+    art = ExportedTTS(art_dir, "cuda")
+    t0 = time.perf_counter()
+    art.run(batch["text"], batch["text_length"])  # loads the bucket's program
+    torch.cuda.synchronize()
+    load_first_s = time.perf_counter() - t0
+    (wav, wav_length, mel_length), counts, snaps, rb_worst, _ = _export_holds(art, batch, "the fp32 artifact")
+    wav, wav_length = wav.cpu().numpy(), wav_length.cpu().numpy()
+    err = _against_predict([w[:n] for w, n in zip(wav, wav_length)], mel_length.cpu().numpy(), want,
+                           "the fp32 artifact in process")
+    warm = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        art.run(batch["text"], batch["text_length"])
+        torch.cuda.synchronize()
+        warm.append((time.perf_counter() - t0) * 1e3)
+    log(f"[21] the fp32 artifact in process, phase 5's batch (bucket {batch['text'].shape[1]}): launches {counts}; "
+        f"snaps vs plain {json.dumps(snaps)}; 36 MRF layers vs plain max abs err {rb_worst:.3g}; frames equal to "
+        f"predict at {EXPORT_FRAMES} static frames, wav max abs err {err:.3g}; load + first run {load_first_s:.1f}s, warm "
+        f"median {statistics.median(warm):.1f} ms (runs {[round(w, 1) for w in warm]})")
+
+    # the int8 artifact: calibrated on phase 5's batch, then frozen
+    task.int8_decoder = True
+    task.static_max_frames = EXPORT_FRAMES
+    want8 = task.predict(batch)  # calibrates the scales
+    m8 = save_artifacts(task, i8_dir, EXPORT_B, EXPORT_BUCKETS[-1:], EXPORT_FRAMES, task.samplerate, platforms=("cuda",),
+                        int8=True)
+    task.int8_decoder = False
+    task.static_max_frames = None
+    art8 = ExportedTTS(i8_dir, "cuda")
+    art8.run(batch["text"], batch["text_length"])
+    (wav8, len8, mel8), counts8, snaps8, _, n_products = _export_holds(art8, batch, "the int8 artifact", int8=True)
+    wav8, len8 = wav8.cpu().numpy(), len8.cpu().numpy()
+    err8 = _against_predict([w[:n] for w, n in zip(wav8, len8)], mel8.cpu().numpy(), want8, "the int8 artifact")
+    log(f"[21] the int8 artifact (exported in {json.dumps({n: round(s, 1) for n, s in m8['export_s'].items()})}s): "
+        f"launches {counts8}; {n_products} int8 products bit-equal to plain; snaps vs plain {json.dumps(snaps8)}; "
+        f"frames equal to the int8 predict, wav max abs err {err8:.3g}")
+    del art8
+
+    # one fresh process: the artifact alone (phase 5's batch, no model module
+    # imported), then serve --artifact's main over the same programs, against
+    # an in-process engine on them
+    rng = np.random.default_rng(21)
+    n_symbols = list(task.networks["predictor"].n_symbols)
+    texts = [_phone_string(_text(rng, [int(n)], n_symbols, int(n))[0]) for n in (24, 57, 96, 128)]
+    eng = BatchingEngine(art, sample_rate=art.sample_rate, batch_size=art.batch_size, window_ms=0.0,
+                         text_buckets=art.buckets)
+    eng.start(warmup={})
+    try:
+        alone = {t: eng.synthesize(t, timeout=SERVE_TIMEOUT_S) for t in texts}
+    finally:
+        eng.stop()
+    np.savez(os.path.join(tmp, "batch.npz"), text=batch["text"], text_length=batch["text_length"])
+    code = ("import sys, json, numpy as np\n"
+            "from msmctts_tpu_torch.export import ExportedTTS\n"
+            "tmp = sys.argv[1]\n"
+            "b = np.load(tmp + '/batch.npz')\n"
+            "out = ExportedTTS(tmp + '/artifact').run(b['text'], b['text_length'])\n"
+            "wav, wav_length, mel_length = (t.cpu().numpy() for t in out)\n"
+            "np.savez(tmp + '/fresh.npz', wav=wav, wav_length=wav_length, mel_length=mel_length)\n"
+            "models = sorted(m for m in sys.modules if m.startswith('msmctts_tpu_torch.models'))\n"
+            "print('fresh ' + json.dumps({'models': models}), flush=True)\n"
+            "from msmctts_tpu_torch import serve\n"
+            "serve.main(['--artifact', tmp + '/artifact', '--port', '0', '--window-ms', '0'])\n")
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    builds_before = cuda_build.build_count()
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-c", code, tmp], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    lines = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(line) for line in proc.stdout], daemon=True).start()
+    try:
+        models = json.loads(_wait_for_line(lines, "fresh ", proc, SERVE_TIMEOUT_S, tag="[21]")[len("fresh "):])["models"]
+        fresh_s = time.perf_counter() - t0
+        warm_line = _wait_for_line(lines, "warmup:", proc, SERVE_TIMEOUT_S, tag="[21]")
+        port = int(_wait_for_line(lines, "serving on", proc, 60, tag="[21]").rsplit(":", 1)[1])
+        ready_s = time.perf_counter() - t0
+        results = [_http(port, "POST", "/synthesize", {"text": t}) for t in texts]
+        _, data, _, _ = _http(port, "GET", "/stats")
+        stats = json.loads(data)
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(30)
+    fresh = np.load(os.path.join(tmp, "fresh.npz"))
+    fresh_err = _against_predict([w[:n] for w, n in zip(fresh["wav"], fresh["wav_length"])], fresh["mel_length"], want,
+                                 "the fp32 artifact in a fresh process")
+    if models:
+        raise AssertionError(f"the fresh process imported model modules: {models}")
+    log(f"[21] the fp32 artifact in a fresh process ({fresh_s:.1f}s to its result): no model module imported, frames "
+        f"equal to predict, wav max abs err {fresh_err:.3g}")
+    served_lsb = 0
+    for t, r in zip(texts, results):
+        if r[0] != 200:
+            raise AssertionError(f"serve --artifact: {len(t.split())} phones answered {r[0]}: {r[1][:200]!r}")
+        got = _pcm(r[1], False).astype(np.int32)
+        ref = np.frombuffer(pcm16(alone[t]), "<i2").astype(np.int32)
+        if got.shape != ref.shape:
+            raise AssertionError(f"serve --artifact: {got.shape} samples, in process {ref.shape}")
+        served_lsb = max(served_lsb, int(np.abs(got - ref).max()))
+    if (stats["cold_shapes"], stats["kernel_builds"], stats["errors"]) != (0, 0, 0) or served_lsb > 1 \
+            or not warm_line.rstrip().endswith("kernel builds 0)") or cuda_build.build_count() != builds_before:
+        raise AssertionError(f"serve --artifact: /stats {stats}, served vs in process {served_lsb} LSB, {warm_line!r}")
+    log(f"[21] serve --artifact (its main, in that process) ready {ready_s:.1f}s after the start ({warm_line.strip()}); "
+        f"{len(texts)} requests of "
+        f"{[len(t.split()) for t in texts]} phones, each equal to the in-process engine on the artifact within "
+        f"{served_lsb} LSB; /stats cold_shapes {stats['cold_shapes']}, kernel_builds {stats['kernel_builds']}, "
+        f"errors {stats['errors']}")
+
+    # the eager path's direct launches against every wrapper of predict going
+    # through its msmctts:: operator (the exported programs' route), in turns:
+    # predict at phase 5's batch, then the host cost per call of the snap alone
+    ab = _operator_ab(task, batch, card)
+    del art, task
+    return {"export_s": m["export_s"], "export_mb": sizes, "launches": counts, "snaps": snaps, "resblock_max_abs_err": rb_worst,
+            "wav_err": err, "fresh_wav_err": fresh_err, "fresh_s": fresh_s, "warm_ms": statistics.median(warm),
+            "load_first_s": load_first_s, "int8": {"export_s": m8["export_s"], "launches": counts8, "snaps": snaps8,
+                                                   "products": n_products, "wav_err": err8},
+            "daemon": {"ready_s": ready_s, "served_lsb": served_lsb, "stats": stats},
+            "operator_ab": ab}
+
+
+def _operator_ab(task, batch, card, turns=6, runs=3, calls=400):
+    """``predict`` with the wrappers as shipped (a direct launch) against
+    every wrapper it calls (4 snaps, 36 MRF layers) routed through its
+    ``msmctts::`` operator, in turns; then ``vq_nearest`` alone at N = 512
+    (a 10 us kernel, so the wall per call is the host's) both ways."""
+    from msmctts_tpu_torch.models import hifigan, predictor as predictor_mod, quantizer
+    from msmctts_tpu_torch.ops import vq
+
+    ops = torch.ops.msmctts
+    routes = {"direct": {}, "operator": {
+        (hifigan, "fused_resblock_layer"): lambda x, w1, b1, w2, b2, d, prepared=None: ops.fused_resblock_layer(
+            x, w1, b1, w2, b2, d, prepared),
+        (predictor_mod, "vq_nearest_sharded"): lambda x, e: ops.vq_nearest(x, e),
+        (quantizer, "vq_nearest_sharded"): lambda x, e: ops.vq_nearest(x, e)}}
+    shipped = {key: getattr(*key) for key in routes["operator"]}
+    times = {name: [] for name in routes}
+    try:
+        for turn in range(turns):
+            name = "direct" if turn % 2 == 0 else "operator"
+            for (mod, attr), fn in shipped.items():
+                setattr(mod, attr, routes[name].get((mod, attr), fn))
+            _reset_counts()
+            for _ in range(runs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                task.predict(batch)
+                torch.cuda.synchronize()
+                times[name].append((time.perf_counter() - t0) * 1e3)
+            counts = _counts()
+            if counts != {"vq_nearest": 4 * runs, "vq_nearest_stats": 0, "fused_resblock_layer": 36 * runs}:
+                raise AssertionError(f"predict through the {name} route: launches {counts}")
+    finally:
+        for (mod, attr), fn in shipped.items():
+            setattr(mod, attr, fn)
+    x = torch.randn(512, VQ_H, VQ_D, device="cuda")
+    e = torch.randn(VQ_H, VQ_D, VQ_K, device="cuda")
+    per_call = {"direct": [], "operator": []}
+    for turn in range(turns):
+        name = "direct" if turn % 2 == 0 else "operator"
+        fn = vq.vq_nearest if name == "direct" else ops.vq_nearest
+        fn(x, e)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn(x, e)
+        torch.cuda.synchronize()
+        per_call[name].append((time.perf_counter() - t0) / calls * 1e6)
+    med = {k: statistics.median(v) for k, v in times.items()}
+    us = {k: statistics.median(v) for k, v in per_call.items()}
+    log(f"[21] predict warm on {card}, phase 5's batch, in turns: wrappers launching directly {med['direct']:.1f} ms, "
+        f"through their msmctts:: operators {med['operator']:.1f} ms (runs "
+        f"{json.dumps({k: [round(t, 1) for t in v] for k, v in times.items()})}); vq_nearest at N = 512, wall per call "
+        f"over {calls} back-to-back calls: direct {us['direct']:.1f} us, operator {us['operator']:.1f} us (turns "
+        f"{json.dumps({k: [round(t, 1) for t in v] for k, v in per_call.items()})})")
+    return {"predict_ms": times, "predict_median_ms": med, "vq_call_us": per_call, "vq_call_median_us": us}
+
+
+def phase_feed_and_export(card, am_path, reference):
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="msmctts_phase21_")
+    try:
+        t0 = time.perf_counter()
+        feed = phase_feed(card, tmp)
+        t1 = time.perf_counter()
+        export = phase_export(card, am_path, reference, tmp)
+        log(f"[21] feed {t1 - t0:.1f}s, export {time.perf_counter() - t1:.1f}s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"feed": feed, "export": export}
 
 
 def _device_rows(prof):
@@ -5269,6 +5948,10 @@ def main(argv=None):
                     help="also profile one predict, one GAN step, one AM step, a streamed batch, phase 14's "
                          "analysis-synthesis, GAN step and predictor step, phase 15's analysis-synthesis and GAN step, "
                          "phase 16's int8 decode and phase 17's QAT step, and write every measurement to this JSON file")
+    ap.add_argument("--feed-ab", action="store_true",
+                    help="run only the feed's A/B: warm AE steps through train() with the default feed, no "
+                         "prefetch, the loop's feed before the prefetcher and prefetch without the wire, in turns "
+                         "(no kernel line, no last line)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on a GPU", file=sys.stderr)
@@ -5287,6 +5970,10 @@ def main(argv=None):
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     env = timed("1", phase_environment)
+    if args.feed_ab:
+        feed_ab(env["nvidia_smi"])
+        log(f"[end] wall {time.perf_counter() - t_start:.1f}s on {env['nvidia_smi']}")
+        return 0
     build = timed("2", phase_build)
     vq_res = timed("3", phase_vq, gen)
     vqs_res = timed("3", phase_vq_stats, gen)
@@ -5318,6 +6005,8 @@ def main(argv=None):
     lj = timed("18", phase_ljspeech, gen, env["nvidia_smi"])
     bf16 = timed("19", phase_bf16, env["nvidia_smi"], tts_ref["am_path"], tts_ref)
     opts = timed("20", phase_options, env["nvidia_smi"], tts_ref)
+    fx = timed("21", phase_feed_and_export, env["nvidia_smi"], tts_ref["am_path"], tts_ref)
+    fx_feed, fx_exp = fx["feed"], fx["export"]
     bf_vq, bf_am, bf_inf = bf16["vqgan"], bf16["am"], bf16["inference"]
     o_i8, o_tr, o_tts = opts["int8_bf16"], opts["training"], opts["legacy_tts"]
     lj_as, lj_tr, lj_tools, lj_daemon = lj["analysis_synthesis"], lj["training"], lj["tools"], lj["daemon"]
@@ -5385,6 +6074,13 @@ def main(argv=None):
             "options": {"int8_bf16": o_i8["snaps"] + o_i8["predict_snaps"],
                         **{m: o_tr["modes"][m]["snaps"] for m in o_tr["modes"]},
                         "legacy_tts": o_tts["autoencoder"]["snaps"]},
+            # phase 21: phase 5's batch through the exported programs (fp32 and int8, B=4, text bucket
+            # 128, 512 frames), every launch through the msmctts::vq_nearest operator, held against plain
+            "launches_export": {"fp32_artifact_batch": fx_exp["launches"]["vq_nearest"],
+                                "int8_artifact_batch": fx_exp["int8"]["launches"]["vq_nearest"]},
+            # phase 12's train entry point: 2 AM steps behind the feed's prefetcher, the teacher's snaps
+            "launches_feed": {"am_train_2_steps": am_cli["train_launches"]["vq_nearest"]},
+            "export": {"fp32": fx_exp["snaps"], "int8": fx_exp["int8"]["snaps"]},
         },
         {
             "name": "vq_nearest_stats", "route": "cuda", "source": "msmctts_tpu_torch/csrc/vq_stats.cu",
@@ -5419,6 +6115,11 @@ def main(argv=None):
             "launches_options": o_tr["training"]["launches_per_step"]["vq_nearest_stats"],
             "options": [{k: r[k] for k in ("N", "valid", "device_ms", "ms", "plain_ms", "bound_ms", "sums_max_abs_err")}
                         for r in o_tr["training"]["stats"]],
+            # phase 21: the AE recipe's steps through train() behind the prefetcher and the wire format
+            # (batch 16 from the feed corpus, 1 warmup + 4 GAN steps a run), the last step's two calls
+            # against plain on their inputs
+            "launches_feed": fx_feed["launches_per_run"]["vq_nearest_stats"],
+            "feed": fx_feed["stats"],
         },
         {
             "name": "vq_nearest_stats_sharded", "route": "cuda", "source": "msmctts_tpu_torch/csrc/vq_stats.cu",
@@ -5515,6 +6216,11 @@ def main(argv=None):
                                     for e in ("autoencoder", "vocoder")}},
             "options": {"max_abs_err": max([o_tr["modes"][m]["resblock_max_abs_err"] for m in o_tr["modes"]]
                                            + [o_tts[e]["resblock_max_abs_err"] for e in ("autoencoder", "vocoder")])},
+            # phase 21: the 36 layers of the fp32 artifact's decode (B=4, 512 frames) through the
+            # msmctts::fused_resblock_layer operator; none in the int8 artifact
+            "launches_export": {"fp32_artifact_batch": fx_exp["launches"]["fused_resblock_layer"],
+                                "int8_artifact_batch": fx_exp["int8"]["launches"]["fused_resblock_layer"]},
+            "export": {"max_abs_err": fx_exp["resblock_max_abs_err"]},
             "tolerance": {**RB_TOL, "max_abs": RB_MAX_ABS},
             "shapes": f"per decode: the 36 CSMSC MRF layers at B={B}, {FRAMES} frames; bound_ms counts the kernel's operations, "
                       "three TF32 tensor-core products per fp32 product at 495 TFLOP/s; bound_fp32_ms the same products as "
@@ -5533,7 +6239,7 @@ def main(argv=None):
                        "sharded_kernels": shard_res, "nccl_world_1": nccl_res, "dp_training": dp_train,
                        "dp_inference": dp_infer, "am_training": am_res, "am_step_card_vs_cpu": am_cpu,
                        "am_entry_point": am_cli, "serving": serving, "qs_tts": qs, "istft": istft, "int8": int8,
-                       "quality_tools": tools, "ljspeech": lj, "bf16": bf16, "options": opts,
+                       "quality_tools": tools, "ljspeech": lj, "bf16": bf16, "options": opts, "feed_export": fx,
                        "phase_s": spent, "wall_s": time.perf_counter() - t_start}, f, indent=1)
     log(f"[end] seconds per phase {json.dumps(spent)}")
     log(f"[end] wall {time.perf_counter() - t_start:.1f}s on {env['nvidia_smi']}")

@@ -6,8 +6,10 @@
 the same YAML contract (parallel ``feature`` / ``dimension`` / ``frameshift``
 / ``padding_value`` lists, ``feature_path`` templates, book files, test-list
 YAMLs, ``feature_stat`` normalization, random segment cropping) and the same
-seeded order, so both stacks see the same batches. Files are read with
-numpy and scipy; the JAX package's native bulk reader is not ported.
+seeded order, so both stacks see the same batches. ``parse_cases`` reads
+every plain .npy / .wav file of a batch in one call of the native reader
+(``data/native.py``); the rest, and every file where that reader is not
+available, is read with numpy and scipy.
 
 Every batch is padded up to a bucket boundary from a fixed ladder, so the
 set of distinct shapes the device sees stays small. Every frame bucket is a
@@ -274,7 +276,51 @@ class BaseDataset:
     def __getitem__(self, index):
         return self.parse_case(index % len(self.id_list))
 
-    def parse_case(self, index):
+    def parse_cases(self, indices):
+        """The cases of a batch, every plain .npy / .wav file of them read in
+        one GIL-free call of the native reader (``native.read_batch``), the
+        loader's collate path (``msmctts_tpu/data/datasets.py:297-338``).
+        Zip members, .pt, .dat and inline strings keep the per-file path, as
+        does every file of a batch the native parser rejects; without the
+        native reader every file does."""
+        from msmctts_tpu_torch.data import native
+
+        preloaded = None
+        if native.native_available():
+            paths, kinds, seen = [], [], set()
+            for index in indices:
+                case_id = self.id_list[index % len(self.id_list)]
+                for feat in self.feature:
+                    v = self.dataset.get((case_id, feat))
+                    if not isinstance(v, str) or v in seen:
+                        continue
+                    ext = os.path.splitext(v)[-1]
+                    if ext not in (".npy", ".wav") or not os.path.isfile(v):
+                        continue
+                    seen.add(v)
+                    paths.append(v)
+                    kinds.append(0 if ext == ".npy" else 1)
+            if paths:
+                try:
+                    arrays, srs = native.read_batch(paths, kinds)
+                except IOError:  # e.g. an npy the C++ parser rejects: this batch reads file by file
+                    arrays = None
+                if arrays is not None:
+                    preloaded = {}
+                    for p, k, a, sr in zip(paths, kinds, arrays, srs):
+                        if k == 1:
+                            if self.samplerate and sr != self.samplerate:
+                                raise ValueError(f"sample rate mismatch: file {sr} != config {self.samplerate}")
+                            a = a[:, None]
+                        preloaded[p] = a
+        return [self.parse_case(i % len(self.id_list), preloaded) for i in indices]
+
+    def _load_path(self, path, dimension, preloaded):
+        if preloaded is not None and path in preloaded:
+            return preloaded[path]
+        return self.parse_file(path, dimension)
+
+    def parse_case(self, index, preloaded=None):
         case_id = self.id_list[index]
         data = {
             feat: self.dataset[(case_id, feat)]
@@ -289,7 +335,7 @@ class BaseDataset:
             coarsest = max(self.frameshift, key=self.frameshift.get)
             item = data[coarsest]
             if isinstance(item, str):
-                item = self.parse_file(item, self.dimension.get(coarsest))
+                item = self._load_path(item, self.dimension.get(coarsest), preloaded)
                 data[coarsest] = item
             n_frames = item.shape[0]
             max_start = max(0, n_frames - int(np.ceil(dur / self.frameshift[coarsest])))
@@ -302,7 +348,7 @@ class BaseDataset:
                 length = int(dur / self.frameshift[key]) if dur > 0 else -1
             if isinstance(feature, str):
                 feature = (
-                    self.parse_file(feature, self.dimension.get(key))
+                    self._load_path(feature, self.dimension.get(key), preloaded)
                     if os.path.isfile(feature.split(":")[0])
                     else self.parse_string(feature, self.dimension.get(key))
                 )
@@ -333,8 +379,8 @@ class MelDataset(BaseDataset):
 
     frame_buckets = FRAME_BUCKETS
 
-    def parse_case(self, index):
-        data = super().parse_case(index)
+    def parse_case(self, index, preloaded=None):
+        data = super().parse_case(index, preloaded)
         return align_features(data, self.frameshift)
 
     def collate_fn(self, batch):
@@ -372,8 +418,8 @@ class EmbDataset(BaseDataset):
 
     frame_buckets = FRAME_BUCKETS
 
-    def parse_case(self, index):
-        data = super().parse_case(index)
+    def parse_case(self, index, preloaded=None):
+        data = super().parse_case(index, preloaded)
         return align_features(data, self.frameshift)
 
     def collate_fn(self, batch):
@@ -418,8 +464,8 @@ class TTSDataset(BaseDataset):
     frame_buckets = FRAME_BUCKETS
     text_buckets = TEXT_BUCKETS
 
-    def parse_case(self, index):
-        data = super().parse_case(index)
+    def parse_case(self, index, preloaded=None):
+        data = super().parse_case(index, preloaded)
         data = align_features(data, self.frameshift)
 
         text = data["text"]

@@ -64,7 +64,11 @@ class DataLoader:
             self.epoch += 1
 
     def _make_batch(self, idx_chunk):
-        return self.dataset.collate_fn([self.dataset[i] for i in idx_chunk])
+        if hasattr(self.dataset, "parse_cases"):  # one native read per batch (data/native.py)
+            cases = self.dataset.parse_cases(idx_chunk)
+        else:
+            cases = [self.dataset[i] for i in idx_chunk]
+        return self.dataset.collate_fn(cases)
 
     def __iter__(self):
         if self.num_workers == 0:
@@ -118,17 +122,20 @@ class DataLoader:
             stop.set()
 
 
+def host_tensor(value) -> torch.Tensor:
+    """One array of a numpy batch as a host tensor: floats float32, integers
+    int64."""
+    t = torch.from_numpy(np.ascontiguousarray(np.asarray(value)))
+    return t.float() if t.is_floating_point() else t.long()
+
+
 def to_device(batch: dict, device) -> dict:
-    """numpy batch -> tensors on ``device``: floating arrays as float32,
-    integer arrays as int64; on a GPU through pinned memory, non-blocking."""
-    out = {}
+    """numpy batch -> tensors on ``device`` (``host_tensor``'s dtypes); on a
+    GPU through pinned memory, non-blocking."""
     cuda = torch.device(device).type == "cuda"
-    for key, value in batch.items():
-        arr = np.asarray(value)
-        t = torch.from_numpy(np.ascontiguousarray(arr))
-        t = t.float() if t.is_floating_point() else t.long()
-        out[key] = t.pin_memory().to(device, non_blocking=True) if cuda else t.to(device)
-    return out
+    return {key: (host_tensor(value).pin_memory().to(device, non_blocking=True) if cuda
+                  else host_tensor(value).to(device))
+            for key, value in batch.items()}
 
 
 def finite_loader(dataset, batch_size: int = 1):

@@ -12,6 +12,15 @@ raises here. Every :class:`CudaKernel` counts its successful launches in
 ``launches``, so a run can show that its path went through the kernel, and
 :func:`build_count` counts the nvcc builds this process ran (a warmed server
 reports 0 new ones under traffic).
+
+Each kernel wrapper is also an operator of the ``msmctts`` namespace
+(``torch.library.custom_op``: a fake implementation for tracing, the kernel
+for a CUDA tensor, the plain version for a CPU tensor), so that
+``torch.export`` can trace the paths that run it (``export.py``). An eager
+call launches directly; a wrapper goes through its operator only while a
+program is being exported (:func:`exporting`): the operator's dispatch adds
+14-32 us of host time to a call on the H100's host, 40-180 calls a decode
+on a host-bound path, and the operators have no autograd formula.
 """
 
 from __future__ import annotations
@@ -45,6 +54,12 @@ def build_count() -> int:
     """Sources this process has compiled with nvcc (cached libraries not
     counted)."""
     return _BUILDS[0]
+
+
+def exporting() -> bool:
+    """True while ``torch.export`` traces a program."""
+    is_exporting = getattr(torch.compiler, "is_exporting", None)
+    return bool(is_exporting is not None and is_exporting())
 
 
 def _nvcc() -> str:

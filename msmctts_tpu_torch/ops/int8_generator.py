@@ -28,6 +28,10 @@ versions compute the same int32 sums exactly: one fp64 product per tap,
 whose integer partial sums stay far below 2^53 (at most
 k * C_in * 127^2 < 2^31 for every generator here).
 
+``msmctts::int8_conv1d`` is the product as an operator (``cuda_build.py``):
+the int8 decoder of an exported program (``export.py``) runs its products
+through it, and so counts them on the card.
+
 ``Int8Decoder`` serves in the ``dtype`` it is built with, the task's compute
 dtype as in the JAX package (``msmctts_tpu/tasks.py:379-386``): fp32 for the
 shipped recipes, bf16 under ``precision: bfloat16``, where the dequantized
@@ -46,6 +50,7 @@ import torch
 import torch.nn.functional as F
 
 from msmctts_tpu_torch.ops.convs import fold_weight_norm
+from msmctts_tpu_torch.ops.cuda_build import exporting
 
 GEN_LRELU = 0.1
 
@@ -239,9 +244,28 @@ def int8_conv1d(xq, w_q, padding: int, dilation: int = 1):
     (``_int8_conv1d_im2col``); on a CPU tensor: ``int8_conv1d_plain``."""
     if xq.dtype != torch.int8 or w_q.dtype != torch.int8:
         raise TypeError(f"int8_conv1d takes int8 operands, got {xq.dtype} and {w_q.dtype}")
+    if exporting():
+        return torch.ops.msmctts.int8_conv1d(xq, w_q, padding, dilation)
     if not xq.is_cuda:
         return int8_conv1d_plain(xq, w_q, padding, dilation)
     return _int8_conv1d_im2col(xq, w_q, padding, dilation)
+
+
+@torch.library.custom_op("msmctts::int8_conv1d", mutates_args=(), device_types="cpu")
+def _int8_conv1d_op(xq: torch.Tensor, w_q: torch.Tensor, padding: int, dilation: int) -> torch.Tensor:
+    return int8_conv1d_plain(xq, w_q, padding, dilation)
+
+
+@_int8_conv1d_op.register_kernel("cuda")
+def _(xq, w_q, padding, dilation):
+    return _int8_conv1d_im2col(xq, w_q, padding, dilation)
+
+
+@_int8_conv1d_op.register_fake
+def _(xq, w_q, padding, dilation):
+    k, _, c_out = w_q.shape
+    B, T, _ = xq.shape
+    return xq.new_empty((B, T + 2 * padding - dilation * (k - 1), c_out), dtype=torch.int32)
 
 
 def _dilate(xq, stride: int):

@@ -20,6 +20,10 @@ fold time, by :func:`prepare_taps`, into the buffer the kernel streams
 through shared memory (``ResBlock1.fold`` keeps one per layer beside the
 folded taps). :func:`plan_layer` is the single source of the kernel's tile
 rows, ring depth and shared-memory bytes.
+
+``msmctts::fused_resblock_layer`` is the layer as an operator
+(``cuda_build.py``): the MRF layers of an exported program (``export.py``)
+launch through it.
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from msmctts_tpu_torch.ops.cuda_build import CudaKernel
+from msmctts_tpu_torch.ops.cuda_build import CudaKernel, exporting
 
 LRELU_SLOPE = 0.1
 MAX_SHARED_BYTES = 232448  # per block on sm_90
@@ -163,6 +167,8 @@ def fused_resblock_layer(x, w1, b1, w2, b2, dilation: int, prepared: Optional[to
     """x [B, T, C]; w1/w2 [k, C, C] (tap, in, out); b1/b2 [C] -> [B, T, C].
     ``prepared`` is ``prepare_taps(w1, w2)`` when the caller keeps it (the
     kernel reads only that); without it the taps are prepared on each call."""
+    if exporting():
+        return torch.ops.msmctts.fused_resblock_layer(x, w1, b1, w2, b2, dilation, prepared)
     if x.device.type == "cpu":
         return fused_resblock_layer_plain(x, w1, b1, w2, b2, dilation)
     if x.device.type != "cuda":
@@ -192,3 +198,19 @@ def fused_resblock_layer(x, w1, b1, w2, b2, dilation: int, prepared: Optional[to
         B, T, C, k, dilation, plan.tile, plan.stages,
     )
     return out
+
+
+@torch.library.custom_op("msmctts::fused_resblock_layer", mutates_args=(), device_types="cpu")
+def _fused_resblock_layer_op(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+                             b2: torch.Tensor, dilation: int, prepared: Optional[torch.Tensor]) -> torch.Tensor:
+    return fused_resblock_layer_plain(x, w1, b1, w2, b2, dilation)
+
+
+@_fused_resblock_layer_op.register_kernel("cuda")
+def _(x, w1, b1, w2, b2, dilation, prepared):
+    return fused_resblock_layer(x, w1, b1, w2, b2, dilation, prepared)
+
+
+@_fused_resblock_layer_op.register_fake
+def _(x, w1, b1, w2, b2, dilation, prepared):
+    return torch.empty_like(x)

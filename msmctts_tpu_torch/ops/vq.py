@@ -37,6 +37,9 @@ rule ``psum``s the two over the row axes. The returned statistics are the
 global ones, bit-equal on every rank. ``vq_nearest_sharded(x_local, embed)``
 is the snap kernel on the rank's rows and runs no collective
 (``pallas_vq.py::vq_nearest_sharded``). Each has its plain version beside it.
+
+``msmctts::vq_nearest`` is the snap as an operator (``cuda_build.py``): the
+snap of an exported program (``export.py``) launches through it.
 """
 
 from __future__ import annotations
@@ -46,7 +49,7 @@ from typing import NamedTuple
 
 import torch
 
-from msmctts_tpu_torch.ops.cuda_build import CudaKernel
+from msmctts_tpu_torch.ops.cuda_build import CudaKernel, exporting
 from msmctts_tpu_torch.parallel.mesh import all_reduce_sum
 
 WARPS = 8  # kWarps in csrc/vq_common.cuh
@@ -171,6 +174,8 @@ def _check_cuda_inputs(name: str, x: torch.Tensor, embed: torch.Tensor, smem_byt
 def vq_nearest(x: torch.Tensor, embed: torch.Tensor):
     """x [N, H, d] (unit stride in d), embed [H, d, K] contiguous fp32 ->
     (idx [N, H] int32, quant [N, H, d] fp32)."""
+    if exporting():
+        return torch.ops.msmctts.vq_nearest(x, embed)
     if x.device.type == "cpu":
         return vq_nearest_plain(x, embed)
     N, H, d, K = _check_cuda_inputs("vq_nearest", x, embed, shared_bytes)
@@ -265,6 +270,24 @@ def vq_nearest_sharded_plain(x: torch.Tensor, embed: torch.Tensor):
 def vq_nearest_sharded(x: torch.Tensor, embed: torch.Tensor):
     """:func:`vq_nearest` on this rank's rows: rows are independent and the
     codebook is replicated, so no rank talks to another."""
+    if exporting():
+        return torch.ops.msmctts.vq_nearest(x, embed)
     if x.device.type == "cpu":
         return vq_nearest_sharded_plain(x, embed)
     return vq_nearest(x, embed)
+
+
+@torch.library.custom_op("msmctts::vq_nearest", mutates_args=(), device_types="cpu")
+def _vq_nearest_op(x: torch.Tensor, embed: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    return vq_nearest_plain(x, embed)
+
+
+@_vq_nearest_op.register_kernel("cuda")
+def _(x, embed):
+    return vq_nearest(x, embed)
+
+
+@_vq_nearest_op.register_fake
+def _(x, embed):
+    N, H, d = x.shape
+    return x.new_empty((N, H), dtype=torch.int32), x.new_empty((N, H, d), dtype=torch.float32)

@@ -3,6 +3,7 @@ counterpart of the root ``serve.py``).
 
     python -m msmctts_tpu_torch.serve -m <am_checkpoint> [--port 8080 \\
         --batch-size 8 --window-ms 15 --max-frames 1024 --int8 --device cpu]
+    python -m msmctts_tpu_torch.serve --artifact <dir> [--port 8080 --device cpu]
 
 Endpoints
 ---------
@@ -22,7 +23,11 @@ The engine pins one batch size, one padded text length (256 phones) and a
 per-utterance frame cap (``--max-frames``) and runs every reachable shape at startup,
 streaming windows included unless ``--no-warmup-streaming``
 (``serving.py``). ``--int8`` serves the int8 HiFi-GAN decoder
-(``ops/int8_generator.py``), calibrated on the first batch warmup decodes. It runs on ``cuda`` unless ``--device cpu`` is given;
+(``ops/int8_generator.py``), calibrated on the first batch warmup decodes.
+``--artifact DIR`` serves the programs ``tools/export_tts.py`` wrote
+(``export.ExportedTTS``) with no model code, config or checkpoint: batch
+size, text buckets, frame count and decoder are the export's, streaming and
+``/reload`` are refused. It runs on ``cuda`` unless ``--device cpu`` is given;
 without a GPU it refuses to run. It prints ``serving on http://host:port``
 with the bound port once ready, so ``--port 0`` works.
 """
@@ -49,12 +54,23 @@ from msmctts_tpu_torch.utils.checkpoint import load_checkpoint
 # options of the JAX package's daemon that the port does not have yet, and
 # the ROADMAP item that brings each
 NOT_PORTED = {
-    "--artifact": "serving an exported artifact is not ported (ROADMAP A13)",
     "--mesh-devices": "serving over an inference group is not ported (ROADMAP A12c); use --mesh-devices 1",
 }
 
 
 def build_engine(args) -> BatchingEngine:
+    if args.artifact:
+        from msmctts_tpu_torch.export import ExportedTTS
+
+        art = ExportedTTS(args.artifact, device=args.device)
+        return BatchingEngine(
+            art,
+            sample_rate=args.sample_rate or art.sample_rate,
+            batch_size=art.batch_size,
+            window_ms=args.window_ms,
+            text_buckets=art.buckets,
+            max_queue=args.max_queue,
+        )
     ckpt = load_checkpoint(args.model)
     config = Config(args.config) if args.config else Config(ckpt["config"])
     task = build_task(config, device=args.device)
@@ -236,7 +252,8 @@ def make_handler(engine: BatchingEngine, ready: threading.Event, request_timeout
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("-m", "--model", default=None, help="AM checkpoint")
-    p.add_argument("--artifact", default=None, metavar="DIR", help="not ported (ROADMAP A13)")
+    p.add_argument("--artifact", default=None, metavar="DIR",
+                   help="serve the exported programs in DIR (tools/export_tts.py) in place of -m")
     p.add_argument("-c", "--config", default=None)
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8080, help="0 picks a free port")
@@ -269,12 +286,15 @@ def main(argv=None):
                    help="text lengths to warm (default: the engine's one padded text length; a longer "
                         "length warms its multiple of it)")
     args = p.parse_args(argv)
-    if args.artifact:
-        p.error(NOT_PORTED["--artifact"])
     if args.mesh_devices != 1:
         p.error(NOT_PORTED["--mesh-devices"])
-    if not args.model:
-        p.error("-m/--model is required")
+    if args.artifact:
+        fixed = [flag for flag, on in (("-m/--model", args.model), ("--int8", args.int8),
+                                       ("--static-frames", args.static_frames)) if on]
+        if fixed:
+            p.error(f"--artifact serves the export's weights, decoder and frame count: drop {', '.join(fixed)}")
+    elif not args.model:
+        p.error("one of -m/--model or --artifact is required")
     if args.warmup_streaming and args.no_warmup_streaming:
         p.error("--warmup-streaming conflicts with --no-warmup-streaming")
     include_streaming = (
@@ -288,7 +308,7 @@ def main(argv=None):
         secs = engine.warmup(args.warmup_lengths, include_streaming=include_streaming)
         print(json.dumps({"warmup_s": round(secs, 3), "streaming_warmed": engine._streaming_warm,
                           "shapes": len(engine._warm_shapes), "device": str(engine.task.device),
-                          "frame_margin": engine.task.frame_margin}), flush=True)
+                          "frame_margin": engine.frame_margin}), flush=True)
         return 0
 
     engine = build_engine(args)
@@ -311,7 +331,8 @@ def main(argv=None):
         if warmup is not None:
             print(f"warmup: ran {len(engine._warm_shapes)} serving shapes in {engine.warmup_s:.3f}s on "
                   f"{engine.task.device} (streaming={'warm' if engine._streaming_warm else 'off'}, "
-                  f"frame margin {engine.task.frame_margin}, kernel builds {build_count()})", flush=True)
+                  f"frame margin {engine.frame_margin}, kernel builds {build_count()})",
+                  flush=True)
         ready.set()
         print(f"serving on http://{args.host}:{server.server_port}", flush=True)
 

@@ -40,6 +40,13 @@ Callers block on
 ``synthesize`` or iterate ``synthesize_stream`` from any number of threads.
 ``serve.py`` wraps this in an HTTP front end.
 
+The engine also serves an exported artifact (``export.ExportedTTS``, whose
+``exported`` flag the engine reads once; ``msmctts_tpu/serving.py:468``):
+``text_buckets`` are then the artifact's, a request pads to the smallest
+bucket that holds it and rides only with requests padded alike, warmup runs
+every bucket, and streaming and ``reload`` are refused (an artifact is one
+monolithic decode whose weights are part of its programs).
+
 ``/stats`` reports, in place of the JAX package's ``xla_compiles``,
 ``cold_shapes`` (shapes the task first ran after ``warmup()`` ended, from
 ``MSMCTTS.shapes``) and ``kernel_builds`` (nvcc builds in this process
@@ -162,6 +169,9 @@ class BatchingEngine:
         Clamped to the ``FRAME_BUCKETS`` ladder's top.
     max_queue: backpressure bound; ``synthesize`` raises when it is full.
     stream_chunk_frames: decoder frames per streamed chunk.
+    text_buckets: padded text lengths in place of ``text_length`` (an
+        exported artifact's): a request pads to the smallest that holds it;
+        a longer one is refused.
     """
 
     def __init__(
@@ -174,10 +184,15 @@ class BatchingEngine:
         max_frames: int = FRAME_BUCKETS[-1],
         max_queue: int = 256,
         stream_chunk_frames: int = 64,
+        text_buckets: Optional[Sequence[int]] = None,
     ):
         if batch_size < 1:
             raise ValueError("batch_size must be >= 1")
         self.max_frames = min(int(max_frames), FRAME_BUCKETS[-1])
+        # an exported artifact (export.ExportedTTS) is fixed programs: no
+        # networks to read, no frame buckets, streaming or reload
+        self.exported = bool(getattr(task, "exported", False))
+        self.can_stream = hasattr(task, "predict_stream") and not self.exported
         if hasattr(task, "max_frames_cap"):
             task.max_frames_cap = self.max_frames
         if hasattr(task, "frame_margin"):
@@ -190,6 +205,7 @@ class BatchingEngine:
         self.window_ms = float(window_ms)
         self.stream_chunk_frames = int(stream_chunk_frames)
         self.text_length = int(text_length)
+        self.text_buckets = tuple(sorted(int(b) for b in text_buckets)) if text_buckets else None
         self._queue: "queue.Queue[Optional[_Request]]" = queue.Queue(maxsize=max_queue)
         self._held: List[_Request] = []  # taken from the queue for a later batch (worker thread only)
         self._lock = threading.Lock()
@@ -265,6 +281,12 @@ class BatchingEngine:
             if req is not None:
                 _fail(req, RuntimeError("engine stopped"))
 
+    @property
+    def frame_margin(self) -> int:
+        """Padded frames a request's bucket keeps past its total (none for
+        a task without a margin, an exported artifact among them)."""
+        return int(getattr(self.task, "frame_margin", 0))
+
     def cold_shapes(self) -> int:
         """Shapes the task first ran after ``warmup()`` ended (all of them
         when no warmup ran)."""
@@ -311,8 +333,9 @@ class BatchingEngine:
         """
         stream = include_streaming
         if stream is None:
-            stream = hasattr(self.task, "predict_stream")
-        lengths = sorted({self._text_length(l) for l in (text_lengths or [self.text_length])})
+            stream = self.can_stream
+        default = self.text_buckets or [self.text_length]
+        lengths = sorted({self._text_length(l) for l in (text_lengths or default)})
         frame_buckets = self._reachable_frame_buckets()
         t0 = time.time()
         with self._model_lock:
@@ -322,17 +345,17 @@ class BatchingEngine:
                     "text_length": np.full((self.batch_size,), L, np.int32),
                 }
                 self.task.infer_step(batch)
-                if stream and hasattr(self.task, "predict_stream") and not frame_buckets:
+                if stream and self.can_stream and not frame_buckets:
                     stream = self._try_drain_stream(batch, include_streaming)
                 for F in frame_buckets:
                     # the total whose bucket, past the task's margin, is F
-                    total = max(F - getattr(self.task, "frame_margin", 0), 1)
+                    total = max(F - self.frame_margin, 1)
                     forced = dict(batch, dur=self._forced_durations(L, total))
                     self.task.infer_step(forced)
-                    if stream and hasattr(self.task, "predict_stream"):
+                    if stream and self.can_stream:
                         stream = self._try_drain_stream(forced, include_streaming)
             self._warmed = True
-            self._streaming_warm = bool(stream) and hasattr(self.task, "predict_stream")
+            self._streaming_warm = bool(stream) and self.can_stream
             self._warm_shapes = frozenset(getattr(self.task, "shapes", ()))
             self._warm_builds = build_count()
         return time.time() - t0
@@ -355,7 +378,7 @@ class BatchingEngine:
         bucket (the scale lcm) and ``bucket_length(max_frames)``. Empty in
         static-frames mode."""
         task = self.task
-        if getattr(task, "static_max_frames", None) or not hasattr(task, "networks"):
+        if self.exported or getattr(task, "static_max_frames", None):
             return []
         predictor = task.networks.get("predictor")
         if predictor is None:  # autoencoder-only task: no two-phase path
@@ -367,9 +390,13 @@ class BatchingEngine:
 
     def _warmup_text(self, L: int) -> np.ndarray:
         """Random phone ids [B, L, n_streams], drawn per stream from the
-        model's vocabulary (0 is padding)."""
-        ns = self.task.networks["predictor"].n_symbols
-        n_symbols = list(ns) if isinstance(ns, (list, tuple)) else [ns]
+        model's vocabulary (0 is padding; an artifact carries no vocabulary:
+        id 1)."""
+        if self.exported:
+            n_symbols = [2] * self._n_streams()
+        else:
+            ns = self.task.networks["predictor"].n_symbols
+            n_symbols = list(ns) if isinstance(ns, (list, tuple)) else [ns]
         rng = np.random.default_rng(0)
         cols = [rng.integers(1, max(int(n), 2), size=(self.batch_size, L)) for n in n_symbols]
         return np.stack(cols, axis=-1).astype(np.int32)
@@ -395,7 +422,11 @@ class BatchingEngine:
         weights, queued ones run on the new. The fused MRF layers' prepared
         taps are rebuilt by ``ResBlock1.fold`` on load; an int8 decoder is
         dropped by the load and quantized and calibrated again on the next
-        batch (its shapes stay warm: they are the same shapes)."""
+        batch (its shapes stay warm: they are the same shapes). An exported
+        artifact refuses it (``msmctts_tpu/serving.py:383-387``)."""
+        if self.exported:
+            raise RuntimeError("hot reload needs the checkpoint-backed task path; "
+                               "exported artifacts are immutable")
         with self._model_lock:
             self.task.load_variables(state)
 
@@ -450,8 +481,13 @@ class BatchingEngine:
         want = self._n_streams()
         if text.shape[1] != want:
             raise ValueError(f"model takes {want}-stream phone tokens, got {text.shape[1]}")
+        if self.text_buckets and text.shape[0] > self.text_buckets[-1]:
+            raise ValueError(f"no exported module for text length {text.shape[0]}; have {list(self.text_buckets)}")
         if self._thread is None:
             raise RuntimeError("engine not started")
+        if stream and self.exported:
+            raise RuntimeError("streaming needs the task path (serve -m <checkpoint>); an exported program is one "
+                               "monolithic decode")
         if stream and self._warmed and not self._streaming_warm:
             # Refuse here, in the caller's thread, instead of letting the
             # first cold streaming request run new shapes inside the worker
@@ -473,12 +509,17 @@ class BatchingEngine:
     # -- worker --------------------------------------------------------
 
     def _n_streams(self) -> int:
+        if self.exported:
+            return int(self.task.n_streams)
         n_symbols = self.task.networks["predictor"].n_symbols
         return len(n_symbols) if isinstance(n_symbols, (list, tuple)) else 1
 
     def _text_length(self, n: int) -> int:
-        """The padded text length of an n-phone request: the engine's text
-        length, or past it its multiple of it."""
+        """The padded text length of an n-phone request: the smallest of the
+        ``text_buckets`` that holds it; without them the engine's text length,
+        or past it its multiple of it."""
+        if self.text_buckets:
+            return bucket_length(n, self.text_buckets)
         return bucket_length(n, (self.text_length,))
 
     def _gather(self) -> Optional[List[_Request]]:

@@ -48,7 +48,14 @@ state and the iteration left at 0 (``utils/checkpoint.filter_state_by_regex``,
 ``checkpoint_keep_interval: N`` keeps the snapshots every N steps and the
 newest two (``utils/checkpoint.clean_checkpoint_directory``), as the JAX
 trainer does; ``checkpoint_backend: orbax`` raises when the trainer is built
-(ROADMAP A7c), not at the first save.
+(ROADMAP A7d), not at the first save.
+
+The feed (``data/wire.py``): a ``DevicePrefetcher`` encodes each batch in
+the wire format of ``dataloader.wire_compression`` (default true: int16
+waveforms) and copies it to the device on a stream of its own,
+``dataloader.device_prefetch`` batches (default 2) ahead of the step, as the
+JAX trainer's loop does (``msmctts_tpu/training/base_trainer.py:246-257``);
+the train steps decode it first, and ``evaluate()`` gets it decoded.
 
 ``train(profile_dir=...)`` takes a ``torch.profiler`` trace of steps
 [``profile_start``, ``profile_start + profile_steps``), with the card's
@@ -73,7 +80,8 @@ import numpy as np
 import torch
 
 from msmctts_tpu_torch.config import component_kwargs
-from msmctts_tpu_torch.data.loader import DataLoader, to_device
+from msmctts_tpu_torch.data.loader import DataLoader
+from msmctts_tpu_torch.data.wire import DevicePrefetcher, decode_batch
 from msmctts_tpu_torch.ops.dropout import bind_generator
 from msmctts_tpu_torch.parallel import mesh
 from msmctts_tpu_torch.parallel.precision import compute_dtype
@@ -131,7 +139,7 @@ class BaseTrainer:
             raise ValueError("a trainer needs a task built with mode='train'")
         backend = str(config.get("checkpoint_backend", "pickle"))
         if backend == "orbax":
-            raise NotImplementedError("checkpoint_backend: orbax is not ported (ROADMAP A7c); the port writes pickles")
+            raise NotImplementedError("checkpoint_backend: orbax is not ported (ROADMAP A7d); the port writes pickles")
         self.config = config
         self.task = task
         self.group = group
@@ -274,6 +282,15 @@ class BaseTrainer:
         )
         batches = iter(loader)
         self.attempt_resume()
+        # A worker thread wire-encodes each batch (int16 PCM; data/wire.py)
+        # and copies it to the device on its own stream while the step
+        # before it runs; the steps decode it (decode_batch) first.
+        feed = DevicePrefetcher(
+            batches,
+            self.device,
+            mode=dl_cfg.get("wire_compression", True),
+            depth=int(dl_cfg.get("device_prefetch", 2)),
+        )
 
         logger = Logger(self.save_dir, rank=self.rank)
         logger.log_config(self.config.to_dict() if hasattr(self.config, "to_dict") else dict(self.config))
@@ -302,7 +319,7 @@ class BaseTrainer:
                 self.iteration += 1
                 if profile_dir and self.iteration == profile_start:
                     profiler = self._start_profiler()
-                batch = to_device(next(batches), self.device)
+                batch = next(feed)  # encoded and uploaded in the background
                 metrics = self.train_step(batch, self.iteration)
                 if profiler is not None and self.iteration >= profile_start + profile_steps - 1:
                     self._stop_profiler(profiler, profile_dir, profile_start, logger)
@@ -315,7 +332,7 @@ class BaseTrainer:
                     t0 = time.time()
                 if self.eval_interval and self.iteration % self.eval_interval == 0:
                     try:
-                        self.evaluate(batch, logger, self.iteration)
+                        self.evaluate(decode_batch(batch), logger, self.iteration)
                     except Exception as e:  # evaluation must never stop training
                         logger.text(f"evaluate() failed at {self.iteration}: {e}")
                 if self.iteration % self.iters_per_checkpoint == 0:
@@ -330,6 +347,7 @@ class BaseTrainer:
         finally:
             if profiler is not None:  # the run stopped inside the window
                 self._stop_profiler(profiler, profile_dir, profile_start, logger)
+            feed.close()
             batches.close()  # stops the loader's threads
             for sig, handler in prev_handlers.items():
                 signal.signal(sig, handler)

@@ -57,6 +57,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from msmctts_tpu_torch.data.wire import decode_batch
 from msmctts_tpu_torch.models.msmc_vqgan import crop_windows
 from msmctts_tpu_torch.parallel.mesh import all_reduce_sum, world
 from msmctts_tpu_torch.parallel.precision import cast_floats, functional
@@ -249,6 +250,7 @@ class EmbVQGANTrainer(VQGANTrainer):
         (tests compare two stacks whose random streams differ); by default
         they are drawn from the trainer's generator. Returns 0-d metric
         tensors, detached: the global values."""
+        batch = decode_batch(batch)  # the wire format (data/wire.py); a plain batch passes as it is
         for module in (self.ae, self.disc, self.prosody):
             if module is not None:
                 module.train()

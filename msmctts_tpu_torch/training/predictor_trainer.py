@@ -43,6 +43,7 @@ from __future__ import annotations
 
 import torch
 
+from msmctts_tpu_torch.data.wire import decode_batch
 from msmctts_tpu_torch.parallel.mesh import all_reduce_sum, world
 from msmctts_tpu_torch.parallel.precision import cast_floats, functional
 from msmctts_tpu_torch.registry import register_trainer
@@ -111,6 +112,7 @@ class PredictorTrainer(BaseTrainer):
         """One step on a device batch {'text', 'text_length', 'dur', 'mel',
         'mel_length'} (under a group, this rank's rows). Returns 0-d metric
         tensors, detached: the global values."""
+        batch = decode_batch(batch)  # the wire format (data/wire.py); a plain batch passes as it is
         with torch.no_grad():  # the teacher's quantizer states
             q = self.teacher_states(batch)
         self.predictor.train()

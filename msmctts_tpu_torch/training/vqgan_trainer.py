@@ -53,6 +53,7 @@ from typing import Optional
 
 import torch
 
+from msmctts_tpu_torch.data.wire import decode_batch
 from msmctts_tpu_torch.models.msmc_vqgan import crop_windows
 from msmctts_tpu_torch.parallel.mesh import all_reduce_sum, world
 from msmctts_tpu_torch.parallel.precision import cast_floats, functional
@@ -301,6 +302,7 @@ class VQGANTrainer(BaseTrainer):
         random streams differ); by default they come from the trainer's
         generator. Under a group, ``batch`` and ``starts`` hold this rank's
         rows. Returns 0-d metric tensors, detached: the global values."""
+        batch = decode_batch(batch)  # the wire format (data/wire.py); a plain batch passes as it is
         self.ae.train()
         self.disc.train()
         if iteration <= self.warmup_steps:

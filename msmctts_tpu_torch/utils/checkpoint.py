@@ -19,7 +19,7 @@ without flax.
 
 ``clean_checkpoint_directory`` keeps a run's snapshots every
 ``checkpoint_keep_interval`` steps and its newest two. Orbax checkpoints
-(directories) are neither read nor written yet (ROADMAP A7c).
+(directories) are neither read nor written yet (ROADMAP A7d).
 """
 
 from __future__ import annotations

@@ -673,7 +673,7 @@ def test_serve_cli_engine_keeps_the_frame_margin(tiny_pair, capsys):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--artifact", "x"], "A13"), (["--mesh-devices", "2"], "A12c"),
+    (["--artifact", "x"], "--artifact"), (["--mesh-devices", "2"], "A12c"),
 ], ids=["artifact", "mesh-devices"])
 def test_serve_cli_refuses_what_is_not_ported(tiny_pair, capsys, flag, item):
     with pytest.raises(SystemExit) as e:

@@ -147,7 +147,7 @@ def test_trainer_keeps_what_the_jax_trainer_keeps(corpus, tmp_path):
 def test_orbax_backend_is_refused_when_the_trainer_is_built(corpus):
     config = tiny_ae_config(corpus)
     config["checkpoint_backend"] = "orbax"
-    with pytest.raises(NotImplementedError, match="A7c"):
+    with pytest.raises(NotImplementedError, match="A7d"):
         _port_trainer(config.to_dict())
     config["checkpoint_backend"] = "pickle"
     assert _port_trainer(config.to_dict()).iteration == 0
