@@ -221,8 +221,23 @@ Phases, each of which raises on failure:
      ways. ``--feed-ab`` runs only a longer A/B of the feed (phase 1, then
      ``train()`` with the default feed, no prefetch, the loop's feed before
      the prefetcher and prefetch without the wire, 12 steps a run, 4 turns);
- 22. one JSON line describing each kernel;
- 23. last line: {"ok": true, "device": {...}}.
+ 22. orbax snapshots (``checkpoint_backend: orbax``): (a) ``train()`` of the
+     CSMSC AE recipe at batch 16 from phase 6's state (the fixture's
+     autoencoder, a seeded discriminator) for 1 warmup and 1 GAN step on a
+     corpus written to a temporary directory, its final save a snapshot
+     written by the port's own writer on a worker thread: the snapshot's
+     size against a pickle of the same state, the train thread's stall in
+     ``save()``, the writer's seconds and MB/s; (b) the snapshot read back
+     (every leaf bit-equal to what was saved, MB/s), a fresh trainer resumed
+     from it and one from the pickle (both states bit-equal to what was
+     saved), then one GAN step from each with deterministic algorithms:
+     metrics bit-equal, 2 ``vq_nearest_stats`` a step held against plain;
+     (c) phase 5's serving weights written as snapshots (the fixture's
+     autoencoder, the seeded AM over it) through ``infer`` in process, its
+     wav bit-equal to ``infer`` of the pickles, 4 ``vq_nearest`` and 36
+     ``fused_resblock_layer`` launches a batch, each held against plain;
+ 23. one JSON line describing each kernel;
+ 24. last line: {"ok": true, "device": {...}}.
 
 NCCL refuses two ranks on one device, so the two-rank phases use gloo, which
 moves CUDA tensors through host memory; the log names the backend. Their
@@ -5513,7 +5528,7 @@ def _feed_run(trainer, steps=FEED_STEPS, record_stats=False):
             "codebooks": codebooks, "stats_calls": rec.calls if rec is not None else []}
 
 
-def _hold_stats_calls(calls, what):
+def _hold_stats_calls(calls, what, tag="[21]"):
     """Recorded ``vq_nearest_stats_sharded`` calls (x, embed, mask, group)
     against the plain version on their inputs: idx, quant and counts exact,
     sums within ``VQS_TOL``."""
@@ -5529,7 +5544,7 @@ def _hold_stats_calls(calls, what):
         if not torch.allclose(got[3], ref[3], **VQS_TOL):
             raise AssertionError(f"{what} N={x.shape[0]}: sums differ by {err}")
         rows.append({"N": x.shape[0], "valid": int(mask.sum()), "sums_max_abs_err": err})
-    log(f"[21] {what}: kernel 2 vs plain on the path's inputs {json.dumps(rows)}")
+    log(f"{tag} {what}: kernel 2 vs plain on the path's inputs {json.dumps(rows)}")
     return rows
 
 
@@ -5902,6 +5917,265 @@ def phase_feed_and_export(card, am_path, reference):
     return {"feed": feed, "export": export}
 
 
+# ------------------------------------------------ orbax snapshots
+# Phase 22: checkpoint_backend: orbax on the card. The CSMSC AE recipe
+# trains through train() and writes a snapshot (OCDBT + zarr, the port's own
+# writer on a worker thread); a fresh trainer resumes from it bit for bit
+# and steps as one resumed from a pickle of the same state does; phase 5's
+# serving weights as snapshots through infer.
+ORBAX_STEPS = 2  # through train(): 1 warmup + 1 GAN step, then the final save
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, files in os.walk(path) for f in files)
+
+
+def _tree_leaves(tree, path=""):
+    """(path, leaf) of nested dicts / lists / tuples, keys as strings: a
+    pickle's int key or tuple reads as a snapshot's string key or list."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _tree_leaves(v, f"{path}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _tree_leaves(v, f"{path}/{i}")
+    else:
+        yield path, tree
+
+
+def _same_leaves(got, want, what):
+    """Two state trees leaf for leaf, bit for bit -> the number of leaves."""
+    g, w = dict(_tree_leaves(got)), dict(_tree_leaves(want))
+    if sorted(g) != sorted(w):
+        raise AssertionError(f"{what}: the trees differ in {sorted(set(g) ^ set(w))[:8]}")
+    for k, v in w.items():
+        if isinstance(v, np.ndarray):
+            a = np.asarray(g[k])
+            if a.dtype != v.dtype or a.shape != v.shape or a.tobytes() != v.tobytes():
+                raise AssertionError(f"{what}: {k} differs ({a.dtype} {a.shape} vs {v.dtype} {v.shape})")
+        elif g[k] != v:
+            raise AssertionError(f"{what}: {k} is {g[k]!r}, saved {v!r}")
+    return len(w)
+
+
+class _Deterministic:
+    """Deterministic algorithms for a block: cuDNN's default choices are
+    not bitwise repeatable (two ``infer`` runs of one pickle differ in the
+    last bits), and bit-equality between two runs is what this phase holds."""
+
+    def __enter__(self):
+        self.saved = (torch.are_deterministic_algorithms_enabled(), torch.backends.cudnn.deterministic,
+                      torch.backends.cudnn.benchmark)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        return self
+
+    def __exit__(self, *exc):
+        torch.use_deterministic_algorithms(self.saved[0])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = self.saved[1], self.saved[2]
+
+
+def _orbax_trainer(cfg):
+    from msmctts_tpu_torch.config import component_kwargs
+    from msmctts_tpu_torch.registry import get_trainer
+    from msmctts_tpu_torch.tasks import build_task
+
+    task = build_task(cfg, device="cuda", mode="train")
+    return get_trainer(cfg.trainer["_name"])(cfg, task, **component_kwargs(cfg.trainer))
+
+
+def phase_orbax_training(card, tmp):
+    """(a) train() with checkpoint_backend: orbax and its snapshot; (b) a
+    fresh trainer resumed from it against one resumed from a pickle."""
+    from msmctts_tpu_torch.data.loader import to_device
+    from msmctts_tpu_torch.models import quantizer
+    from msmctts_tpu_torch.training.base_trainer import metrics_to_host
+    from msmctts_tpu_torch.utils import checkpoint, zstd
+    from msmctts_tpu_torch.utils.checkpoint import read_checkpoint
+
+    ae_dir = os.path.join(tmp, "ae")
+    _write_feed_corpus(ae_dir, list(_am_config().task["predictor"]["n_symbols"]), FEED_AE_FRAMES, True, 22)
+    cfg = _recipe_config(AE_YAML, os.path.join(tmp, "orbax"), warmup_steps=1)
+    cfg.dataset["id_list"] = os.path.join(ae_dir, "train.list")
+    cfg.dataset["feature_path"] = [os.path.join(ae_dir, "mel", "{}.npy"), os.path.join(ae_dir, "wav", "{}.wav")]
+    cfg["checkpoint_backend"] = "orbax"
+    cfg["pretrain_checkpoint_path"] = FIXTURE  # phase 6's state: the fixture's autoencoder, a seeded discriminator
+    cfg["iters_per_checkpoint"] = 10 * ORBAX_STEPS  # the final save alone
+
+    # (a) the writer: the train thread's stall in save(), the writer thread's time
+    trainer = _orbax_trainer(cfg)
+    commit, stall = checkpoint._commit_state, []
+
+    def timed_commit(path, tree):
+        t0 = time.perf_counter()
+        commit(path, tree)
+        stall.append(("writer", time.perf_counter() - t0))
+
+    save = trainer.save
+
+    def timed_save():
+        t0 = time.perf_counter()
+        out = save()
+        stall.append(("save", time.perf_counter() - t0))
+        return out
+
+    trainer.save, checkpoint._commit_state = timed_save, timed_commit
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    try:
+        trainer.train(max_steps=ORBAX_STEPS, log_every=1)  # its finally waits for the writer
+    finally:
+        checkpoint._commit_state = commit
+    train_s = time.perf_counter() - t0
+    counts = _counts()
+    if counts != {"vq_nearest": 0, "vq_nearest_stats": 2 * ORBAX_STEPS, "fused_resblock_layer": 0}:
+        raise AssertionError(f"train() with the orbax backend: launches {counts}")
+    snap = os.path.join(cfg["save_checkpoint_dir"], f"model_{ORBAX_STEPS}")
+    if sorted(os.listdir(snap)) != ["meta.pkl", "state"]:
+        raise AssertionError(f"{snap}: {sorted(os.listdir(snap))}")
+    t0 = time.perf_counter()
+    saved = trainer.checkpoint_state()  # nothing moved since the final save
+    state_s = time.perf_counter() - t0
+    # the same state through the pickle backend's save(), timed as the orbax one
+    pkl_dir = os.path.join(tmp, "pickle")
+    trainer.checkpoint_backend, trainer.save_dir = "pickle", pkl_dir
+    trainer.save()
+    pkl = os.path.join(pkl_dir, f"model_{ORBAX_STEPS}")
+    (save_s, pickle_s), writer_s = [t for k, t in stall if k == "save"], dict(stall)["writer"]
+    snap_mb, pkl_mb = _dir_bytes(snap) / 1e6, os.path.getsize(pkl) / 1e6
+    log(f"[22] train() {ORBAX_STEPS} steps with checkpoint_backend: orbax ({train_s:.1f}s, launches {counts}); snapshot "
+        f"{snap_mb:.1f} MB vs pickle of the same state {pkl_mb:.1f} MB ({snap_mb / pkl_mb:.4f}x); train thread's stall in "
+        f"save() {save_s * 1e3:.1f} ms (the pickle backend's save() of the same state {pickle_s * 1e3:.1f} ms; the state "
+        f"tree on the host alone {state_s * 1e3:.1f} ms); writer thread {writer_s:.2f}s, {snap_mb / writer_s:.0f} MB/s; "
+        f"zstd decoder built {zstd.builds()} time(s) here")
+
+    # (b) resume: every leaf of the snapshot, then a fresh trainer's whole state
+    t0 = time.perf_counter()
+    stored = read_checkpoint(snap)
+    read_s = time.perf_counter() - t0
+    n_leaves = _same_leaves(stored["state"], saved, "the snapshot as read")
+    resumed = {}
+    for name, d in (("orbax", cfg["save_checkpoint_dir"]), ("pickle", pkl_dir)):
+        c = type(cfg)(cfg.to_dict())
+        c["save_checkpoint_dir"] = d
+        t0 = time.perf_counter()
+        resumed[name] = _orbax_trainer(c)
+        resumed[name].attempt_resume()
+        torch.cuda.synchronize()
+        resumed[name + "_s"] = time.perf_counter() - t0
+        if resumed[name].iteration != ORBAX_STEPS:
+            raise AssertionError(f"the {name} resume is at iteration {resumed[name].iteration}")
+        _same_leaves(resumed[name].checkpoint_state(), saved, f"the trainer resumed from the {name} checkpoint")
+    log(f"[22] resume: read {snap_mb:.1f} MB in {read_s:.2f}s ({snap_mb / read_s:.0f} MB/s, {n_leaves} leaves bit-equal "
+        f"to what was saved, torch_opt_state and torch_rng included); attempt_resume() from the snapshot "
+        f"{resumed['orbax_s']:.2f}s, from the pickle {resumed['pickle_s']:.2f}s; both trainers' states bit-equal to it")
+
+    # one more GAN step from each resume
+    batch = to_device(_training_batch()[0], "cuda")
+    metrics, launches, calls = {}, {}, []
+    with _Deterministic():
+        for name in ("orbax", "pickle"):
+            torch.cuda.synchronize()
+            _reset_counts()
+            with _Recorder(quantizer, "vq_nearest_stats_sharded") as rec:
+                metrics[name] = metrics_to_host(resumed[name].train_step(batch, ORBAX_STEPS + 1))
+            torch.cuda.synchronize()
+            launches[name] = _counts()
+            if name == "orbax":
+                calls = rec.calls
+    for name, c in launches.items():
+        if c != {"vq_nearest": 0, "vq_nearest_stats": 2, "fused_resblock_layer": 0}:
+            raise AssertionError(f"the GAN step after the {name} resume: launches {c}")
+    if "fm_loss" not in metrics["orbax"] or metrics["orbax"] != metrics["pickle"]:
+        diff = {k: (metrics["orbax"][k], metrics["pickle"].get(k)) for k in metrics["orbax"]
+                if metrics["orbax"][k] != metrics["pickle"].get(k)}
+        raise AssertionError(f"the GAN step after the orbax resume differs from the one after the pickle resume: {diff}")
+    stats = _hold_stats_calls(calls, "the GAN step after the orbax resume", tag="[22]")
+    shown = {k: round(metrics["orbax"][k], 5) for k in ("g_loss", "d_loss", "fm_loss", "stft_loss")}
+    log(f"[22] one GAN step after each resume: metrics bit-equal {shown}, launches {launches['orbax']} each")
+    del trainer, resumed
+    return {"train_s": train_s, "launches_train": counts, "snapshot_mb": snap_mb, "pickle_mb": pkl_mb,
+            "save_stall_ms": save_s * 1e3, "pickle_save_ms": pickle_s * 1e3, "state_tree_ms": state_s * 1e3,
+            "writer_s": writer_s,
+            "write_mb_per_s": snap_mb / writer_s, "read_s": read_s, "read_mb_per_s": snap_mb / read_s,
+            "leaves": n_leaves, "launches_resumed_step": launches["orbax"], "stats": stats,
+            "metrics_after_resume": metrics["orbax"]}
+
+
+def phase_orbax_serving(card, am_path, tmp):
+    """(c) phase 5's serving weights as snapshots (the fixture's autoencoder
+    and the seeded acoustic model) through infer, against infer of the
+    pickles."""
+    import yaml
+
+    from msmctts_tpu_torch import infer
+    from msmctts_tpu_torch.models import hifigan, predictor as predictor_mod, quantizer
+    from msmctts_tpu_torch.utils.checkpoint import read_checkpoint, save_checkpoint_orbax, wait_for_pending_saves
+
+    fixture, am = read_checkpoint(FIXTURE), read_checkpoint(am_path)
+    ae_snap = save_checkpoint_orbax(os.path.join(tmp, "serve", "fixture"), fixture["state"], fixture["iteration"],
+                                    fixture["config"])
+    am["config"]["task"]["autoencoder"]["_checkpoint"] = ae_snap
+    am_snap = save_checkpoint_orbax(os.path.join(tmp, "serve", "am"), am["state"], am["iteration"], am["config"])
+    wait_for_pending_saves()
+    rng = np.random.default_rng(22)
+    n_symbols = list(am["config"]["task"]["predictor"]["n_symbols"])
+    texts = {f"u{i}": " ".join("_".join(str(v) for v in row) for row in _text(rng, [n], n_symbols, n)[0])
+             for i, n in enumerate((24, 57, 96, 128))}
+    test_list, cfg_path = os.path.join(tmp, "serve", "test.yaml"), os.path.join(tmp, "serve", "npy.yaml")
+    with open(test_list, "w") as fh:
+        yaml.safe_dump({u: {"text": t} for u, t in texts.items()}, fh)
+    outs, ms = {}, {}
+    with _Deterministic():  # both runs bit-equal only so
+        for name, model in (("snapshot", am_snap), ("pickle", am_path)):
+            cfg = read_checkpoint(model)["config"]
+            cfg["save_features"] = [["wav", ".npy"]]  # the float waveform, not 16-bit PCM
+            with open(cfg_path, "w") as fh:
+                yaml.safe_dump(cfg, fh)
+            torch.cuda.synchronize()
+            _reset_counts()
+            t0 = time.perf_counter()
+            if name == "snapshot":
+                with _Recorder(predictor_mod, "vq_nearest_sharded") as p_rec, \
+                        _Recorder(quantizer, "vq_nearest_sharded") as q_rec, _Recorder(hifigan, "fused_resblock_layer") as rb_rec:
+                    outs[name] = infer.main(["-m", model, "-c", cfg_path, "-t", test_list, "-o",
+                                             os.path.join(tmp, "serve", name), "-b", "4"])
+                counts = _counts()
+            else:
+                outs[name] = infer.main(["-m", model, "-c", cfg_path, "-t", test_list, "-o",
+                                         os.path.join(tmp, "serve", name), "-b", "4"])
+            torch.cuda.synchronize()
+            ms[name] = (time.perf_counter() - t0) * 1e3
+    if counts != {"vq_nearest": 4, "vq_nearest_stats": 0, "fused_resblock_layer": 36}:
+        raise AssertionError(f"infer -m <snapshot>, one batch of 4: launches {counts}")
+    frames = {}
+    for u in texts:
+        a, b = (np.load(os.path.join(outs[n], f"{u}_wav.npy")) for n in ("snapshot", "pickle"))
+        if a.size == 0 or a.shape != b.shape or a.tobytes() != b.tobytes():
+            raise AssertionError(f"infer of the snapshot, {u}: its wav differs from infer of the pickle")
+        frames[u] = a.shape[0] // 300
+    snaps, rb_worst = _hold_recorded(p_rec.calls + q_rec.calls, rb_rec.calls, "[22] infer -m <snapshot>")
+    log(f"[22] infer -m <snapshot> (the AM over the fixture's snapshot) {ms['snapshot']:.0f} ms vs the pickles "
+        f"{ms['pickle']:.0f} ms: 4 utterances of {list(frames.values())} frames, wav bit-equal; launches {counts}, "
+        f"snaps vs plain {json.dumps(snaps)}, MRF layers vs plain max abs err {rb_worst:.3g}")
+    return {"launches": counts, "snaps": snaps, "resblock_max_abs_err": rb_worst, "frames": frames, "infer_ms": ms}
+
+
+def phase_orbax(card, am_path):
+    """Phase 22, (a) to (c)."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="msmctts_phase22_")
+    try:
+        training = phase_orbax_training(card, tmp)
+        serving = phase_orbax_serving(card, am_path, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"training": training, "serving": serving}
+
+
 def _device_rows(prof):
     """[{name, count, device_ms}] of a profile's kernels, the longest first."""
     from torch.autograd import DeviceType
@@ -6007,6 +6281,8 @@ def main(argv=None):
     opts = timed("20", phase_options, env["nvidia_smi"], tts_ref)
     fx = timed("21", phase_feed_and_export, env["nvidia_smi"], tts_ref["am_path"], tts_ref)
     fx_feed, fx_exp = fx["feed"], fx["export"]
+    ob = timed("22", phase_orbax, env["nvidia_smi"], tts_ref["am_path"])
+    ob_tr, ob_sv = ob["training"], ob["serving"]
     bf_vq, bf_am, bf_inf = bf16["vqgan"], bf16["am"], bf16["inference"]
     o_i8, o_tr, o_tts = opts["int8_bf16"], opts["training"], opts["legacy_tts"]
     lj_as, lj_tr, lj_tools, lj_daemon = lj["analysis_synthesis"], lj["training"], lj["tools"], lj["daemon"]
@@ -6081,6 +6357,10 @@ def main(argv=None):
             # phase 12's train entry point: 2 AM steps behind the feed's prefetcher, the teacher's snaps
             "launches_feed": {"am_train_2_steps": am_cli["train_launches"]["vq_nearest"]},
             "export": {"fp32": fx_exp["snaps"], "int8": fx_exp["int8"]["snaps"]},
+            # phase 22: infer -m <snapshot> (phase 5's serving weights as orbax snapshots), one batch of 4,
+            # every launch held against plain on its inputs
+            "launches_orbax": {"infer_snapshot_batch": ob_sv["launches"]["vq_nearest"]},
+            "orbax": ob_sv["snaps"],
         },
         {
             "name": "vq_nearest_stats", "route": "cuda", "source": "msmctts_tpu_torch/csrc/vq_stats.cu",
@@ -6120,6 +6400,11 @@ def main(argv=None):
             # against plain on their inputs
             "launches_feed": fx_feed["launches_per_run"]["vq_nearest_stats"],
             "feed": fx_feed["stats"],
+            # phase 22: train() of the AE recipe with checkpoint_backend: orbax (1 warmup + 1 GAN step at
+            # batch 16), then one GAN step after the orbax resume, its two calls against plain on their inputs
+            "launches_orbax": {"train_2_steps": ob_tr["launches_train"]["vq_nearest_stats"],
+                               "resumed_gan_step": ob_tr["launches_resumed_step"]["vq_nearest_stats"]},
+            "orbax": ob_tr["stats"],
         },
         {
             "name": "vq_nearest_stats_sharded", "route": "cuda", "source": "msmctts_tpu_torch/csrc/vq_stats.cu",
@@ -6221,6 +6506,9 @@ def main(argv=None):
             "launches_export": {"fp32_artifact_batch": fx_exp["launches"]["fused_resblock_layer"],
                                 "int8_artifact_batch": fx_exp["int8"]["launches"]["fused_resblock_layer"]},
             "export": {"max_abs_err": fx_exp["resblock_max_abs_err"]},
+            # phase 22: the 36 layers of infer -m <snapshot>'s batch of 4, held against plain on their inputs
+            "launches_orbax": {"infer_snapshot_batch": ob_sv["launches"]["fused_resblock_layer"]},
+            "orbax": {"max_abs_err": ob_sv["resblock_max_abs_err"]},
             "tolerance": {**RB_TOL, "max_abs": RB_MAX_ABS},
             "shapes": f"per decode: the 36 CSMSC MRF layers at B={B}, {FRAMES} frames; bound_ms counts the kernel's operations, "
                       "three TF32 tensor-core products per fp32 product at 495 TFLOP/s; bound_fp32_ms the same products as "
@@ -6239,7 +6527,7 @@ def main(argv=None):
                        "sharded_kernels": shard_res, "nccl_world_1": nccl_res, "dp_training": dp_train,
                        "dp_inference": dp_infer, "am_training": am_res, "am_step_card_vs_cpu": am_cpu,
                        "am_entry_point": am_cli, "serving": serving, "qs_tts": qs, "istft": istft, "int8": int8,
-                       "quality_tools": tools, "ljspeech": lj, "bf16": bf16, "options": opts, "feed_export": fx,
+                       "quality_tools": tools, "ljspeech": lj, "bf16": bf16, "options": opts, "feed_export": fx, "orbax": ob,
                        "phase_s": spent, "wall_s": time.perf_counter() - t_start}, f, indent=1)
     log(f"[end] seconds per phase {json.dumps(spent)}")
     log(f"[end] wall {time.perf_counter() - t_start:.1f}s on {env['nvidia_smi']}")

@@ -41,6 +41,31 @@ from msmctts_tpu_torch.registry import register_network
 DISC_LRELU = 0.2
 
 
+class _LeakyReLU(torch.autograd.Function):
+    """``F.leaky_relu`` forward; the backward of ``jax.nn.leaky_relu``."""
+
+    @staticmethod
+    def forward(ctx, x, slope):
+        ctx.save_for_backward(x)
+        ctx.slope = slope
+        return F.leaky_relu(x, slope)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (x,) = ctx.saved_tensors
+        return torch.where(x >= 0, grad, grad * ctx.slope), None
+
+
+def leaky_relu(x, slope: float):
+    """``jax.nn.leaky_relu``: slope 1 at exactly 0 in the backward, where
+    ``F.leaky_relu``'s backward takes ``slope``. The two differ wherever an
+    activation is exactly 0, as a discriminator's zero-bias convs give over
+    the zero-padded tail of a target window; the values are the same."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _LeakyReLU.apply(x, slope)
+    return F.leaky_relu(x, slope)
+
+
 def _get_padding(kernel_size: int, dilation: int = 1) -> int:
     return (kernel_size * dilation - dilation) // 2
 
@@ -121,7 +146,7 @@ class ResBlock1(nn.Module):
 
     def forward_ncl(self, x):
         for c1, c2 in zip(self.convs1, self.convs2):
-            x = x + c2(F.leaky_relu(c1(F.leaky_relu(x, LRELU_SLOPE)), LRELU_SLOPE))
+            x = x + c2(leaky_relu(c1(leaky_relu(x, LRELU_SLOPE)), LRELU_SLOPE))
         return x
 
     def forward(self, x):
@@ -150,7 +175,7 @@ class ResBlock2(nn.Module):
     def forward(self, x):
         x = x.transpose(1, 2)
         for conv in self.convs:
-            x = x + conv(F.leaky_relu(x, LRELU_SLOPE))
+            x = x + conv(leaky_relu(x, LRELU_SLOPE))
         return x.transpose(1, 2)
 
 
@@ -190,20 +215,20 @@ class HifiGANGenerator(nn.Module):
         no kernel."""
         x = self.conv_pre(x.transpose(1, 2))
         for i, up in enumerate(self.ups):
-            x = up(F.leaky_relu(x, LRELU_SLOPE))
+            x = up(leaky_relu(x, LRELU_SLOPE))
             acc = None
             for j in range(self.num_kernels):
                 r = self.resblocks[i * self.num_kernels + j].forward_ncl(x)
                 acc = r if acc is None else acc + r
             x = acc / self.num_kernels
-        return self.conv_post(F.leaky_relu(x, 0.01))
+        return self.conv_post(leaky_relu(x, 0.01))
 
     def _trunk_eval(self, x):
         """The inference graph up to ``conv_post``'s output [B, C, T'], every
         MRF layer through the fused kernel."""
         x = self.conv_pre(x.transpose(1, 2))
         for i, up in enumerate(self.ups):
-            x = up(F.leaky_relu(x, LRELU_SLOPE)).transpose(1, 2).contiguous()  # [B, T, C]
+            x = up(leaky_relu(x, LRELU_SLOPE)).transpose(1, 2).contiguous()  # [B, T, C]
             acc = None
             for j in range(self.num_kernels):
                 r = self.resblocks[i * self.num_kernels + j](x)
@@ -211,7 +236,7 @@ class HifiGANGenerator(nn.Module):
             x = (acc / self.num_kernels).transpose(1, 2)
         # the reference's final activation uses torch's DEFAULT slope 0.01
         # (generator.py:52), not the resblock slope
-        return self.conv_post(F.leaky_relu(x, 0.01))
+        return self.conv_post(leaky_relu(x, 0.01))
 
     def _head(self, y):
         """``conv_post``'s output [B, 1, T'] -> waveform [B, T', 1]."""
@@ -331,7 +356,7 @@ class DiscriminatorR(nn.Module):
         fmaps = []
         for i, stage in enumerate(self.discriminator):
             if i > 0:
-                x = F.leaky_relu(x, DISC_LRELU)
+                x = leaky_relu(x, DISC_LRELU)
                 fmaps.append(x)
             x = stage[-1](stage[-2](x))  # reflection pad, conv
         return x, fmaps
@@ -424,7 +449,7 @@ class DiscriminatorP(nn.Module):
         for conv in self.convs:
             x = conv(x)
             fmaps.append(x)
-            x = F.leaky_relu(x, DISC_LRELU)
+            x = leaky_relu(x, DISC_LRELU)
         return self.conv_post(x).reshape(B, -1), fmaps
 
 

@@ -33,16 +33,18 @@ from msmctts_tpu_torch.data.loader import finite_loader
 from msmctts_tpu_torch.tasks import build_task
 from msmctts_tpu_torch.training.base_trainer import build_dataset_from_config
 from msmctts_tpu_torch.utils.audio import AudioConfig, mcd, melspectrogram
-from msmctts_tpu_torch.utils.checkpoint import load_checkpoint
+from msmctts_tpu_torch.utils.checkpoint import _is_complete_snapshot, load_checkpoint
 from msmctts_tpu_torch.utils.device import resolve_device
 
 
 def find_snapshots(ckpt_dir: str) -> dict:
-    """iteration -> path of every ``model_<N>`` file in ``ckpt_dir``."""
+    """iteration -> path of every ``model_<N>`` pickle or complete orbax
+    snapshot directory in ``ckpt_dir`` (not ``*.tmp``, nor a directory whose
+    ``state/`` is still being written)."""
     snaps = {}
     for path in glob.glob(os.path.join(ckpt_dir, "model_*")):
         m = re.fullmatch(r"model_(\d+)", os.path.basename(path))
-        if m:
+        if m and _is_complete_snapshot(path):
             snaps[int(m.group(1))] = path
     return snaps
 

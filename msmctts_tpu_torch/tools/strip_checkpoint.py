@@ -7,7 +7,8 @@ root ``tools/strip_checkpoint.py``):
 Keeps ``params`` minus the modules named by ``--drop`` (default the
 discriminator), ``codebook`` and ``model_state``, with the embedded config and
 the iteration, so the output still drives ``infer`` / ``serve`` /
-``tools.as_mcd_sweep`` of either package. Everything else a trainer stored
+``tools.as_mcd_sweep`` of either package. The input may be a pickle or an
+orbax snapshot directory; the output is a pickle, as the JAX tool writes. Everything else a trainer stored
 goes: the JAX trainer's optax state, the port trainer's ``torch_opt_state``
 and ``torch_rng``. Leaves are written as they were stored (a float16 input
 stays float16); ``--f16`` casts float32 leaves to float16, which halves the
@@ -23,6 +24,13 @@ import os
 import numpy as np
 
 from msmctts_tpu_torch.utils.checkpoint import map_leaves, read_checkpoint, save_checkpoint
+
+
+def _bytes(path: str) -> int:
+    """A file's size, or the sum over a snapshot directory's files."""
+    if not os.path.isdir(path):
+        return os.path.getsize(path)
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, files in os.walk(path) for f in files)
 
 
 def strip(state: dict, drop=("discriminator",), f16: bool = False) -> dict:
@@ -50,7 +58,7 @@ def main(argv=None):
 
     ckpt = read_checkpoint(args.ckpt)
     save_checkpoint(args.out, strip(ckpt["state"], args.drop, args.f16), ckpt["iteration"], ckpt["config"])
-    print(f"{args.out}: {os.path.getsize(args.out) / 1e6:.1f} MB (from {os.path.getsize(args.ckpt) / 1e6:.1f} MB)")
+    print(f"{args.out}: {os.path.getsize(args.out) / 1e6:.1f} MB (from {_bytes(args.ckpt) / 1e6:.1f} MB)")
     return args.out
 
 

@@ -47,8 +47,12 @@ state and the iteration left at 0 (``utils/checkpoint.filter_state_by_regex``,
 
 ``checkpoint_keep_interval: N`` keeps the snapshots every N steps and the
 newest two (``utils/checkpoint.clean_checkpoint_directory``), as the JAX
-trainer does; ``checkpoint_backend: orbax`` raises when the trainer is built
-(ROADMAP A7d), not at the first save.
+trainer does. ``checkpoint_backend: orbax`` writes each checkpoint as an
+orbax snapshot directory, its ``state/`` on a writer thread while training
+goes on (``utils/checkpoint.save_checkpoint_orbax``); the loop's ``finally``
+waits for it. A snapshot resumes into the optimizers as orbax's layout
+gives it back: ``load`` turns the state's string keys back into parameter
+indices and ``betas`` back into a tuple.
 
 The feed (``data/wire.py``): a ``DevicePrefetcher`` encodes each batch in
 the wire format of ``dataloader.wire_compression`` (default true: int16
@@ -95,6 +99,8 @@ from msmctts_tpu_torch.utils.checkpoint import (
     clean_checkpoint_directory,
     merge_states,
     save_checkpoint,
+    save_checkpoint_orbax,
+    wait_for_pending_saves,
 )
 from msmctts_tpu_torch.utils.logger import Logger
 from msmctts_tpu_torch.weights import init_random
@@ -133,13 +139,27 @@ def check_mesh_config(config, world: int):
         raise ValueError(f"the config asks for mesh.data = {n_data} but the run has {world} rank(s)")
 
 
+def _torch_optimizer_state(state: dict) -> dict:
+    """A port ``Optimizer.state_dict()`` as a checkpoint gives it back, in
+    the types torch's ``load_state_dict`` needs: an orbax snapshot returns
+    the per-parameter state under string keys (torch would keep them apart
+    from the parameters, and the moments would start cold) and ``betas`` as
+    a list."""
+    opt = dict(state["opt"])
+    opt["state"] = {int(k): v for k, v in opt["state"].items()}
+    opt["param_groups"] = [
+        {k: tuple(v) if k == "betas" else v for k, v in group.items()} for group in opt["param_groups"]
+    ]
+    return {**state, "opt": opt}
+
+
 class BaseTrainer:
     def __init__(self, config, task, group=None):
         if task.mode != "train":
             raise ValueError("a trainer needs a task built with mode='train'")
-        backend = str(config.get("checkpoint_backend", "pickle"))
-        if backend == "orbax":
-            raise NotImplementedError("checkpoint_backend: orbax is not ported (ROADMAP A7d); the port writes pickles")
+        self.checkpoint_backend = str(config.get("checkpoint_backend", "pickle"))
+        if self.checkpoint_backend not in ("pickle", "orbax"):
+            raise ValueError(f"checkpoint_backend {self.checkpoint_backend!r}: pickle or orbax")
         self.config = config
         self.task = task
         self.group = group
@@ -215,10 +235,19 @@ class BaseTrainer:
         if "torch_opt_state" in state:
             as_tensor = lambda x: torch.from_numpy(np.asarray(x)) if isinstance(x, np.ndarray) else x
             for name, opt in self.optimizers.items():
-                opt.load_state_dict(map_leaves(state["torch_opt_state"][name], as_tensor))
+                opt.load_state_dict(_torch_optimizer_state(map_leaves(state["torch_opt_state"][name], as_tensor)))
             self.generator.set_state(torch.from_numpy(np.asarray(state["torch_rng"], np.uint8)))
         else:
             self.restart_optimizer_counts(self.iteration)
+
+    def checkpoint_state(self) -> dict:
+        """What a checkpoint stores: the model state as the JAX package's
+        tree, the optimizers' state dicts and the generator's state."""
+        state = self.state_tree()
+        as_numpy = lambda x: x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else x
+        state["torch_opt_state"] = {n: map_leaves(o.state_dict(), as_numpy) for n, o in self.optimizers.items()}
+        state["torch_rng"] = self.generator.get_state().cpu().numpy()
+        return state
 
     def save(self) -> Optional[str]:
         """Write ``model_<iteration>``; under a group rank 0 alone does (the
@@ -227,12 +256,12 @@ class BaseTrainer:
         if self.rank != 0:
             return None
         path = os.path.join(self.save_dir, f"model_{self.iteration}")
-        state = self.state_tree()
-        as_numpy = lambda x: x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else x
-        state["torch_opt_state"] = {n: map_leaves(o.state_dict(), as_numpy) for n, o in self.optimizers.items()}
-        state["torch_rng"] = self.generator.get_state().cpu().numpy()
+        state = self.checkpoint_state()
         cfg = self.config.to_dict() if hasattr(self.config, "to_dict") else dict(self.config)
-        save_checkpoint(path, state, self.iteration, cfg)
+        if self.checkpoint_backend == "orbax":  # state/ is written on the writer thread
+            path = save_checkpoint_orbax(path, state, self.iteration, cfg)
+        else:
+            save_checkpoint(path, state, self.iteration, cfg)
         keep = self.config.get("checkpoint_keep_interval")
         if keep:
             clean_checkpoint_directory(self.save_dir, int(keep))
@@ -351,5 +380,6 @@ class BaseTrainer:
             batches.close()  # stops the loader's threads
             for sig, handler in prev_handlers.items():
                 signal.signal(sig, handler)
+            wait_for_pending_saves()  # the last snapshot is on disk, or its error raised
             logger.close()
         return self

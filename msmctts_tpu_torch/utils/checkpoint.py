@@ -18,8 +18,19 @@ of several checkpoints (a trainer's ``restore_checkpoint_path`` given as
 without flax.
 
 ``clean_checkpoint_directory`` keeps a run's snapshots every
-``checkpoint_keep_interval`` steps and its newest two. Orbax checkpoints
-(directories) are neither read nor written yet (ROADMAP A7d).
+``checkpoint_keep_interval`` steps and its newest two.
+
+Both of the JAX package's backends are read and written. An orbax snapshot
+(``checkpoint_backend: orbax``, ``msmctts_tpu/utils/checkpoint.py:59-119``)
+is a directory: ``meta.pkl`` (iteration, config, format
+``msmctts_tpu/orbax-v1``) and ``state/`` in orbax's layout, which
+``utils/orbax_format.py`` reads and writes without orbax. The state comes
+back as orbax restores it with no target (lists for tuples, string dict
+keys). :func:`save_checkpoint_orbax` renames ``meta.pkl`` into place and
+writes ``state/`` on a worker thread, under a temporary name renamed on
+commit; :func:`wait_for_pending_saves` waits for it and raises its error.
+A relative path is resolved against the working directory (the JAX reader
+refuses one).
 """
 
 from __future__ import annotations
@@ -27,11 +38,18 @@ from __future__ import annotations
 import os
 import pickle
 import re
-from typing import Optional
+import shutil
+import threading
+from concurrent.futures import Future, ThreadPoolExecutor
+from typing import List, Optional
 
 import numpy as np
+import torch
+
+from msmctts_tpu_torch.utils import orbax_format
 
 FORMAT = "msmctts_tpu/v1"
+ORBAX_FORMAT = "msmctts_tpu/orbax-v1"
 CKPT_PREFIX = "model_"
 
 
@@ -76,19 +94,33 @@ def _as_array(x):
 
 
 def read_checkpoint(path: str) -> dict:
-    """Read a ``msmctts_tpu/v1`` pickle as it was stored (a stripped
-    checkpoint's float16 stays float16).
+    """Read a checkpoint as it was stored (a stripped checkpoint's float16
+    stays float16): a ``msmctts_tpu/v1`` pickle, or an orbax snapshot
+    directory.
 
     Only load checkpoints this project wrote: unpickling runs code."""
     if os.path.isdir(path):
-        raise NotImplementedError(
-            f"{path} is an orbax checkpoint directory; the port reads "
-            f"'{FORMAT}' pickles only"
-        )
+        return _read_snapshot(os.path.abspath(path))
     with open(path, "rb") as f:
         payload = _Unpickler(f).load()
     if payload.get("format") != FORMAT:
         raise ValueError(f"{path}: format {payload.get('format')!r}, expected {FORMAT!r}")
+    return payload
+
+
+def _read_snapshot(path: str) -> dict:
+    wait_for_pending_saves()  # a snapshot this process may still be writing
+    meta = os.path.join(path, "meta.pkl")
+    if not os.path.isfile(meta):
+        raise FileNotFoundError(f"{path} is a directory without meta.pkl: not a snapshot")
+    with open(meta, "rb") as f:
+        payload = _Unpickler(f).load()
+    if payload.get("format") != ORBAX_FORMAT:
+        raise ValueError(f"{meta}: format {payload.get('format')!r}, expected {ORBAX_FORMAT!r}")
+    state = os.path.join(path, "state")
+    if not os.path.isdir(state):
+        raise FileNotFoundError(f"{path} has no state/: its save did not complete")
+    payload["state"] = orbax_format.read_snapshot(state)
     return payload
 
 
@@ -115,40 +147,109 @@ def save_checkpoint(path: str, state_tree: dict, iteration: int, config: dict):
     os.replace(tmp, path)
 
 
+# One worker thread writes the snapshots' state/ in the order they were
+# saved; its errors wait in the futures for wait_for_pending_saves().
+_WRITER = ThreadPoolExecutor(max_workers=1, thread_name_prefix="snapshot-writer")
+_PENDING: List[Future] = []
+_PENDING_LOCK = threading.Lock()
+
+
+def _host_copy(x):
+    """A leaf as host numpy that the next step cannot change."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().to("cpu", copy=True).numpy()
+    if isinstance(x, (np.ndarray, np.generic)):
+        return np.array(x)
+    return x
+
+
+def _commit_state(path: str, tree):
+    tmp = os.path.join(path, "state.tmp")
+    if os.path.isdir(tmp):
+        shutil.rmtree(tmp)
+    orbax_format.write_snapshot(tmp, tree)
+    os.replace(tmp, os.path.join(path, "state"))
+
+
+def save_checkpoint_orbax(path: str, state_tree, iteration: int, config: dict) -> str:
+    """Write an orbax snapshot directory at ``path`` (made absolute):
+    ``meta.pkl`` now, ``state/`` on the writer thread from host copies of
+    the leaves taken here. Returns the absolute path."""
+    path = os.path.abspath(path)
+    tree = map_leaves(state_tree, _host_copy)
+    tmp = path + ".tmp"
+    if os.path.isdir(tmp):  # a crashed save's
+        shutil.rmtree(tmp)
+    os.makedirs(tmp)
+    with open(os.path.join(tmp, "meta.pkl"), "wb") as f:
+        pickle.dump({"iteration": int(iteration), "config": config, "format": ORBAX_FORMAT}, f, protocol=4)
+    if os.path.exists(path):
+        # a re-save to the same path: a write in flight into it lands first
+        wait_for_pending_saves()
+        if os.path.isdir(path):
+            shutil.rmtree(path)
+        else:
+            os.remove(path)
+    os.replace(tmp, path)  # meta.pkl visible; state/ comes on commit
+    with _PENDING_LOCK:
+        _PENDING.append(_WRITER.submit(_commit_state, path, tree))
+    return path
+
+
+def wait_for_pending_saves():
+    """Block until every snapshot this process has saved is on disk; raise
+    the first error a write met (each error is raised once)."""
+    with _PENDING_LOCK:
+        pending = list(_PENDING)
+        _PENDING.clear()
+    error = None
+    for future in pending:
+        e = future.exception()
+        if e is not None and error is None:
+            error = e
+    if error is not None:
+        raise RuntimeError(f"an orbax snapshot write failed: {error}") from error
+
+
 def checkpoint_step(path: str) -> int:
     m = re.search(r"model_(\d+)", os.path.basename(path))
     return int(m.group(1)) if m else -1
 
 
+def _is_complete_snapshot(path: str) -> bool:
+    """A pickle (written whole by rename), or a snapshot directory with
+    ``meta.pkl`` and ``state/`` (a save in flight has no ``state/`` yet)."""
+    if not os.path.isdir(path):
+        return True
+    return os.path.isfile(os.path.join(path, "meta.pkl")) and os.path.isdir(os.path.join(path, "state"))
+
+
+def _candidates(save_dir: str) -> List[str]:
+    return [os.path.join(save_dir, f) for f in os.listdir(save_dir) if f.startswith(CKPT_PREFIX) and not f.endswith(".tmp")]
+
+
 def find_latest_checkpoint(save_dir: str) -> Optional[str]:
-    """The ``model_<step>`` pickle with the highest step in ``save_dir``
-    (auto-resume), or None."""
+    """The complete ``model_<step>`` pickle or snapshot directory with the
+    highest step in ``save_dir`` (auto-resume), or None."""
     if not os.path.isdir(save_dir):
         return None
-    cands = [
-        os.path.join(save_dir, f) for f in os.listdir(save_dir)
-        if f.startswith(CKPT_PREFIX) and not f.endswith(".tmp") and os.path.isfile(os.path.join(save_dir, f))
-    ]
+    cands = [p for p in _candidates(save_dir) if _is_complete_snapshot(p)]
     return max(cands, key=checkpoint_step) if cands else None
 
 
 def clean_checkpoint_directory(save_dir: str, interval: int, keep_last: int = 2):
-    """Delete the ``model_<step>`` pickles whose step is not a multiple of
-    ``interval``, except the newest ``keep_last`` (a trainer's
-    ``checkpoint_keep_interval``; ``msmctts_tpu/utils/checkpoint.py:151-173``).
-    Pickles only: the port writes no orbax directory."""
+    """Delete the ``model_<step>`` checkpoints (pickles and snapshot
+    directories) whose step is not a multiple of ``interval``, except the
+    newest ``keep_last`` (a trainer's ``checkpoint_keep_interval``;
+    ``msmctts_tpu/utils/checkpoint.py:151-173``)."""
     if not os.path.isdir(save_dir):
         return
-    cands = sorted(
-        (
-            os.path.join(save_dir, f) for f in os.listdir(save_dir)
-            if f.startswith(CKPT_PREFIX) and not f.endswith(".tmp") and os.path.isfile(os.path.join(save_dir, f))
-        ),
-        key=checkpoint_step,
-    )
-    for path in cands[:-keep_last]:
+    for path in sorted(_candidates(save_dir), key=checkpoint_step)[:-keep_last]:
         if interval > 0 and checkpoint_step(path) % interval != 0:
-            os.remove(path)
+            if os.path.isdir(path):
+                shutil.rmtree(path)
+            else:
+                os.remove(path)
 
 
 def _flatten(tree: dict, prefix=()) -> dict:

@@ -14,7 +14,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "msmctts_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msmctts_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msmctts_tpu", "orbax", "tensorstore", "zstandard", "numcodecs")
 
 
 def _port_files():
@@ -37,6 +37,7 @@ def _forbidden(name: str) -> bool:
 
 def test_forbidden_names_are_recognised():
     assert _forbidden("jax.numpy") and _forbidden("msmctts_tpu.config")
+    assert _forbidden("orbax.checkpoint") and _forbidden("tensorstore") and _forbidden("zstandard")
     assert _forbidden("flax.linen") and _forbidden("optax")
     assert not _forbidden("msmctts_tpu_torch.ops.vq") and not _forbidden("torch")
 
@@ -64,7 +65,8 @@ def test_scan_covers_the_training_slice():
         "msmctts_tpu_torch/utils/logger.py", "msmctts_tpu_torch/tools/strip_checkpoint.py",
         "msmctts_tpu_torch/tools/convert_torch_checkpoint.py", "msmctts_tpu_torch/tools/load_test.py",
         "msmctts_tpu_torch/data/native.py", "msmctts_tpu_torch/data/wire.py", "msmctts_tpu_torch/export.py",
-        "msmctts_tpu_torch/tools/export_tts.py",
+        "msmctts_tpu_torch/tools/export_tts.py", "msmctts_tpu_torch/utils/zstd.py",
+        "msmctts_tpu_torch/utils/ocdbt.py", "msmctts_tpu_torch/utils/orbax_format.py",
     ):
         assert rel in scanned, rel
 
@@ -98,7 +100,7 @@ def test_every_port_module_imports_without_the_jax_package():
     assert "msmctts_tpu_torch.parallel.mesh" in modules and "msmctts_tpu_torch.train_dist" in modules
     for m in ("streaming", "serving", "serve", "infer", "utils.plot", "tools.qat_int8", "tools.as_mcd_sweep",
               "utils.audio", "utils.logger", "ops.qat_int8", "tools.strip_checkpoint", "tools.convert_torch_checkpoint",
-              "tools.load_test"):
+              "tools.load_test", "utils.zstd", "utils.ocdbt", "utils.orbax_format"):
         assert f"msmctts_tpu_torch.{m}" in modules
 
 
@@ -221,5 +223,23 @@ def test_checkpoint_reader_upcasts_and_checks_format(tmp_path):
         pickle.dump({"format": "other"}, f)
     with pytest.raises(ValueError, match="format"):
         load_checkpoint(path)
-    with pytest.raises(NotImplementedError, match="orbax"):
+    with pytest.raises(FileNotFoundError, match="without meta.pkl"):  # a directory that is no snapshot
         load_checkpoint(str(tmp_path))
+
+
+def test_the_zstd_decoder_builds_with_gxx_here(tmp_path, monkeypatch):
+    """``utils/zstd.py`` compiles ``csrc/zstd_decode.cc`` with g++ into the
+    build directory, keyed by source and flags; a fresh build directory
+    builds anew, and a build that fails raises with the compiler's output."""
+    from msmctts_tpu_torch.utils import zstd
+
+    monkeypatch.setattr(zstd, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(zstd, "_lib", None)
+    before = zstd.builds()
+    path = zstd.build()
+    assert path.startswith(str(tmp_path / "build")) and os.path.basename(path).startswith("libmsmc_zstd-")
+    assert zstd.builds() == before + 1 and zstd.build() == path and zstd.builds() == before + 1
+    assert zstd.decompress(zstd.compress_raw(b"abc" * 100)) == b"abc" * 100
+    monkeypatch.setattr(zstd, "CXX_FLAGS", zstd.CXX_FLAGS + ("-DMSMC_BROKEN", "-include", "no_such_header.h"))
+    with pytest.raises(RuntimeError, match="no_such_header"):
+        zstd.build()

@@ -1,6 +1,6 @@
 """The port's tools and entry-point options against the JAX package's, on
 the CPU: checkpoint retention (``checkpoint_keep_interval``; the orbax
-backend refused), ``tools.strip_checkpoint``, ``tools.convert_torch_checkpoint``,
+backend's snapshot resumed), ``tools.strip_checkpoint``, ``tools.convert_torch_checkpoint``,
 ``synthesize --static-frames``, ``train --profile`` and ``tools.load_test``.
 
 Tolerances.
@@ -144,13 +144,23 @@ def test_trainer_keeps_what_the_jax_trainer_keeps(corpus, tmp_path):
     assert got == _names(str(ref)) == ["model_2", "model_4", "model_5"]
 
 
-def test_orbax_backend_is_refused_when_the_trainer_is_built(corpus):
+def test_orbax_backend_writes_a_snapshot_directory_that_the_trainer_resumes(corpus, tmp_path):
     config = tiny_ae_config(corpus)
     config["checkpoint_backend"] = "orbax"
-    with pytest.raises(NotImplementedError, match="A7d"):
+    config["save_checkpoint_dir"] = str(tmp_path / "ckpt")
+    trainer = _port_trainer(config.to_dict())
+    trainer.train(max_steps=2, log_every=2)
+    snap = tmp_path / "ckpt" / "model_2"
+    assert sorted(os.listdir(snap)) == ["meta.pkl", "state"]  # train() waited for the writer thread
+    assert {"_METADATA", "manifest.ocdbt"} <= set(os.listdir(snap / "state"))
+    again = _port_trainer(config.to_dict())
+    again.attempt_resume()
+    assert again.iteration == 2 and again.ae_opt.count == trainer.ae_opt.count == 2
+    for k, v in trainer.ae.state_dict().items():
+        assert torch.equal(again.ae.state_dict()[k], v), k
+    config["checkpoint_backend"] = "tensorstore"
+    with pytest.raises(ValueError, match="pickle or orbax"):
         _port_trainer(config.to_dict())
-    config["checkpoint_backend"] = "pickle"
-    assert _port_trainer(config.to_dict()).iteration == 0
 
 
 # ------------------------------------------------------------------ strip

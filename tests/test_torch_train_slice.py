@@ -348,3 +348,59 @@ def test_eval_after_a_train_step_uses_refolded_weights(corpus):
     state = torch.get_rng_state()
     trainer.train_step(batch, 5 + trainer.warmup_steps)
     assert torch.equal(torch.get_rng_state(), state)
+
+
+def test_leaky_relu_takes_jax_slope_at_zero():
+    """``models.hifigan.leaky_relu`` against ``jax.nn.leaky_relu``: the same
+    values, and slope 1 at exactly 0 in the backward (``F.leaky_relu``'s
+    backward takes the negative slope there)."""
+    from msmctts_tpu_torch.models.hifigan import leaky_relu
+
+    x = np.array([-2.0, -0.5, 0.0, -0.0, 0.5, 3.0], np.float32)
+    want = np.asarray(jax.nn.leaky_relu(x, 0.2))
+    want_grad = np.asarray(jax.grad(lambda v: jax.nn.leaky_relu(v, 0.2).sum())(x))
+    t = torch.tensor(x, requires_grad=True)
+    y = leaky_relu(t, 0.2)
+    y.sum().backward()
+    np.testing.assert_array_equal(y.detach().numpy(), want)
+    np.testing.assert_array_equal(t.grad.numpy(), want_grad)
+    assert want_grad[2] == 1.0
+    with torch.no_grad():  # the one-kernel path of a pass without gradients
+        np.testing.assert_array_equal(leaky_relu(torch.tensor(x), 0.2).numpy(), want)
+
+
+def test_gan_step_over_padded_windows_matches_jax(corpus, capsys):
+    """One GAN step whose windows reach into the batch's padding, from one
+    JAX init (ROADMAP C2): the first batch of the tiny corpus (13-18 frames
+    in the 64-frame bucket) with ``sample_lengths`` 256, so every window is
+    the whole padded bucket from frame 0. The discriminators' zero-bias
+    convs give exactly 0 over the zero-padded target, where the leaky ReLU's
+    backward slope decides the discriminator's first update; with torch's
+    slope there ``fm_loss`` was 1.8e-4 relative from JAX. Held to the train
+    slice's METRIC_RTOL."""
+    config = _no_dropout(tiny_ae_config(corpus))
+    config["trainer"]["sample_lengths"] = 256
+    config["trainer"]["warmup_steps"] = 0
+    config["save_checkpoint_dir"] = corpus + "/ckpt_padded"
+    with jax.default_matmul_precision("highest"):
+        jtask = build_task(config, mode="train")
+        jt = get_trainer("VQGANTrainer")(config, jtask, mesh=make_mesh(1), **component_kwargs(config.trainer))
+        batch = next(iter(JDataLoader(j_build_dataset(config, training=True), batch_size=4, num_workers=0)))
+        batch = {k: batch[k] for k in ("mel", "mel_length", "wav")}
+        assert batch["mel"].shape[1] == 64 and int(batch["mel_length"].max()) < 64
+        state0 = jax.device_get(jt.init_state(jax.random.PRNGKey(0), batch))
+        _, m = jt.train_step(jax.device_put(state0), batch, 1)
+        want = m.to_host()
+        r_win, _ = jax.random.split(jax.random.fold_in(jax.random.PRNGKey(jt.seed), np.uint32(1)))
+        maxval = np.maximum(batch["mel_length"].astype(np.int32) - jt.frame_lengths, 1)
+        starts = np.asarray(jax.random.randint(r_win, (4,), 0, maxval))
+    assert (starts == 0).all()
+    trainer = _port_trainer(config.to_dict())
+    W.train_state_from_jax(state0, trainer.ae, trainer.disc)
+    got = {k: float(v) for k, v in trainer.train_step(to_device(batch, "cpu"), 1, starts=torch.tensor(starts)).items()}
+    assert sorted(got) == sorted(want) and "fm_loss" in got
+    gaps = {k: abs(got[k] - float(want[k])) / max(abs(float(want[k])), 1e-12) for k in ("fm_loss", "adv_loss")}
+    with capsys.disabled():
+        print(f"\npadded windows, relative gap from JAX: {gaps}")
+    for k in want:
+        assert got[k] == pytest.approx(want[k], rel=METRIC_RTOL, abs=1e-6), (k, got[k], want[k])
