@@ -254,12 +254,14 @@ JSON file.
 """
 
 import argparse
+import atexit
 import json
 import math
 import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -301,7 +303,12 @@ STEP_TOL = {"loss_rtol": 2e-3, "codebook_atol": 1e-4}
 BN_STATS_RTOL = 1e-3
 # W ranks against one rank after several steps: an assignment may fall the other
 # way only between two codewords this close (relative distance gap), and only so many may
-DP_TOL = {"flip_rel_gap": 1e-3, "max_flips": 16}
+DP_TOL = {"flip_rel_gap": 1e-3, "max_flips": 16, "last_codebook_atol": 1e-4}
+# data x model ranks (tensor parallelism) against one rank: the model group's
+# partial products are summed in another order, so the weights part from one
+# rank's by more rounding each step; on the H100 four steps gave flips at gaps
+# up to 2.3e-3 and untouched codewords up to 3.3e-4 from one rank's
+TP_TOL = {"flip_rel_gap": 5e-3, "max_flips": 16, "last_codebook_atol": 1e-3}
 WORLD = 2  # ranks of the data-parallel phases; they share the one card
 BACKEND = "gloo"  # of those phases: NCCL refuses two ranks on one device
 NVLINK_BYTES = 450e9  # per direction between two cards of one host (published)
@@ -314,7 +321,10 @@ AM_STEPS = 4
 
 
 def log(*args):
-    print(*args, flush=True)
+    """A line of the run's output, after the wall-clock time (the same clock
+    in the spawned ranks), so that every step's seconds can be read off."""
+    now = time.time()
+    print(f"{time.strftime('%H:%M:%S', time.localtime(now))}.{int(now * 10) % 10}", *args, flush=True)
 
 
 def time_ms(fn, runs=10, reps=5, warmup=3):
@@ -787,14 +797,11 @@ def phase_text_to_wav(card, seed=1234):
     tokens = " ".join("_".join(str(v) for v in row) for row in one)
     wav_path = os.path.join(SMOKE_DIR, "synthesize.wav")
     env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    t0 = time.perf_counter()
-    res = subprocess.run(
+    t0 = time.perf_counter()  # the CLI's process starts while the card vs CPU check runs here
+    synth = subprocess.Popen(
         [sys.executable, "-m", "msmctts_tpu_torch.synthesize", "-m", am_path, "--text", tokens, "-o", wav_path],
-        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600,
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
     )
-    if res.returncode != 0 or not os.path.exists(wav_path):
-        raise AssertionError(f"synthesize failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
-    log(f"[5] synthesize subprocess ({time.perf_counter() - t0:.1f}s): {res.stdout.strip().splitlines()[-1]}")
 
     task.load_variables(load_checkpoint(am_path)["state"])  # the weights as written
     task.pre_infer()
@@ -812,6 +819,11 @@ def phase_text_to_wav(card, seed=1234):
     if not same or err > AS_TOL:
         raise AssertionError(f"predict disagrees with the CPU: equal {same}, err {err}")
     del cpu
+    stdout, stderr = synth.communicate(timeout=600)
+    if synth.returncode != 0 or not os.path.exists(wav_path):
+        raise AssertionError(f"synthesize failed ({synth.returncode}):\n{stdout}\n{stderr}")
+    log(f"[5] synthesize subprocess ({time.perf_counter() - t0:.1f}s, the CPU check meanwhile): "
+        f"{stdout.strip().splitlines()[-1]}")
 
     n_phones = [24, 57, 96, 128]
     Lt = bucket_length(max(n_phones), TEXT_BUCKETS)
@@ -850,7 +862,7 @@ def phase_text_to_wav(card, seed=1234):
         "first_ms": first_ms, "warm_ms": warm_ms, "warm_runs_ms": warm, "audio_s": audio_s,
         "cpu_wav_err": err, "am_params": n_params,
     }
-    reference = {"am_path": am_path, "batch": batch, "out": out}
+    reference = {"am_path": am_path, "batch": batch, "out": out, "n_symbols": n_symbols}
     return result, lambda: task.predict(batch), reference
 
 
@@ -863,15 +875,18 @@ def _train_batch(rng, lengths, T, n_mel=80, frameshift=300):
     return {"mel": mel, "mel_length": lengths, "wav": wav}
 
 
-def _build_trainer(device, warmup_steps, dropout=None, seed=1234, group=None, precision=None):
+def _build_trainer(device, warmup_steps, dropout=None, seed=1234, group=None, precision=None, mesh_node=None):
     """The CSMSC autoencoder recipe through the normal construction, with
-    the trained autoencoder of the fixture and a seeded discriminator."""
+    the trained autoencoder of the fixture and a seeded discriminator;
+    ``mesh_node`` ({data, model}) for tensor parallelism over ``group``."""
     from msmctts_tpu_torch.config import component_kwargs
     from msmctts_tpu_torch.registry import get_trainer
     from msmctts_tpu_torch.tasks import build_task
     from msmctts_tpu_torch.utils.checkpoint import load_checkpoint
 
     cfg = _recipe_config(AE_YAML, os.path.join(SMOKE_DIR, "ckpt_ae"), warmup_steps, dropout, seed, precision)
+    if mesh_node is not None:
+        cfg["mesh"] = dict(mesh_node)
     task = build_task(cfg, device=device, mode="train")
     trainer = get_trainer(cfg.trainer["_name"])(cfg, task, group=group, **component_kwargs(cfg.trainer))
     trainer.init_state()
@@ -1209,8 +1224,31 @@ def rank_sharded_kernels(group, device):
     return {"rows": rows, "snap_rows": snap_rows, "timing": timing}
 
 
-def phase_sharded_kernels(backend, card):
-    res = _run_ranks(rank_sharded_kernels, WORLD, backend)
+def rank_group_phases(group, device, batch_np, reference_indices, am_path, batch, engine_texts):
+    """Phases 8, 10 and 11 on this rank, one after the other in one spawn."""
+    out = {"sharded": rank_sharded_kernels(group, device)}
+    torch.cuda.empty_cache()
+    out["train"] = rank_train(group, device, batch_np, reference_indices)
+    torch.cuda.empty_cache()
+    out["predict"] = rank_predict(group, device, am_path, batch, engine_texts)
+    return out
+
+
+def _group_texts(n_symbols):
+    """Phase 11's requests of the engine over the group."""
+    rng = np.random.default_rng(11)
+    return [_phone_string(_text(rng, [n], n_symbols, n)[0]) for n in (24, 57, 40)][:GROUP_TEXTS]
+
+
+def phase_two_ranks(backend, batch_np, train_ref, tts_ref):
+    """The ranks of phases 8, 10 and 11: one spawn of ``WORLD`` processes
+    sharing the card. -> {phase: [result per rank]}."""
+    res = _run_ranks(rank_group_phases, WORLD, backend, batch_np, train_ref["indices"], tts_ref["am_path"],
+                     tts_ref["batch"], _group_texts(tts_ref["n_symbols"]))
+    return {k: [r[k] for r in res] for k in ("sharded", "train", "predict")}
+
+
+def phase_sharded_kernels(res, backend, card):
     worst_plain = worst_one = worst_snap = 0.0
     snap_mismatches = 0
     for case in zip(*(r["snap_rows"] for r in res)):
@@ -1298,6 +1336,30 @@ def rank_nccl(group, device, batch_np):
             "g_loss": metrics["g_loss"], "d_loss": metrics["d_loss"]}
 
 
+class _Beside(threading.Thread):
+    """``fn(*args)`` on a thread of its own, beside what this thread does
+    next; ``result()`` waits for it and raises what it raised."""
+
+    def __init__(self, fn, *args):
+        super().__init__(daemon=True)
+        self.fn, self.args, self.out, self.error, self.seconds = fn, args, None, None, 0.0
+        self.start()
+
+    def run(self):
+        t0 = time.perf_counter()
+        try:
+            self.out = self.fn(*self.args)
+        except BaseException as e:  # raised again by result()
+            self.error = e
+        self.seconds = time.perf_counter() - t0
+
+    def result(self):
+        self.join()
+        if self.error is not None:
+            raise self.error
+        return self.out
+
+
 def phase_nccl(batch_np):
     from msmctts_tpu_torch.parallel.launch import run_ranks
 
@@ -1309,24 +1371,27 @@ def phase_nccl(batch_np):
     return res
 
 
-def rank_train(group, device, batch_np, reference_indices):
-    """Phase 6's steps on this rank's 8 rows of the global batch. Where an
+def rank_train(group, device, batch_np, reference_indices, mesh_node=None, save_dir=None):
+    """Phase 6's steps on this rank's rows of the global batch (its block of
+    the data axis under tensor parallelism, ``mesh_node``). Where an
     assignment differs from the one-rank run's (``reference_indices``, one
     [B, T, H] per stage pass), the distance gap between the two codewords
-    is recorded, under this rank's input and codebook."""
+    is recorded, under this rank's input and codebook. With ``save_dir`` the
+    run ends with a checkpoint there (gathered, rank 0 writing)."""
     import hashlib
 
     from msmctts_tpu_torch.data.loader import to_device
-    from msmctts_tpu_torch.parallel import mesh
+    from msmctts_tpu_torch.parallel import mesh, sharding
     from msmctts_tpu_torch.training.base_trainer import metrics_to_host
     from msmctts_tpu_torch.weights import assert_replicated
 
-    trainer = _build_trainer("cuda", warmup_steps=2, group=group)
+    trainer = _build_trainer("cuda", warmup_steps=2, group=group, mesh_node=mesh_node)
     ae, disc = trainer.ae, trainer.disc
     assert_replicated([ae, disc], group)
-    batch = to_device(mesh.shard_rows(batch_np, group.rank, group.world), "cuda")
+    d_rank, d_world = trainer.rank, trainer.world  # the data axis: the rows
+    batch = to_device(mesh.shard_rows(batch_np, d_rank, d_world), "cuda")
     indices, codebooks, flips, runner_up_gaps = [], [], [], []
-    rows = slice(group.rank * TRAIN_B // group.world, (group.rank + 1) * TRAIN_B // group.world)
+    rows = slice(d_rank * TRAIN_B // d_world, (d_rank + 1) * TRAIN_B // d_world)
     old_embed = {}
 
     def before(q, args):
@@ -1340,8 +1405,10 @@ def rank_train(group, device, batch_np, reference_indices):
         if not torch.equal(idx_f, want_f):
             gaps = _index_gaps(x, old_embed[q], idx_f, want_f)
             where = (idx_f != want_f).nonzero()
+            frames = want.shape[1]  # of this stage: want is [rows, frames, heads]
             flips.extend({"pass": len(indices), "stage": stage, "head": int(h), "codewords": [int(idx_f[n, h]), int(want_f[n, h])],
-                          "rel_gap": float(g)} for (n, h), g in zip(where, gaps))
+                          "rel_gap": float(g), "row": rows.start + int(n) // frames}
+                         for (n, h), g in zip(where, gaps))
         top2 = _distances(x, old_embed[q]).topk(2, dim=-1, largest=False).values
         runner_up_gaps.append(float(((top2[..., 1] - top2[..., 0]) / top2[..., 0].abs().clamp_min(1.0)).median()))
         indices.append(idx.cpu())
@@ -1355,45 +1422,78 @@ def rank_train(group, device, batch_np, reference_indices):
         torch.cuda.synchronize()
         mesh.barrier(group)
         mesh.reset_collective_counts()
+        sharding.PAIR_REDUCES[0] = 0
         _reset_counts()
         t0 = time.perf_counter()
-        metrics = trainer.train_step(batch, it)
+        if mesh_node is not None and it == 4:  # kernel row 3's calls of the last step, to hold against plain
+            box = {}
+            stats_rows = _stats_rows(ae, lambda: box.update(metrics=trainer.train_step(batch, it)))
+            metrics = box["metrics"]
+        else:
+            metrics = trainer.train_step(batch, it)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         launches = _counts()
         steps.append({"iteration": it, "ms": ms, "metrics": metrics_to_host(metrics), "launches": launches,
-                      "collectives": mesh.collective_counts()})
+                      "collectives": mesh.collective_counts(), "by_group": mesh.collective_counts(by_group=True),
+                      "pair_reduces": sharding.PAIR_REDUCES[0]})
         codebooks.append(_codebook_state(ae))
     for h in hooks:
         h.remove()
+    out = {"model_rank": mesh.rank(trainer.tp), "d_rank": d_rank}
+    if trainer.tp is not None:
+        out["stats"] = _hold_stats(stats_rows, f"rank {group.rank} (data {d_rank}, model {trainer.tp.rank}) GAN step 4",
+                                   "[23]", timed=False, ties=True)
+        out["pairs"] = {"fft": sum(type(m).__name__ != "ResBlock1" for m in trainer._plan.modules),
+                        "mrf": sum(len(m.dilations) for m in trainer._plan.modules if type(m).__name__ == "ResBlock1"),
+                        "marked": len(trainer._plan.marked), "kept_whole": sorted(trainer._plan.replicated)}
+    trainer.unshard()  # the gathered state (a no-op without a model group)
     assert_replicated([ae, disc], group)  # parameters and codebooks bit-equal across ranks
     digest = hashlib.sha256()
     for t in list(ae.state_dict().values()) + list(disc.state_dict().values()):
         digest.update(t.detach().cpu().numpy().tobytes())
-    return {"steps": steps, "indices": indices, "codebooks": codebooks, "digest": digest.hexdigest(),
+    if save_dir is not None:
+        trainer.save_dir, trainer.iteration = save_dir, 4
+        t0 = time.perf_counter()
+        out["checkpoint"] = mesh.broadcast_object(trainer.save(), group)
+        out["save_s"] = time.perf_counter() - t0
+    return {**out, "steps": steps, "indices": indices, "codebooks": codebooks, "digest": digest.hexdigest(),
             "flips": flips, "median_runner_up_gap": runner_up_gaps}
 
 
-def phase_dp_training(backend, batch_np, reference, card):
-    res = _run_ranks(rank_train, WORLD, backend, batch_np, reference["indices"])
-    if len({r["digest"] for r in res}) != 1:
+def phase_dp_training(res, backend, reference, card):
+    return _hold_dp_training(res, reference, backend, card, "[10]", f"{WORLD} ranks x {TRAIN_B // WORLD} rows")
+
+
+def _hold_dp_training(res_all, reference, backend, card, tag, what, tol=DP_TOL):
+    """Phase 10's holds of a run's ranks against phase 6's one-rank run
+    (``reference``); under tensor parallelism the ranks of model rank 0
+    hold the blocks of rows, to ``TP_TOL``."""
+    res = sorted((r for r in res_all if r["model_rank"] == 0), key=lambda r: r["d_rank"])
+    if len({r["digest"] for r in res_all}) != 1:
         raise AssertionError("data-parallel training: the ranks' final states differ")
-    worst = {"loss_rel": 0.0, "codebook_abs": 0.0}
+    worst = {"loss_rel": 0.0, "codebook_abs": 0.0, "loss_rel_per_step": []}
     for step, want in zip(res[0]["steps"], reference["metrics"]):
+        worst["loss_rel_per_step"].append(0.0)
         for k, w in want.items():
             got = step["metrics"][k]
             rel = abs(got - w) / max(abs(w), 1e-3)
             worst["loss_rel"] = max(worst["loss_rel"], rel)
+            worst["loss_rel_per_step"][-1] = max(worst["loss_rel_per_step"][-1], rel)
             if rel > STEP_TOL["loss_rtol"]:
                 raise AssertionError(f"data-parallel step {step['iteration']}, {k}: {WORLD} ranks {got} vs one rank {w}")
-    for r in res[1:]:
+    for r in res_all[1:]:
         if [s["metrics"] for s in r["steps"]] != [s["metrics"] for s in res[0]["steps"]]:
             raise AssertionError("data-parallel training: the ranks report different metrics")
     # Assignments. Step 1 starts from equal state, so its indices must be equal.
     # Later steps see weights that differ by rounding (cuDNN's choices at batch 8
     # and at batch 16), so an assignment between two codewords at nearly equal
     # distance may fall the other way: each such is shown with its distance gap,
-    # held to DP_TOL, and only the codewords it touches may then differ.
+    # held to ``tol``, and only the codewords it touches may then differ. A
+    # later stage's input is built from the earlier stage's codes of the same
+    # utterance, so a flip there changes that utterance's input to the later
+    # stage of the same step: the later stage's flips in that utterance follow
+    # from it at any gap, and only the flips that follow from none are held.
     flips = [int((torch.cat([r["indices"][i] for r in res]) != want).sum()) for i, want in enumerate(reference["indices"])]
     assignments = sum(want.numel() for want in reference["indices"])
     same = flips[0] == 0 and flips[1] == 0
@@ -1401,6 +1501,8 @@ def phase_dp_training(backend, batch_np, reference, card):
     if len(flipped) != sum(flips):
         raise AssertionError(f"data-parallel training: {sum(flips)} assignments differ, the ranks recorded {len(flipped)}")
     stages = len(reference["codebooks"][0])
+    roots = [f for f in flipped if not any(g["pass"] // stages == f["pass"] // stages and g["stage"] < f["stage"]
+                                           and g["row"] == f["row"] for g in flipped)]
     touched = [torch.zeros_like(reference["codebooks"][0][s][1], dtype=torch.bool) for s in range(stages)]  # [H, K] each
     for f in flipped:
         touched[f["stage"]][f["head"], f["codewords"]] = True
@@ -1425,39 +1527,43 @@ def phase_dp_training(backend, batch_np, reference, card):
     last_untouched = codebook_diff(3, untouched_only=True, per_cluster_size=True)
     sizes = [float(b[1].max()) for b in reference["codebooks"][3]]
     worst["codebook_abs"] = max(first)
-    for r in res:
+    for r in res_all:
         for step in r["steps"]:
             want = {"vq_nearest": 0, "vq_nearest_stats": 2, "fused_resblock_layer": 0}
             if step["launches"] != want:
                 raise AssertionError(f"data-parallel step {step['iteration']}: launches {step['launches']}, expected {want}")
     per_step = [{k: v for k, v in s["collectives"].items() if v["calls"]} for s in res[0]["steps"]]
-    log(f"[10] {WORLD} ranks x {TRAIN_B // WORLD} rows vs one rank x {TRAIN_B}, dropout on, 2 warmup + 2 GAN steps (backend {backend}): "
-        f"first-step indices equal {same}, worst metric rel diff {worst['loss_rel']:.3g}; codebook after the first step "
+    log(f"{tag} {what} vs one rank x {TRAIN_B}, dropout on, 2 warmup + 2 GAN steps (backend {backend}): "
+        f"first-step indices equal {same}, worst metric rel diff {worst['loss_rel']:.3g} (per step "
+        f"{[float(f'{v:.3g}') for v in worst['loss_rel_per_step']]}); codebook after the first step "
         f"(embed, cluster_size, embed_avg) within {first}; parameters and codebooks bit-equal across ranks; "
         f"2 vq_stats launches per step per rank")
-    log(f"[10] assignments that differ, per stage pass of steps 1-4: {flips} of {assignments}; each with the relative distance "
+    log(f"{tag} assignments that differ, per stage pass of steps 1-4: {flips} of {assignments}, {len(roots)} of them not "
+        f"following from an earlier stage's flip in the same step and utterance; each with the relative distance "
         f"gap between its two codewords: {json.dumps(flipped)}; median gap to the runner-up over all rows, per stage pass: "
         f"{[round(g, 4) for g in res[0]['median_runner_up_gap']]}")
-    log(f"[10] codebook after the last step (embed, cluster_size, embed_avg per unit of cluster size): within {last_untouched} on the "
+    log(f"{tag} codebook after the last step (embed, cluster_size, embed_avg per unit of cluster size): within {last_untouched} on the "
         f"{sum(int((~t).sum()) for t in touched)} codewords no differing assignment touches (embed_avg itself within "
         f"{last_untouched_abs[2]}, cluster sizes up to {[round(v, 1) for v in sizes]}); (embed, cluster_size, embed_avg) within {last} on all")
-    log(f"[10] collectives per step per rank: {json.dumps(per_step)}")
-    log(f"[10] step wall per rank, two processes time-slicing {card} (no scaling figure): "
-        f"{[[round(s['ms'], 1) for s in r['steps']] for r in res]} ms")
+    log(f"{tag} collectives per step per rank: {json.dumps(per_step)}")
+    log(f"{tag} step wall per rank, {len(res_all)} processes time-slicing {card} (no scaling figure): "
+        f"{[[round(s['ms'], 1) for s in r['steps']] for r in res_all]} ms")
     if not same or worst["codebook_abs"] > STEP_TOL["codebook_atol"]:
         raise AssertionError(f"data-parallel training disagrees with one rank after the first step: indices equal {same}, {first}")
-    wide = [f for f in flipped if f["rel_gap"] > DP_TOL["flip_rel_gap"]]
-    if len(flipped) > DP_TOL["max_flips"] or wide:
-        raise AssertionError(f"data-parallel training drifts from one rank: {len(flipped)} assignments differ, not near-ties: {wide}")
-    if max(last_untouched) > STEP_TOL["codebook_atol"]:
+    wide = [f for f in roots if f["rel_gap"] > tol["flip_rel_gap"]]
+    if len(roots) > tol["max_flips"] or wide:
+        raise AssertionError(f"data-parallel training drifts from one rank: {len(roots)} assignments differ (and "
+                             f"{len(flipped) - len(roots)} follow from them), not near-ties: {wide}")
+    if max(last_untouched) > tol["last_codebook_atol"]:
         raise AssertionError(f"data-parallel training drifts from one rank: codebook after the last step within {last_untouched} "
                              "on codewords that no differing assignment touches")
     launches = sum(s["launches"]["vq_nearest_stats"] for s in res[0]["steps"])
-    return {**worst, "indices_equal": same, "assignments_differing": flips, "flipped": flipped, "codebook_diff_first_step": first,
+    return {**worst, "indices_equal": same, "assignments_differing": flips, "flipped": flipped,
+            "flips_following": len(flipped) - len(roots), "codebook_diff_first_step": first,
             "codebook_diff_last_step": last, "codebook_diff_last_step_untouched": last_untouched,
             "embed_avg_diff_last_step_untouched": last_untouched_abs[2],
             "median_runner_up_gap": res[0]["median_runner_up_gap"], "backend": backend, "collectives_per_step": per_step, "sharded_launches": launches,
-            "steps": [r["steps"] for r in res]}
+            "steps": [r["steps"] for r in res_all]}
 
 
 def _load_tts_task(am_path, device):
@@ -1472,10 +1578,32 @@ def _load_tts_task(am_path, device):
     return task
 
 
-def rank_predict(group, device, am_path, batch):
+def _stream_batch(n_symbols, Lt):
+    """Phase 13's streamed batch: 4 texts, forced durations of 4-6 frames a
+    phone, the longest over at least 4 chunks of 64 frames."""
+    rng = np.random.default_rng(13)
+    n_phones = [64, 57, 40, 33]
+    dur = rng.integers(4, 7, size=(SERVE_B, Lt)).astype(np.float32) * (np.arange(Lt)[None] < np.array(n_phones)[:, None])
+    return {"text": _text(rng, n_phones, n_symbols, Lt), "text_length": np.array(n_phones), "dur": dur}
+
+
+GROUP_TEXTS = 3  # requests of the group engine: one alone, then all together
+
+
+def rank_predict(group, device, am_path, batch, engine_texts):
+    """On this rank of the inference group: ``predict`` of the global batch;
+    with the int8 decoder (its scales calibrated on the gathered batch); a
+    streamed batch (4 + 36 launches a window, both kernels held against
+    plain on this rank's inputs and shapes); then a ``BatchingEngine`` over
+    the group (rank 0 serves, the other rank follows): warmup, the first
+    text alone, then every text in one batch."""
+    from msmctts_tpu_torch.ops import cuda_build
+    from msmctts_tpu_torch.ops.int8_generator import LAUNCHES
     from msmctts_tpu_torch.parallel import mesh
+    from msmctts_tpu_torch.serving import BatchingEngine
 
     task = _load_tts_task(am_path, "cuda").use_mesh(group)
+    ae = task.networks["autoencoder"]
     task.predict(batch)  # warm-up
     torch.cuda.synchronize()
     mesh.barrier(group)
@@ -1485,11 +1613,91 @@ def rank_predict(group, device, am_path, batch):
     out = task.predict(batch)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
-    return {"out": out, "launches": _counts(), "collectives": mesh.collective_counts(), "ms": ms}
+    res = {"out": out, "launches": _counts(), "collectives": mesh.collective_counts(), "ms": ms}
+
+    # --int8: calibrated on the global batch's decoder inputs, gathered to every rank
+    task.int8_decoder = True
+    _reset_counts()
+    LAUNCHES["int8_conv1d"] = 0
+    snaps = _snap_rows(ae, lambda: res.update(int8=task.predict(batch)))
+    res["int8_launches"] = {**_counts(), "int8_conv1d": LAUNCHES["int8_conv1d"]}
+    res["int8_scales"] = dict(task._int8_state.scales)
+    res["int8_snaps"] = _hold_snaps(snaps, f"rank {group.rank} int8 predict", "[11]")
+    task.int8_decoder = False
+
+    # a streamed batch: this rank's windows, every chunk gathered
+    gen = torch.Generator(device="cuda").manual_seed(11 + group.rank)
+    eng = BatchingEngine(task, sample_rate=task.samplerate, batch_size=SERVE_B, window_ms=200.0,
+                         max_frames=SERVE_MAX_FRAMES, stream_chunk_frames=SERVE_CHUNK, group=group)
+    sbatch = _stream_batch(list(task.networks["predictor"].n_symbols), eng.text_length)
+    _reset_counts()
+    mesh.reset_collective_counts()
+    t0 = time.perf_counter()
+    snaps = _snap_rows(ae, lambda: res.update(stream_meta=task.predict_stream(sbatch, chunk_frames=SERVE_CHUNK)))
+    meta, chunks = res.pop("stream_meta")
+    pieces = list(chunks)
+    res["stream_ms"] = (time.perf_counter() - t0) * 1e3
+    res["stream"] = np.concatenate(pieces, axis=1)
+    res["stream_wav_length"] = meta["wav_length"]
+    res["stream_launches"] = _counts()
+    res["stream_windows"] = len(pieces)
+    res["stream_collectives"] = mesh.collective_counts()
+    res["stream_snaps"] = _hold_snaps(snaps, f"rank {group.rank} streamed batch", "[11]")
+    res["stream_window"] = _hold_window_layers(gen, task._streaming_decoder(SERVE_CHUNK).window_frames,
+                                               SERVE_B // group.world)
+
+    # the engine over the group; each rank counts its kernel launches (a
+    # follower's over its whole loop: the warmup's, then the served batches')
+    _reset_counts()
+    if group.rank != 0:
+        eng.follow()
+        res["engine"] = {"cold_shapes": eng._own_cold_shapes(), "kernel_builds": eng._own_kernel_builds(),
+                         "launches": _counts()}
+        return res
+    t0 = time.perf_counter()
+    eng.start(warmup={})
+    warm_s = time.perf_counter() - t0
+    warm_launches = _counts()
+    _reset_counts()
+    try:
+        alone = eng.synthesize(engine_texts[0], timeout=SERVE_TIMEOUT_S)
+        import threading
+
+        together = [None] * len(engine_texts)
+
+        def ask(i):
+            together[i] = eng.synthesize(engine_texts[i], timeout=SERVE_TIMEOUT_S)
+
+        threads = [threading.Thread(target=ask, args=(i,)) for i in range(len(engine_texts))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(SERVE_TIMEOUT_S)
+        for _ in range(100):  # a batch is counted just after its requests are answered
+            stats = eng.snapshot()
+            if stats["requests"] >= 1 + len(engine_texts):
+                break
+            time.sleep(0.01)
+        served_launches = _counts()
+    finally:
+        eng.stop()
+    res["engine"] = {"warm_s": warm_s, "alone": alone, "together": together, "stats": stats,
+                     "warm_launches": warm_launches, "launches": served_launches,
+                     "shapes": len(eng._warm_shapes), "margin": task.frame_margin,
+                     "builds_since_warmup": cuda_build.build_count() - eng._warm_builds}
+    return res
 
 
-def phase_dp_inference(backend, reference):
-    res = _run_ranks(rank_predict, WORLD, backend, reference["am_path"], reference["batch"])
+def phase_dp_inference(res, backend, reference):
+    """Phase 11: ``predict`` over the group, then, on the same ranks,
+    ``--int8`` ``predict``, a streamed batch and a ``BatchingEngine`` over
+    the group (``res``), each held against one rank's run on the same
+    global batch in this process."""
+    from msmctts_tpu_torch.serving import BatchingEngine, parse_phone_string
+
+    one = _load_tts_task(reference["am_path"], "cuda")
+    n_symbols = list(one.networks["predictor"].n_symbols)
+    texts = _group_texts(n_symbols)
     want = reference["out"]
     worst = 0.0
     for r in res:
@@ -1513,7 +1721,86 @@ def phase_dp_inference(backend, reference):
         f"wav max abs diff {worst:.3g}; per rank 4 VQ + 36 MRF launches, collectives "
         f"{ {k: v for k, v in res[0]['collectives'].items() if v['calls']} }; wall per rank {[round(r['ms'], 1) for r in res]} ms "
         "(two processes on one card: no scaling figure)")
-    return {"wav_err": worst, "launches": res[0]["launches"], "collectives": res[0]["collectives"], "ms": [r["ms"] for r in res]}
+
+    # --int8 against one rank's int8 predict of the same global batch
+    one.int8_decoder = True
+    want8 = one.predict(reference["batch"])
+    scales = one._int8_state.scales
+    one.int8_decoder = False
+    int8_err, scale_rel = 0.0, 0.0
+    for r in res:
+        scale_rel = max(scale_rel, max(abs(r["int8_scales"][k] - v) / v for k, v in scales.items()))
+        if sorted(r["int8_scales"]) != sorted(scales) or r["int8_scales"] != res[0]["int8_scales"]:
+            raise AssertionError("int8 over the group: the ranks' scales differ")
+        for a, b in zip(r["int8"]["wav"], want8["wav"]):
+            if a.shape != b.shape:
+                raise AssertionError(f"int8 over the group: wav of {a.shape} vs {b.shape}")
+            int8_err = max(int8_err, float(np.abs(a - b).max()))
+        if r["int8_launches"]["vq_nearest"] != 4 or r["int8_launches"]["fused_resblock_layer"]:
+            raise AssertionError(f"int8 over the group: launches {r['int8_launches']}")
+    log(f"[11] --int8 predict over {WORLD} ranks vs one rank: {len(scales)} site scales, equal on every rank, "
+        f"vs one rank's max relative diff {scale_rel:.3g} (bit-equal {res[0]['int8_scales'] == scales}); wav max abs diff "
+        f"{int8_err:.3g} (bound {INT8_GROUP_TOL}); launches per rank {res[0]['int8_launches']} (with calibration's products)")
+    if int8_err > INT8_GROUP_TOL or scale_rel > INT8_SCALE_RTOL:
+        raise AssertionError(f"int8 over the group: wav {int8_err}, scales {scale_rel} from one rank's")
+
+    # the streamed batch against one rank's stream
+    eng1 = BatchingEngine(one, sample_rate=one.samplerate, batch_size=SERVE_B, window_ms=0.0,
+                          max_frames=SERVE_MAX_FRAMES, stream_chunk_frames=SERVE_CHUNK)
+    sbatch = _stream_batch(n_symbols, eng1.text_length)
+    stream1 = np.concatenate(list(one.predict_stream(sbatch, chunk_frames=SERVE_CHUNK)[1]), axis=1)
+    stream_err = 0.0
+    for r in res:
+        want_counts = {"vq_nearest": 4, "vq_nearest_stats": 0, "fused_resblock_layer": 36 * r["stream_windows"]}
+        if r["stream_launches"] != want_counts or r["stream_windows"] < 4:
+            raise AssertionError(f"streamed batch over the group: launches {r['stream_launches']}, "
+                                 f"{r['stream_windows']} windows")
+        if r["stream"].shape != stream1.shape:
+            raise AssertionError(f"streamed batch over the group: {r['stream'].shape} vs one rank's {stream1.shape}")
+        for i, n in enumerate(r["stream_wav_length"]):
+            stream_err = max(stream_err, float(np.abs(r["stream"][i, :n] - stream1[i, :n]).max()))
+    log(f"[11] streamed batch over {WORLD} ranks: {res[0]['stream_windows']} windows, launches per rank "
+        f"{res[0]['stream_launches']} (36 MRF a window), chunks gathered "
+        f"{res[0]['stream_collectives']['all_gather']['calls']} times; concatenated vs one rank's stream max abs diff "
+        f"{stream_err:.3g}; per rank kernel 5 at the window's 36 layers of {SERVE_B // WORLD} rows: max abs err "
+        f"{max(r['stream_window']['max_abs_err'] for r in res):.3g}; stream wall per rank "
+        f"{[round(r['stream_ms'], 1) for r in res]} ms")
+    if stream_err > AS_TOL:
+        raise AssertionError(f"streamed batch over the group differs from one rank's by {stream_err}")
+
+    # the engine over the group: each rank warm, a request equal to itself alone and to one rank's predict
+    e0, e1 = res[0]["engine"], res[1]["engine"]
+    solo = one.predict(eng1.batch_of([parse_phone_string(texts[0])]))
+    engine_err = float(np.abs(e0["together"][0] - e0["alone"]).max()) if e0["together"][0].shape == e0["alone"].shape \
+        else float("inf")
+    solo_err = float(np.abs(e0["alone"] - solo["wav"][0]).max()) if e0["alone"].shape == solo["wav"][0].shape else float("inf")
+    stats = e0["stats"]
+    # launches per served batch on each rank: rank 0 counted from its warmup's end, the
+    # follower over its loop less the warmup, which every rank runs alike
+    per_batch = {"vq_nearest": 4, "vq_nearest_stats": 0, "fused_resblock_layer": 36}
+    want_launches = {k: v * stats["batches"] for k, v in per_batch.items()}
+    follower_served = {k: e1["launches"][k] - e0["warm_launches"][k] for k in per_batch}
+    log(f"[11] BatchingEngine over {WORLD} ranks: warmup {e0['warm_s']:.2f}s, {e0['shapes']} shapes, frame margin "
+        f"{e0['margin']}; /stats ranks {json.dumps(stats['ranks'])}, batches {stats['batches']}, requests "
+        f"{stats['requests']}; launches over the served batches, rank 0 {e0['launches']}, rank 1 {follower_served}; "
+        f"a request in a batch of {len(texts)} vs alone max abs diff {engine_err:.3g}, alone vs one "
+        f"rank's predict of the same padded batch {solo_err:.3g}")
+    if e0["launches"] != want_launches or follower_served != want_launches:
+        raise AssertionError(f"the engine over the group: launches over {stats['batches']} batches, rank 0 "
+                             f"{e0['launches']}, rank 1 {follower_served}, expected {want_launches}")
+    if stats["cold_shapes"] or stats["kernel_builds"] or e1["cold_shapes"] or e1["kernel_builds"] or stats["errors"] \
+            or engine_err > AS_TOL or solo_err > AS_TOL or stats["requests"] != 1 + len(texts):
+        raise AssertionError(f"the engine over the group: /stats {stats}, follower {e1}, request vs alone {engine_err}, "
+                             f"vs one rank {solo_err}")
+    del one
+    torch.cuda.empty_cache()
+    return {"wav_err": worst, "launches": res[0]["launches"], "collectives": res[0]["collectives"], "ms": [r["ms"] for r in res],
+            "int8": {"wav_err": int8_err, "scale_rel": scale_rel, "launches": res[0]["int8_launches"],
+                     "snaps": res[0]["int8_snaps"]},
+            "stream": {"err": stream_err, "windows": res[0]["stream_windows"], "launches": res[0]["stream_launches"],
+                       "snaps": res[0]["stream_snaps"], "window": res[0]["stream_window"]},
+            "engine": {"warm_s": e0["warm_s"], "stats": stats, "request_vs_alone": engine_err, "vs_one_rank": solo_err,
+                       "launches": {"rank0": e0["launches"], "rank1": follower_served, "batches": stats["batches"]}}}
 
 
 # ------------------------------------------------- acoustic-model training
@@ -1556,14 +1843,16 @@ def _am_config(dropout=None, precision=None):
     return cfg
 
 
-def _build_am_trainer(device, dropout=None, precision=None):
+def _build_am_trainer(device, dropout=None, precision=None, group=None, mesh_node=None):
     from msmctts_tpu_torch.config import component_kwargs
     from msmctts_tpu_torch.registry import get_trainer
     from msmctts_tpu_torch.tasks import build_task
 
     cfg = _am_config(dropout, precision)
+    if mesh_node is not None:
+        cfg["mesh"] = dict(mesh_node)
     task = build_task(cfg, device=device, mode="train")
-    trainer = get_trainer(cfg.trainer["_name"])(cfg, task, **component_kwargs(cfg.trainer))
+    trainer = get_trainer(cfg.trainer["_name"])(cfg, task, group=group, **component_kwargs(cfg.trainer))
     trainer.init_state()  # seeded; the teacher loads at the first step
     return trainer
 
@@ -1802,6 +2091,8 @@ def phase_am_entry_point(card):
 SERVE_B, SERVE_MAX_FRAMES, SERVE_CHUNK = 4, 512, 64
 SERVE_REQUESTS, SERVE_CLIENTS, SERVE_PHONES = 16, 8, (24, 57)
 SERVE_TIMEOUT_S = 300.0
+INT8_GROUP_TOL = 1e-2  # int8 over the group vs one rank: the bound test_torch_int8.py holds a predict to
+INT8_SCALE_RTOL = 1e-5  # the scales calibrated on the gathered batch vs one rank's on the same batch
 
 
 def _phone_string(row):
@@ -1816,6 +2107,56 @@ def _hold_window_layers(gen, window, batch, stages=STAGES):
     total["bound_ms"] = sum(r["bound"][0] for r in rows)
     shapes = sorted({(r["C"], r["T"]) for r in rows}, reverse=True)
     return {"max_abs_err": worst, "shapes": [{"B": batch, "T": T, "C": C} for C, T in shapes], **total}
+
+
+_CHILDREN = []  # the subprocesses this process started: stopped on the way out, whatever failed
+
+
+@atexit.register
+def _stop_children():
+    for proc in _CHILDREN:
+        if proc.poll() is None:
+            _stop(proc)
+
+
+def _start_daemon(*args):
+    """``python -m msmctts_tpu_torch.serve *args`` (or ``python *args``
+    where the first is ``-c``) as a subprocess: -> (process, queue of its
+    output lines, its start on the host clock). A phase starts it before
+    work that it does not time, so that the daemon's start overlaps it;
+    ``_arrival`` gives the host clock at which a line came."""
+    import queue
+    import threading
+
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    cmd = [sys.executable, *args] if args[0] == "-c" else [sys.executable, "-m", "msmctts_tpu_torch.serve", *args]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    _CHILDREN.append(proc)
+    lines = queue.Queue()
+    lines.arrivals = {}  # id of a line -> host clock
+
+    def read():
+        for line in proc.stdout:
+            lines.arrivals[id(line)] = time.perf_counter()
+            lines.put(line)
+
+    threading.Thread(target=read, daemon=True).start()
+    return proc, lines, t0
+
+
+def _arrival(lines, line):
+    """The host clock at which ``line`` (as ``_wait_for_line`` returned it) came."""
+    return lines.arrivals[id(line)]
+
+
+def _stop(proc, wait_s=30):
+    proc.terminate()
+    try:
+        proc.wait(wait_s)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(30)
 
 
 def _wait_for_line(lines, prefix, proc, timeout, tag="[13]"):
@@ -1866,7 +2207,6 @@ def _pcm(data, stream):
 
 
 def phase_serving(card, am_path, with_profile=False):
-    import queue
     import threading
 
     from msmctts_tpu_torch.ops import cuda_build
@@ -1954,6 +2294,15 @@ def phase_serving(card, am_path, with_profile=False):
         f"{[(s['C'], s['T']) for s in window['shapes']]}: max abs err {window['max_abs_err']:.3g}, per window decode "
         f"{window['ms']:.3f} ms kernel, {window['plain_ms']:.3f} ms plain, bound {window['bound_ms']:.3f} ms")
 
+    profile = None
+    if with_profile:
+        profile = profile_call(lambda: [None for _ in task.predict_stream(batch, chunk_frames=SERVE_CHUNK)[1]],
+                               "[13]", "streamed batch")
+
+    # (b)'s daemon starts here: its start overlaps the CPU check and the in-process references
+    proc, lines, t_start = _start_daemon("-m", am_path, "--port", "0", "--batch-size", str(SERVE_B), "--max-frames",
+                                         str(SERVE_MAX_FRAMES))
+
     # the same stream on the CPU (the longest row alone)
     one = {k: v[:1] for k, v in batch.items()}
     card_one = np.concatenate(list(task.predict_stream(one, chunk_frames=SERVE_CHUNK)[1]), axis=1)
@@ -1968,10 +2317,6 @@ def phase_serving(card, am_path, with_profile=False):
         f"(CPU {cpu_s:.1f}s)")
     if cpu_err > AS_TOL:
         raise AssertionError(f"stream on the card vs the CPU: {card_one.shape} vs {cpu_one.shape}, err {cpu_err}")
-    profile = None
-    if with_profile:
-        profile = profile_call(lambda: [None for _ in task.predict_stream(batch, chunk_frames=SERVE_CHUNK)[1]],
-                               "[13]", "streamed batch")
 
     # (b) the daemon as a subprocess under 8 concurrent clients
     texts = [_phone_string(_text(rng, [int(n)], n_symbols, int(n))[0]) for n in rng.integers(SERVE_PHONES[0], SERVE_PHONES[1] + 1, 12)]
@@ -1983,13 +2328,6 @@ def phase_serving(card, am_path, with_profile=False):
     finally:
         eng.stop()
     builds_before = cuda_build.build_count()
-    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    cmd = [sys.executable, "-m", "msmctts_tpu_torch.serve", "-m", am_path, "--port", "0", "--batch-size", str(SERVE_B),
-           "--max-frames", str(SERVE_MAX_FRAMES)]
-    t_start = time.perf_counter()
-    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    lines = queue.Queue()
-    threading.Thread(target=lambda: [lines.put(line) for line in proc.stdout], daemon=True).start()
     try:
         warm_line = _wait_for_line(lines, "warmup:", proc, SERVE_TIMEOUT_S)
         daemon_warm_s = float(warm_line.split(" in ")[1].split("s ")[0])
@@ -1997,11 +2335,12 @@ def phase_serving(card, am_path, with_profile=False):
             raise AssertionError(f"the daemon built kernels at startup: {warm_line.rstrip()}")
         if f"frame margin {task.frame_margin}," not in warm_line:  # as the in-process engine's
             raise AssertionError(f"the daemon's frame margin is not {task.frame_margin}: {warm_line.rstrip()}")
-        port = int(_wait_for_line(lines, "serving on", proc, 60).rsplit(":", 1)[1])
+        serving_line = _wait_for_line(lines, "serving on", proc, 60)
+        port = int(serving_line.rsplit(":", 1)[1])
         status, data, _, _ = _http(port, "GET", "/healthz")
         if status != 200:
             raise AssertionError(f"/healthz {status}: {data[:200]!r}")
-        ready_s = time.perf_counter() - t_start
+        ready_s = _arrival(lines, serving_line) - t_start
         waves = []
         for wave in (1, 2):  # the second wave: the same requests on a server that has served
             results = [None] * len(requests)
@@ -2025,12 +2364,7 @@ def phase_serving(card, am_path, with_profile=False):
         if proc.poll() is not None:
             raise AssertionError(f"the serving daemon died with {proc.returncode}")
     finally:
-        proc.terminate()
-        try:
-            proc.wait(30)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.wait(30)
+        _stop(proc)
     worst, stream_lsb = 0.0, 0
     for wave, w in enumerate(waves, 1):
         blocking_pcm = {}
@@ -2065,7 +2399,8 @@ def phase_serving(card, am_path, with_profile=False):
         raise AssertionError(f"served audio vs in-process: {worst}; streamed vs blocking PCM: {stream_lsb} LSB")
     if cuda_build.build_count() != builds_before:
         raise AssertionError("this process built a kernel during the serving phase")
-    log(f"[13] daemon ready in {ready_s:.1f}s (warmup {daemon_warm_s:.3f}s); served vs in-process max abs err {worst:.3g}, "
+    log(f"[13] daemon ready in {ready_s:.1f}s (the CPU check and the in-process references ran meanwhile; warmup "
+        f"{daemon_warm_s:.3f}s); served vs in-process max abs err {worst:.3g}, "
         f"streamed vs blocking PCM at most {stream_lsb} LSB; /stats {json.dumps(stats)}")
     p50, p95, first, load_s = waves[0]["p50"], waves[0]["p95"], waves[0]["first"], waves[0]["load_s"]
     return {
@@ -2208,10 +2543,20 @@ def _stats_rows(ae, run):
     return rows
 
 
-def _hold_stats(rows, what, tag="[14]"):
+def _assignment_stats(x, mask, idx, K):
+    """Plain masked counts [H, K] and sums [H, d, K] of a given assignment."""
+    onehot = torch.nn.functional.one_hot(idx.long(), K).to(x.dtype) * mask[:, None, None]
+    return onehot.sum(0), torch.einsum("nhd,nhk->hdk", x, onehot)
+
+
+def _hold_stats(rows, what, tag="[14]", timed=True, ties=False):
     """The statistics kernel against its plain version on each stage's inputs
     from the path, as phase 3 holds it: idx, quant and counts exact, sums
-    within ``VQS_TOL``; with device, event and plain times and the bound."""
+    within ``VQS_TOL``; with device, event and plain times (unless not
+    ``timed``: ranks time-slicing one card) and the bound. With ``ties`` an
+    index may differ from the plain search's between codewords at equal
+    distance (``VQ_TOL``, as the snaps' holds allow); the statistics are
+    then held against the plain statistics of the kernel's assignment."""
     from msmctts_tpu_torch.ops import vq
 
     out = []
@@ -2225,7 +2570,11 @@ def _hold_stats(rows, what, tag="[14]"):
         torch.cuda.synchronize()
         if not torch.equal(idx, r["idx"].to(idx.dtype)):
             raise AssertionError(f"{what} stage {stage}: the path's indices differ from a second launch")
-        if not (torch.equal(idx, p_idx) and torch.equal(quant, p_quant)):
+        n_ties = 0
+        if ties and not torch.equal(idx, p_idx):
+            _, n_ties = _hold_snap(f"{what} stage {stage}", x, e, idx, quant, p_idx, p_quant)
+            p_counts, p_sums = _assignment_stats(x, mask, idx, e.shape[-1])
+        elif not (torch.equal(idx, p_idx) and torch.equal(quant, p_quant)):
             raise AssertionError(f"{what} stage {stage}: idx/quant differ from the plain version "
                                  f"({int((idx != p_idx).sum())} indices)")
         if not torch.equal(counts, p_counts) or float(counts.sum()) != valid * VQ_H:
@@ -2235,11 +2584,13 @@ def _hold_stats(rows, what, tag="[14]"):
             raise AssertionError(f"{what} stage {stage}: sums differ by {err}")
         b = _stats_bound(N, valid)
         out.append({"stage": stage, "N": N, "valid": valid, "walkers": vq.stats_plan(N, VQ_D, VQ_K).walkers,
-                    "sums_max_abs_err": err,
-                    "device_ms": device_profile(lambda: vq.vq_nearest_stats(x, e, mask))["ms"],
-                    "ms": time_ms(lambda: vq.vq_nearest_stats(x, e, mask), runs=20),
-                    "plain_ms": time_ms(lambda: vq.vq_nearest_stats_plain(x, e, mask), runs=20),
-                    "bound_ms": b[0], "bound_by": b[1]})
+                    "sums_max_abs_err": err, "bound_ms": b[0], "bound_by": b[1]})
+        if ties:
+            out[-1]["index_ties"] = n_ties
+        if timed:
+            out[-1].update(device_ms=device_profile(lambda: vq.vq_nearest_stats(x, e, mask))["ms"],
+                           ms=time_ms(lambda: vq.vq_nearest_stats(x, e, mask), runs=20),
+                           plain_ms=time_ms(lambda: vq.vq_nearest_stats_plain(x, e, mask), runs=20))
         log(f"{tag} {what} statistics stage {stage}: {json.dumps(out[-1])}")
     return out
 
@@ -3350,7 +3701,6 @@ def phase_int8_serving(card, am_path):
     """(b) ``predict`` with the int8 decoder and one streamed batch at chunk
     64 against it; (c) ``serve --int8`` as a subprocess under 8 clients and
     ``infer --int8`` on 3 lines."""
-    import queue
     import shutil
     import threading
 
@@ -3414,19 +3764,30 @@ def phase_int8_serving(card, am_path):
     texts = [_phone_string(_text(rng, [int(n)], n_symbols, int(n))[0])
              for n in rng.integers(SERVE_PHONES[0], SERVE_PHONES[1] + 1, 12)]
     requests = [(t, False) for t in texts] + [(t, True) for t in texts[:SERVE_REQUESTS // 4]]
+    # the daemon and infer --int8 start first: their starts overlap the in-process references;
+    # infer ends before the load begins
+    proc, lines, _ = _start_daemon("-m", am_path, "--port", "0", "--batch-size", str(SERVE_B), "--max-frames",
+                                   str(SERVE_MAX_FRAMES), "--int8")
+    test_list = os.path.join(SMOKE_DIR, "int8_test.yaml")
+    with open(test_list, "w") as fh:
+        yaml.safe_dump({f"i8_{i}": {"text": t} for i, t in enumerate(texts[:3])}, fh)
+    out_dir = os.path.join(SMOKE_DIR, "int8_infer")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t_infer = time.perf_counter()
+    infer_proc = subprocess.Popen([sys.executable, "-m", "msmctts_tpu_torch.infer", "-m", am_path, "-t", test_list, "-o",
+                                   out_dir, "--int8"], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+    _CHILDREN.append(infer_proc)
     eng.start(warmup={})  # the daemon's warmup: its first batch calibrates
     try:
         alone = {t: eng.synthesize(t, timeout=SERVE_TIMEOUT_S) for t in texts}
     finally:
         eng.stop()
     witness = _batch_invariance_witness(eng, texts[:3 * SERVE_B])
+    infer_out, infer_err = infer_proc.communicate(timeout=600)
+    infer_wall = time.perf_counter() - t_infer
     builds_before = cuda_build.build_count()
-    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    cmd = [sys.executable, "-m", "msmctts_tpu_torch.serve", "-m", am_path, "--port", "0", "--batch-size", str(SERVE_B),
-           "--max-frames", str(SERVE_MAX_FRAMES), "--int8"]
-    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    lines = queue.Queue()
-    threading.Thread(target=lambda: [lines.put(line) for line in proc.stdout], daemon=True).start()
     try:
         warm_line = _wait_for_line(lines, "warmup:", proc, SERVE_TIMEOUT_S, "[16]")
         if f"frame margin {eng.task.frame_margin}," not in warm_line:  # as the in-process engine's
@@ -3452,12 +3813,7 @@ def phase_int8_serving(card, am_path):
         if proc.poll() is not None:
             raise AssertionError(f"the int8 daemon died with {proc.returncode}")
     finally:
-        proc.terminate()
-        try:
-            proc.wait(30)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.wait(30)
+        _stop(proc)
     # each request as it was served under load, against the same request alone in process (as
     # phase 13 holds the fp32 daemon): among them a 32-phone request that, batched as the JAX
     # package batches, came out 1.03 apart (relative L2)
@@ -3482,19 +3838,12 @@ def phase_int8_serving(card, am_path):
         f"err {worst:.3g}; /stats cold_shapes {stats['cold_shapes']}, kernel_builds {stats['kernel_builds']}, "
         f"errors {stats['errors']}, mean batch {stats['mean_batch_size']:.2f}")
 
-    test_list = os.path.join(SMOKE_DIR, "int8_test.yaml")
-    with open(test_list, "w") as fh:
-        yaml.safe_dump({f"i8_{i}": {"text": t} for i, t in enumerate(texts[:3])}, fh)
-    out_dir = os.path.join(SMOKE_DIR, "int8_infer")
-    shutil.rmtree(out_dir, ignore_errors=True)
-    t0 = time.perf_counter()
-    res = subprocess.run([sys.executable, "-m", "msmctts_tpu_torch.infer", "-m", am_path, "-t", test_list, "-o", out_dir,
-                          "--int8"], cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
-    infer_wall = time.perf_counter() - t0
     wavs = sorted(f for f in os.listdir(out_dir) if f.endswith("_wav.wav")) if os.path.isdir(out_dir) else []
-    if res.returncode != 0 or len(wavs) != 3:
-        raise AssertionError(f"infer --int8 failed ({res.returncode}), wrote {wavs}:\n{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
-    log(f"[16] infer --int8 on 3 lines ({infer_wall:.1f}s): {res.stdout.strip().splitlines()[-1]}")
+    if infer_proc.returncode != 0 or len(wavs) != 3:
+        raise AssertionError(f"infer --int8 failed ({infer_proc.returncode}), wrote {wavs}:\n{infer_out[-3000:]}\n"
+                             f"{infer_err[-3000:]}")
+    log(f"[16] infer --int8 on 3 lines ({infer_wall:.1f}s, beside the daemon's start and the in-process references): "
+        f"{infer_out.strip().splitlines()[-1]}")
     return {"predict": {"launches": counts, "ms": predict_ms, "rel_l2_vs_fp32": rel},
             "stream": {"windows": len(pieces), "launches": stream_counts, "first_chunk_ms": first_ms,
                        "stream_ms": stream_ms, "max_abs_diff_vs_predict": diff},
@@ -3617,6 +3966,19 @@ def _leaf_spans(qat):
         spans[site] = (a, b)
         a = b
     return spans
+
+
+def _in_process(main, *argv):
+    """An entry point's ``main(argv)`` in this process, its stdout captured
+    -> (an object with ``stdout``, seconds)."""
+    import contextlib
+    import io
+    import types
+
+    out, t0 = io.StringIO(), time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        main(list(argv))
+    return types.SimpleNamespace(stdout=out.getvalue()), time.perf_counter() - t0
 
 
 def _subprocess(what, *args, timeout=600):
@@ -4085,11 +4447,11 @@ LJ_AM_YAML = os.path.join(ROOT, "examples", "ljspeech", "configs", "msmc_vq_gan_
 LJ_DIR = os.path.join(SMOKE_DIR, "ljspeech")
 LJ_HOP, LJ_SR = 256, 22050
 LJ_LOAD_LEVELS = (1, 4, 16)
-LJ_LOAD_REQUESTS = 24
+LJ_LOAD_REQUESTS = 12
 LJ_SERVE_B = 8
 # the daemon held to the in-process engine: 16 clients, every 8th request streamed, over
-# 24 texts of load_test's 24-96 tokens; enough requests for a p99 of the blocking ones
-LJ_DAEMON_CLIENTS, LJ_DAEMON_REQUESTS, LJ_DAEMON_TEXTS = 16, 256, 24
+# 24 texts of load_test's 24-96 tokens (its p99 is the 2nd slowest of 112 blocking ones)
+LJ_DAEMON_CLIENTS, LJ_DAEMON_REQUESTS, LJ_DAEMON_TEXTS = 16, 128, 24
 LJ_STATIC_FRAMES = 512
 LJ_PROFILE_STEPS = 15  # the trace covers steps 10-14 (the train CLI's window)
 
@@ -4120,8 +4482,9 @@ def phase_lj_tools(card, ae_ckpt, seed=1234):
     from msmctts_tpu_torch.weights import init_random, multi_stage_predictor_to_jax, state_dict_numpy
 
     stripped = os.path.join(LJ_DIR, "ae_stripped.f16.ckpt")
-    res, strip_s = _subprocess("strip_checkpoint", "msmctts_tpu_torch.tools.strip_checkpoint", ae_ckpt, "-o", stripped,
-                               "--f16")
+    from msmctts_tpu_torch.tools import strip_checkpoint
+
+    res, strip_s = _in_process(strip_checkpoint.main, ae_ckpt, "-o", stripped, "--f16")
     slim = read_checkpoint(stripped)
     leaves = _flat_tree(slim["state"]).values()
     dtypes = sorted({str(v.dtype) for v in leaves})
@@ -4208,13 +4571,12 @@ def phase_lj_tools(card, ae_ckpt, seed=1234):
 
 
 def phase_lj_daemon(gen, card, am_path, seed=1234):
-    """(c) continued: the daemon at batch 8 as ``load_test`` drives it. Both
-    kernels against their plain versions at its largest warm shapes (bucket
-    512: kernel 1 on the inputs of a served batch, kernel 5 at its 36 layers),
-    then the daemon as a subprocess under 16 clients, every request it
-    serves held to the same request alone in the in-process engine, with
-    client-clock latency percentiles of the blocking ones."""
-    import queue
+    """(c) continued: the daemon at batch 8 as ``load_test`` drives it, as a
+    subprocess under 16 clients, every request it serves held to the same
+    request alone in the in-process engine, with client-clock latency
+    percentiles of the blocking ones; then, the daemon stopped, both kernels
+    against their plain versions at its largest warm shapes (bucket 512:
+    kernel 1 on the inputs of a served batch, kernel 5 at its 36 layers)."""
     import threading
 
     from msmctts_tpu_torch.ops import cuda_build
@@ -4222,6 +4584,9 @@ def phase_lj_daemon(gen, card, am_path, seed=1234):
     from msmctts_tpu_torch.tools.load_test import percentiles
 
     t_start = time.perf_counter()
+    # the daemon starts first: its start overlaps the holds and the in-process references
+    proc, lines, _ = _start_daemon("-m", am_path, "--port", "0", "--batch-size", str(LJ_SERVE_B), "--max-frames",
+                                   str(SERVE_MAX_FRAMES))
     task = _load_tts_task(am_path, "cuda")
     eng = BatchingEngine(task, sample_rate=task.samplerate, batch_size=LJ_SERVE_B, window_ms=0.0,
                          max_frames=SERVE_MAX_FRAMES, stream_chunk_frames=SERVE_CHUNK)
@@ -4238,11 +4603,6 @@ def phase_lj_daemon(gen, card, am_path, seed=1234):
     if [s["x"].shape[0] for s in snaps] != want_n or \
             counts != {"vq_nearest": 4, "vq_nearest_stats": 0, "fused_resblock_layer": 36}:
         raise AssertionError(f"daemon batch at bucket {F}: snaps of N {[s['x'].shape[0] for s in snaps]}, launches {counts}")
-    snap_rows = _hold_snaps(snaps, f"LJSpeech daemon batch (B={LJ_SERVE_B}, bucket {F})", "[18]")
-    layers = _hold_window_layers(gen, F, LJ_SERVE_B, stages=_mrf_stages(ae.decoder_config))
-    log(f"[18] fused_resblock_layer at the daemon's 36 layers (B={LJ_SERVE_B}, bucket {F}: "
-        f"{[(s['C'], s['T']) for s in layers['shapes']]}) on {card}: max abs err {layers['max_abs_err']:.3g}, per decode "
-        f"{layers['ms']:.3f} ms kernel, {layers['plain_ms']:.3f} ms plain, bound {layers['bound_ms']:.3f} ms")
 
     rng = np.random.default_rng(seed + 4)
     texts = [_lj_phones(rng, int(n)) for n in rng.integers(24, 97, LJ_DAEMON_TEXTS)]
@@ -4253,12 +4613,6 @@ def phase_lj_daemon(gen, card, am_path, seed=1234):
     finally:
         eng.stop()
     builds_before = cuda_build.build_count()
-    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    cmd = [sys.executable, "-m", "msmctts_tpu_torch.serve", "-m", am_path, "--port", "0", "--batch-size",
-           str(LJ_SERVE_B), "--max-frames", str(SERVE_MAX_FRAMES)]
-    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    lines = queue.Queue()
-    threading.Thread(target=lambda: [lines.put(line) for line in proc.stdout], daemon=True).start()
     try:
         warm_line = _wait_for_line(lines, "warmup:", proc, SERVE_TIMEOUT_S, "[18]")
         port = int(_wait_for_line(lines, "serving on", proc, 60, "[18]").rsplit(":", 1)[1])
@@ -4283,12 +4637,13 @@ def phase_lj_daemon(gen, card, am_path, seed=1234):
         if proc.poll() is not None:
             raise AssertionError(f"the LJSpeech daemon died with {proc.returncode}")
     finally:
-        proc.terminate()
-        try:
-            proc.wait(30)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.wait(30)
+        _stop(proc)
+    # the kernels' times at the daemon's largest warm shape, with the card to this process again
+    snap_rows = _hold_snaps(snaps, f"LJSpeech daemon batch (B={LJ_SERVE_B}, bucket {F})", "[18]")
+    layers = _hold_window_layers(gen, F, LJ_SERVE_B, stages=_mrf_stages(ae.decoder_config))
+    log(f"[18] fused_resblock_layer at the daemon's 36 layers (B={LJ_SERVE_B}, bucket {F}: "
+        f"{[(s['C'], s['T']) for s in layers['shapes']]}) on {card}: max abs err {layers['max_abs_err']:.3g}, per decode "
+        f"{layers['ms']:.3f} ms kernel, {layers['plain_ms']:.3f} ms plain, bound {layers['bound_ms']:.3f} ms")
     worst, audio_s = 0.0, 0.0
     for (t, stream), (status, data, _, _) in zip(requests, results):
         if status != 200:
@@ -4343,8 +4698,10 @@ def phase_lj_profile(card):
         yaml.safe_dump(cfg.to_dict(), fh)
     prof_dir = os.path.join(LJ_DIR, "profile")
     shutil.rmtree(prof_dir, ignore_errors=True)
-    res, wall = _subprocess("train --profile", "msmctts_tpu_torch.train", "-c", cfg_path, "--max-steps",
-                            str(LJ_PROFILE_STEPS), "--log-every", "5", "--profile", prof_dir)
+    from msmctts_tpu_torch import train
+
+    res, wall = _in_process(train.main, "-c", cfg_path, "--max-steps", str(LJ_PROFILE_STEPS), "--log-every", "5",
+                            "--profile", prof_dir)
     traces = sorted(os.listdir(prof_dir)) if os.path.isdir(prof_dir) else []
     if traces != ["steps_10-14_rank0.json"]:
         raise AssertionError(f"train --profile wrote {traces}:\n{res.stdout[-3000:]}")
@@ -4417,8 +4774,9 @@ def phase_lj_convert(card, seed=1234):
     cfg_path = os.path.join(LJ_DIR, "converted_am.yaml")
     with open(cfg_path, "w") as fh:
         yaml.safe_dump(cfg, fh)
-    res, conv_s = _subprocess("convert_torch_checkpoint", "msmctts_tpu_torch.tools.convert_torch_checkpoint",
-                              "--torch", ref_path, "--config", cfg_path, "--out", converted)
+    from msmctts_tpu_torch.tools import convert_torch_checkpoint
+
+    res, conv_s = _in_process(convert_torch_checkpoint.main, "--torch", ref_path, "--config", cfg_path, "--out", converted)
     log(f"[18] convert_torch_checkpoint ({conv_s:.1f}s, {len(sd)} reference tensors, per-head codebooks): "
         f"{res.stdout.strip()}")
 
@@ -5349,9 +5707,10 @@ def phase_options(card, reference):
 # process, in a fresh one and behind ``serve --artifact``.
 FEED_UTTS = 64  # utterances of each synthetic corpus
 FEED_AE_FRAMES, FEED_AM_FRAMES = (221, 400), AM_LENGTHS  # frames per utterance: the AE and AM step's buckets 400 / 768
-FEED_STEPS = 5  # steps per train() run: 1 warmup, 4 GAN; the loop time of steps 3-5 is kept
+FEED_STEPS = 4  # steps per train() run: 1 warmup, 3 GAN; the loop time of steps 3-4 is kept
 FEED_RUNS = ((2, True), (0, True), (2, False), (2, "full"))  # (device_prefetch, wire_compression)
 FEED_TURNS = 2
+FEED_REPEATED = ((2, True), (2, False))  # the settings a second turn runs: the wire against its noise
 # wire true vs false on 16-bit PCM (bit-equal inputs) against the spread of two
 # runs of one setting from the same state (the card's own run-to-run noise)
 WIRE_NOISE_X = 8
@@ -5359,8 +5718,8 @@ WIRE_NOISE_X = 8
 # before it (to_device on the loop's thread), more steps and turns
 FEED_AB_RUNS = ((2, True), (0, True), ("to_device", False), (2, False))
 FEED_AB_STEPS, FEED_AB_TURNS = 12, 4
-LOADER_BATCHES = 6  # batches timed per loader and reading path
-EXPORT_B, EXPORT_BUCKETS, EXPORT_FRAMES = 4, (64, 128), 512
+LOADER_BATCHES = 3  # batches timed per loader and reading path
+EXPORT_B, EXPORT_BUCKETS, EXPORT_FRAMES = 4, (128,), 512  # one text bucket: every request of 24-128 phones
 
 
 def _write_feed_corpus(d, n_symbols, frames, with_wav, seed):
@@ -5569,7 +5928,7 @@ def phase_feed(card, tmp):
         raise AssertionError(f"the native reader was not taken (available {native.native_available()}, "
                              f"batch reads {native.batch_reads() - before})")
 
-    runs = _feed_turns(ae_cfg, tmp, FEED_RUNS, FEED_STEPS, FEED_TURNS, record_stats=True)
+    runs = _feed_turns(ae_cfg, tmp, FEED_RUNS, FEED_STEPS, FEED_TURNS, record_stats=True, repeated=FEED_REPEATED)
     stats = _hold_stats_calls(runs[FEED_RUNS[0]][0]["stats_calls"][-2:], "train() behind the feed, last step")
     # PCM audio: the int16 wire carries the same waveform, so the runs differ by no
     # more than two runs of one setting from the same state differ on this card
@@ -5589,14 +5948,16 @@ def phase_feed(card, tmp):
             "launches_per_run": runs[FEED_RUNS[0]][0]["launches"], "native_batch_reads": native.batch_reads() - before}
 
 
-def _feed_turns(cfg, tmp, settings, steps, turns, record_stats=False):
+def _feed_turns(cfg, tmp, settings, steps, turns, record_stats=False, repeated=None):
     """train() of each setting (device_prefetch, wire_compression) for
     ``steps`` steps from one state, the settings in turns (reversed every
-    other turn); kernel 2 twice a step. -> {setting: [run per turn]}."""
+    other turn; after the first turn only those in ``repeated``, when
+    given); kernel 2 twice a step. -> {setting: [run per turn]}."""
     trainers = {run: _feed_trainer(cfg, *run, os.path.join(tmp, f"ckpt_{run[0]}_{run[1]}")) for run in settings}
     runs = {run: [] for run in settings}
     for turn in range(turns):
-        for run in (settings if turn % 2 == 0 else settings[::-1]):
+        order = settings if turn % 2 == 0 else settings[::-1]
+        for run in (order if turn == 0 or repeated is None else [r for r in order if r in repeated]):
             res = _feed_run(trainers[run], steps, record_stats=record_stats and turn == 0 and run == settings[0])
             want = {"vq_nearest": 0, "vq_nearest_stats": 2 * steps, "fused_resblock_layer": 0}
             if res["launches"] != want:
@@ -5699,9 +6060,6 @@ def _against_predict(wavs, mel_length, want, what):
 
 def phase_export(card, am_path, reference, tmp):
     """(b) export of phase 5's serving weights and the artifacts' runs."""
-    import queue
-    import threading
-
     from msmctts_tpu_torch.export import ExportedTTS, save_artifacts
     from msmctts_tpu_torch.ops import cuda_build
     from msmctts_tpu_torch.serving import BatchingEngine
@@ -5740,6 +6098,24 @@ def phase_export(card, am_path, reference, tmp):
         f"predict at {EXPORT_FRAMES} static frames, wav max abs err {err:.3g}; load + first run {load_first_s:.1f}s, warm "
         f"median {statistics.median(warm):.1f} ms (runs {[round(w, 1) for w in warm]})")
 
+    # one fresh process: the artifact alone (phase 5's batch, no model module
+    # imported), then serve --artifact's main over the same programs, against
+    # an in-process engine on them; it starts here, its start overlapping the
+    # int8 artifact's export and holds
+    np.savez(os.path.join(tmp, "batch.npz"), text=batch["text"], text_length=batch["text_length"])
+    code = ("import sys, json, numpy as np\n"
+            "from msmctts_tpu_torch.export import ExportedTTS\n"
+            "tmp = sys.argv[1]\n"
+            "b = np.load(tmp + '/batch.npz')\n"
+            "out = ExportedTTS(tmp + '/artifact').run(b['text'], b['text_length'])\n"
+            "wav, wav_length, mel_length = (t.cpu().numpy() for t in out)\n"
+            "np.savez(tmp + '/fresh.npz', wav=wav, wav_length=wav_length, mel_length=mel_length)\n"
+            "models = sorted(m for m in sys.modules if m.startswith('msmctts_tpu_torch.models'))\n"
+            "print('fresh ' + json.dumps({'models': models}), flush=True)\n"
+            "from msmctts_tpu_torch import serve\n"
+            "serve.main(['--artifact', tmp + '/artifact', '--port', '0', '--window-ms', '0'])\n")
+    proc, lines, t0 = _start_daemon("-c", code, tmp)
+
     # the int8 artifact: calibrated on phase 5's batch, then frozen
     task.int8_decoder = True
     task.static_max_frames = EXPORT_FRAMES
@@ -5758,9 +6134,6 @@ def phase_export(card, am_path, reference, tmp):
         f"frames equal to the int8 predict, wav max abs err {err8:.3g}")
     del art8
 
-    # one fresh process: the artifact alone (phase 5's batch, no model module
-    # imported), then serve --artifact's main over the same programs, against
-    # an in-process engine on them
     rng = np.random.default_rng(21)
     n_symbols = list(task.networks["predictor"].n_symbols)
     texts = [_phone_string(_text(rng, [int(n)], n_symbols, int(n))[0]) for n in (24, 57, 96, 128)]
@@ -5771,47 +6144,27 @@ def phase_export(card, am_path, reference, tmp):
         alone = {t: eng.synthesize(t, timeout=SERVE_TIMEOUT_S) for t in texts}
     finally:
         eng.stop()
-    np.savez(os.path.join(tmp, "batch.npz"), text=batch["text"], text_length=batch["text_length"])
-    code = ("import sys, json, numpy as np\n"
-            "from msmctts_tpu_torch.export import ExportedTTS\n"
-            "tmp = sys.argv[1]\n"
-            "b = np.load(tmp + '/batch.npz')\n"
-            "out = ExportedTTS(tmp + '/artifact').run(b['text'], b['text_length'])\n"
-            "wav, wav_length, mel_length = (t.cpu().numpy() for t in out)\n"
-            "np.savez(tmp + '/fresh.npz', wav=wav, wav_length=wav_length, mel_length=mel_length)\n"
-            "models = sorted(m for m in sys.modules if m.startswith('msmctts_tpu_torch.models'))\n"
-            "print('fresh ' + json.dumps({'models': models}), flush=True)\n"
-            "from msmctts_tpu_torch import serve\n"
-            "serve.main(['--artifact', tmp + '/artifact', '--port', '0', '--window-ms', '0'])\n")
-    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
     builds_before = cuda_build.build_count()
-    t0 = time.perf_counter()
-    proc = subprocess.Popen([sys.executable, "-c", code, tmp], cwd=ROOT, env=env, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-    lines = queue.Queue()
-    threading.Thread(target=lambda: [lines.put(line) for line in proc.stdout], daemon=True).start()
     try:
-        models = json.loads(_wait_for_line(lines, "fresh ", proc, SERVE_TIMEOUT_S, tag="[21]")[len("fresh "):])["models"]
-        fresh_s = time.perf_counter() - t0
+        fresh_line = _wait_for_line(lines, "fresh ", proc, SERVE_TIMEOUT_S, tag="[21]")
+        models = json.loads(fresh_line[len("fresh "):])["models"]
+        fresh_s = _arrival(lines, fresh_line) - t0
         warm_line = _wait_for_line(lines, "warmup:", proc, SERVE_TIMEOUT_S, tag="[21]")
-        port = int(_wait_for_line(lines, "serving on", proc, 60, tag="[21]").rsplit(":", 1)[1])
-        ready_s = time.perf_counter() - t0
+        serving_line = _wait_for_line(lines, "serving on", proc, 60, tag="[21]")
+        port = int(serving_line.rsplit(":", 1)[1])
+        ready_s = _arrival(lines, serving_line) - t0
         results = [_http(port, "POST", "/synthesize", {"text": t}) for t in texts]
         _, data, _, _ = _http(port, "GET", "/stats")
         stats = json.loads(data)
     finally:
-        proc.terminate()
-        try:
-            proc.wait(30)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.wait(30)
+        _stop(proc)
     fresh = np.load(os.path.join(tmp, "fresh.npz"))
     fresh_err = _against_predict([w[:n] for w, n in zip(fresh["wav"], fresh["wav_length"])], fresh["mel_length"], want,
                                  "the fp32 artifact in a fresh process")
     if models:
         raise AssertionError(f"the fresh process imported model modules: {models}")
-    log(f"[21] the fp32 artifact in a fresh process ({fresh_s:.1f}s to its result): no model module imported, frames "
+    log(f"[21] the fp32 artifact in a fresh process ({fresh_s:.1f}s to its result, the int8 export meanwhile): no model "
+        f"module imported, frames "
         f"equal to predict, wav max abs err {fresh_err:.3g}")
     served_lsb = 0
     for t, r in zip(texts, results):
@@ -5844,7 +6197,7 @@ def phase_export(card, am_path, reference, tmp):
             "operator_ab": ab}
 
 
-def _operator_ab(task, batch, card, turns=6, runs=3, calls=400):
+def _operator_ab(task, batch, card, turns=3, runs=3, calls=400):
     """``predict`` with the wrappers as shipped (a direct launch) against
     every wrapper it calls (4 snaps, 36 MRF layers) routed through its
     ``msmctts::`` operator, in turns; then ``vq_nearest`` alone at N = 512
@@ -6176,6 +6529,260 @@ def phase_orbax(card, am_path):
     return {"training": training, "serving": serving}
 
 
+# ------------------------------------------ inference over a group, tensor parallelism
+# Phase 23: (a) the serving daemon over two ranks on the one card (serve
+# --mesh-devices 2 --devices 0,0 --backend gloo) under 8 clients, every
+# answer held against the one-rank in-process engine, and infer
+# --mesh-devices 2 with a padded last batch against one-rank infer; (b)
+# tensor parallelism: the CSMSC AE recipe at full width over data 2 x model 2
+# (heads split) on 4 ranks, phase 10's steps from phase 6's state held against
+# phase 6's run, its checkpoint into one rank, then one AM step at batch 64
+# against phase 12's.
+GROUP_CLIENTS, GROUP_REQUESTS, GROUP_STREAM_EVERY = 8, 16, 4
+GROUP_INFER_TEXTS, GROUP_INFER_B = 5, 4
+TP_MESH = {"data": 2, "model": 2}
+TP_WORLD = TP_MESH["data"] * TP_MESH["model"]
+
+
+def phase_group_serving(card, am_path, seed=23):
+    """(a) the daemon over two ranks and infer --mesh-devices 2."""
+    import shutil
+    import tempfile
+    import threading
+
+    import yaml
+    from scipy.io import wavfile
+
+    from msmctts_tpu_torch import infer
+    from msmctts_tpu_torch.serving import BatchingEngine, parse_phone_string
+    from msmctts_tpu_torch.tools.load_test import percentiles
+
+    # the daemon starts first; while its ranks start and warm up, the one-rank
+    # references (each text alone, as the engine pads it) and infer
+    proc, lines, t0 = _start_daemon("-m", am_path, "--port", "0", "--batch-size", str(SERVE_B), "--max-frames",
+                                    str(SERVE_MAX_FRAMES), "--stream-chunk-frames", str(SERVE_CHUNK),
+                                    "--mesh-devices", str(WORLD), "--devices", ",".join(["0"] * WORLD),
+                                    "--backend", BACKEND)
+    task = _load_tts_task(am_path, "cuda")
+    n_symbols = list(task.networks["predictor"].n_symbols)
+    rng = np.random.default_rng(seed)
+    texts = [_phone_string(_text(rng, [int(n)], n_symbols, int(n))[0])
+             for n in rng.integers(SERVE_PHONES[0], SERVE_PHONES[1] + 1, GROUP_CLIENTS)]
+    eng = BatchingEngine(task, sample_rate=task.samplerate, batch_size=SERVE_B, window_ms=0.0,
+                         max_frames=SERVE_MAX_FRAMES, stream_chunk_frames=SERVE_CHUNK)
+    alone = {t: task.predict(eng.batch_of([parse_phone_string(t)]))["wav"][0] for t in texts}
+    del task, eng
+    torch.cuda.empty_cache()
+
+    requests = [(texts[i % len(texts)], i % GROUP_STREAM_EVERY == GROUP_STREAM_EVERY - 1) for i in range(GROUP_REQUESTS)]
+    try:
+        # infer --mesh-devices 2 against one process, the last batch padded
+        tmp = tempfile.mkdtemp(prefix="msmctts_group_infer_")
+        try:
+            cases = {f"g{i}": {"text": t} for i, t in enumerate((texts * 2)[:GROUP_INFER_TEXTS])}
+            test_list = os.path.join(tmp, "test.yaml")
+            with open(test_list, "w") as f:
+                yaml.safe_dump(cases, f)
+            one_dir, two_dir = os.path.join(tmp, "one"), os.path.join(tmp, "two")
+            common = ["-m", am_path, "-t", test_list, "-b", str(GROUP_INFER_B)]
+            t1 = time.perf_counter()
+            infer.main(common + ["-o", one_dir])
+            one_s = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            infer.main(common + ["-o", two_dir, "--mesh-devices", str(WORLD), "--devices", ",".join(["0"] * WORLD),
+                                 "--backend", BACKEND])
+            two_s = time.perf_counter() - t1
+            files = sorted(os.listdir(one_dir))
+            if files != sorted(os.listdir(two_dir)) or len([f for f in files if f.endswith(".wav")]) != GROUP_INFER_TEXTS:
+                raise AssertionError(f"infer --mesh-devices {WORLD}: files {sorted(os.listdir(two_dir))} vs {files}")
+            infer_err = 0.0
+            for name in files:
+                a, b = os.path.join(one_dir, name), os.path.join(two_dir, name)
+                if name.endswith(".wav"):
+                    x, y = wavfile.read(a)[1].astype(np.float64) / 32767.0, wavfile.read(b)[1].astype(np.float64) / 32767.0
+                else:
+                    x, y = np.load(a), np.load(b)
+                if x.shape != y.shape:
+                    raise AssertionError(f"infer --mesh-devices {WORLD}: {name} {y.shape} vs {x.shape}")
+                infer_err = max(infer_err, float(np.abs(x - y).max()))
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        log(f"[23] (a) infer of {GROUP_INFER_TEXTS} texts at -b {GROUP_INFER_B} (last batch padded to {WORLD} rows) over "
+            f"{WORLD} ranks vs one process: {len(files)} files, max abs diff {infer_err:.3g}; {two_s:.1f}s vs {one_s:.1f}s "
+            "(the ranks' start included)")
+        if infer_err > AS_TOL:
+            raise AssertionError(f"infer --mesh-devices {WORLD} differs from one process by {infer_err}")
+        warm_line = _wait_for_line(lines, "warmup:", proc, SERVE_TIMEOUT_S, "[23]")
+        serving_line = _wait_for_line(lines, "serving on", proc, 60, "[23]")
+        port = int(serving_line.rsplit(":", 1)[1])
+        ready_s = _arrival(lines, serving_line) - t0
+        results = [None] * len(requests)
+
+        def client(worker):
+            for i in range(worker, len(requests), GROUP_CLIENTS):
+                t, stream = requests[i]
+                results[i] = _http(port, "POST", "/synthesize", {"text": t, "stream": stream})
+
+        threads = [threading.Thread(target=client, args=(w,)) for w in range(GROUP_CLIENTS)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(SERVE_TIMEOUT_S)
+        load_s = time.perf_counter() - t0
+        if any(r is None for r in results):
+            raise AssertionError("the group daemon's load did not finish")
+        for _ in range(100):  # a streamed batch is counted once its worker call returns
+            stats = json.loads(_http(port, "GET", "/stats")[1])
+            if stats["requests"] >= len(requests):
+                break
+            time.sleep(0.05)
+        if proc.poll() is not None:
+            raise AssertionError(f"the group daemon died with {proc.returncode}")
+    finally:
+        _stop(proc, 60)  # the launcher kills its ranks on the way out
+    worst = 0.0
+    for (t, stream), (status, data, _, _) in zip(requests, results):
+        if status != 200:
+            raise AssertionError(f"group daemon (stream {stream}): {status} {data[:300]!r}")
+        pcm = _pcm(data, stream) / 32767.0
+        if pcm.shape != alone[t].shape or not np.abs(pcm).max() > 1e-3:
+            raise AssertionError(f"group daemon: {pcm.shape} samples, in-process {alone[t].shape} (stream {stream})")
+        worst = max(worst, float(np.abs(pcm - alone[t]).max()))
+    blocking = [r[3] for (_, s), r in zip(requests, results) if not s]
+    first = [r[2] for (_, s), r in zip(requests, results) if s]
+    lat, ttfa = percentiles(blocking), percentiles(first)
+    ranks = stats.get("ranks") or []
+    log(f"[23] (a) serve --mesh-devices {WORLD} --devices {','.join(['0'] * WORLD)} --backend {BACKEND} on {card}: ready "
+        f"{ready_s:.1f}s after its start (the references and infer ran meanwhile; {warm_line.strip()}); {GROUP_CLIENTS} clients x {len(requests)} requests ({len(first)} streamed) in {load_s:.2f} s, "
+        f"{stats['batches']} batches; blocking p50 / p95 / p99 {lat['p50'] * 1e3:.1f} / {lat['p95'] * 1e3:.1f} / "
+        f"{lat['p99'] * 1e3:.1f} ms (client clock), first audio p50 {ttfa['p50'] * 1e3:.1f} ms; served vs one rank's "
+        f"predict of each text alone max abs err {worst:.3g}; /stats ranks {json.dumps(ranks)}, errors {stats['errors']}")
+    if worst > AS_TOL or stats["errors"] or len(ranks) != WORLD or any(r["cold_shapes"] or r["kernel_builds"] for r in ranks):
+        raise AssertionError(f"the group daemon: served vs in-process {worst}, /stats {stats}")
+
+    return {"ready_s": ready_s, "load_s": load_s, "latency_s": lat, "ttfa_s": ttfa, "served_err": worst,
+            "stats": stats, "warmup_line": warm_line.strip(), "infer_err": infer_err, "infer_s": [one_s, two_s]}
+
+
+def rank_tensor_parallel(group, device, batch_np, reference_indices, save_dir):
+    """Phase 10's AE steps over data 2 x model 2 (``rank_train``), then, in
+    the same process, phase 12's first AM step."""
+    out = rank_train(group, device, batch_np, reference_indices, TP_MESH, save_dir)
+    torch.cuda.empty_cache()
+    out["am"] = _am_tp_step(group)
+    return out
+
+
+def _am_tp_step(group):
+    """Phase 12's first AM step over data 2 x model 2 on this rank's rows."""
+    from msmctts_tpu_torch.data.loader import to_device
+    from msmctts_tpu_torch.parallel import mesh, sharding
+    from msmctts_tpu_torch.training.base_trainer import metrics_to_host
+
+    trainer = _build_am_trainer("cuda", group=group, mesh_node=TP_MESH)
+    n_symbols = list(trainer.config.task["predictor"]["n_symbols"])
+    batch_np = _am_batch(np.random.default_rng(1234), n_symbols, AM_B, AM_TEXT, AM_FRAMES, AM_PHONES, AM_LENGTHS)
+    batch = to_device(mesh.shard_rows(batch_np, trainer.rank, trainer.world), "cuda")
+    torch.cuda.synchronize()
+    mesh.barrier(group)
+    mesh.reset_collective_counts()
+    sharding.PAIR_REDUCES[0] = 0
+    _reset_counts()
+    t0 = time.perf_counter()
+    metrics = metrics_to_host(trainer.train_step(batch, 1))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    out = {"metrics": metrics, "ms": ms, "launches": _counts(), "by_group": mesh.collective_counts(by_group=True),
+           "pair_reduces": sharding.PAIR_REDUCES[0], "blocks": len(trainer._plan.modules),
+           "kept_whole": sorted(trainer._plan.replicated)}
+    return out
+
+
+def phase_tensor_parallel(card, batch_np, reference, dp_train, am_res):
+    """(b) tensor parallelism at full width against the one-rank runs."""
+    import hashlib
+    import shutil
+
+    from msmctts_tpu_torch.utils.checkpoint import find_latest_checkpoint
+
+    save_dir = os.path.join(SMOKE_DIR, "tp_ckpt")
+    shutil.rmtree(save_dir, ignore_errors=True)
+    res = _run_ranks(rank_tensor_parallel, TP_WORLD, BACKEND, batch_np, reference["indices"], save_dir)
+    held = _hold_dp_training(res, reference, BACKEND, card, "[23]",
+                             f"data {TP_MESH['data']} x model {TP_MESH['model']} ranks ({TRAIN_B // TP_MESH['data']} rows a block)",
+                             tol=TP_TOL)
+    pairs = res[0]["pairs"]
+    per_step = []
+    for r in res:
+        for step, dp in zip(r["steps"], dp_train["collectives_per_step"]):
+            gan = step["iteration"] > 2
+            want_pairs = pairs["fft"] + (pairs["mrf"] if gan else 0)
+            model = step["by_group"].get("model all_reduce", {}).get("calls", 0)
+            data = step["by_group"].get("data all_reduce", {}).get("calls", 0)
+            bcast = step["by_group"].get("model broadcast", {}).get("calls", 0)  # gradients per optimizer, metrics
+            if step["pair_reduces"] != want_pairs or model != 2 * want_pairs + (3 * pairs["mrf"] if gan else 0) + 1 \
+                    or bcast != (2 if gan else 1) + 1 or data != dp["all_reduce"]["calls"] \
+                    or any(k.startswith("world") for k in step["by_group"]):
+                raise AssertionError(f"tensor parallel step {step['iteration']}: pair reduces {step['pair_reduces']} "
+                                     f"(paired blocks {want_pairs}), collectives {step['by_group']}, phase 10's {dp}")
+    per_step = [{k: v for k, v in s["by_group"].items()} | {"pair_reduces": s["pair_reduces"]} for s in res[0]["steps"]]
+    log(f"[23] (b) paired blocks split: {pairs['fft']} FFT (attention and ConvFFN) + {pairs['mrf']} MRF pairs of "
+        f"{pairs['marked']} leaves the JAX rules mark (kept whole: {pairs['kept_whole']}); per step on rank 0: "
+        f"{json.dumps(per_step)}; kernel 2's calls of the last step against plain on every rank: max sums err "
+        f"{max(row['sums_max_abs_err'] for r in res for row in r['stats']):.3g}")
+
+    # the checkpoint written under tensor parallelism, into one rank
+    path = res[0]["checkpoint"] or find_latest_checkpoint(save_dir)
+    t0 = time.perf_counter()
+    one = _build_trainer("cuda", warmup_steps=2)
+    one.load(path)
+    digest = hashlib.sha256()
+    for t in list(one.ae.state_dict().values()) + list(one.disc.state_dict().values()):
+        digest.update(t.detach().cpu().numpy().tobytes())
+    load_s = time.perf_counter() - t0
+    size_mb = os.path.getsize(path) / 1e6
+    del one
+    shutil.rmtree(save_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log(f"[23] (b) the checkpoint written under tensor parallelism ({size_mb:.1f} MB, saved in "
+        f"{res[0]['save_s']:.2f}s after the gathers) loads into one rank in {load_s:.2f}s: bit-equal to the gathered "
+        f"state {digest.hexdigest() == res[0]['digest']}")
+    if digest.hexdigest() != res[0]["digest"]:
+        raise AssertionError("the tensor-parallel checkpoint does not load into one rank as the gathered state")
+
+    # one AM step at batch 64, bucket 768, against phase 12's first step
+    am = [r["am"] for r in res]
+    want = am_res["steps"][0]["metrics"]
+    worst = 0.0
+    for r in am:
+        if r["metrics"] != am[0]["metrics"] or r["launches"] != {"vq_nearest": 2, "vq_nearest_stats": 0,
+                                                                  "fused_resblock_layer": 0}:
+            raise AssertionError(f"tensor parallel AM step: metrics or launches differ: {r['launches']}")
+        if r["pair_reduces"] != r["blocks"]:
+            raise AssertionError(f"tensor parallel AM step: {r['pair_reduces']} pair reduces for {r['blocks']} blocks")
+    for k, w in want.items():
+        worst = max(worst, abs(am[0]["metrics"][k] - w) / max(abs(w), 1e-3))
+    log(f"[23] (b) AM step at batch {AM_B} (bucket {AM_FRAMES}) over data 2 x model 2: {am[0]['blocks']} paired blocks "
+        f"split (kept whole: {am[0]['kept_whole']}), pair reduces {am[0]['pair_reduces']}, collectives "
+        f"{json.dumps(am[0]['by_group'])}, launches per rank {am[0]['launches']}; metrics vs phase 12's first step worst "
+        f"relative {worst:.3g}; wall per rank {[round(r['ms'], 1) for r in am]} ms ({TP_WORLD} processes time-slicing "
+        f"{card} over gloo; phase 12's first step {am_res['first_ms']:.1f} ms, warm {am_res['warm_ms']:.1f} ms)")
+    if worst > STEP_TOL["loss_rtol"]:
+        raise AssertionError(f"tensor parallel AM step differs from phase 12's by {worst} relative")
+    return {**held, "pairs": pairs, "collectives_rank0": per_step, "stats": res[0]["stats"],
+            "checkpoint_mb": size_mb, "checkpoint_load_s": load_s,
+            "am": {"metrics_rel": worst, "ms": [r["ms"] for r in am],
+                   "collectives": am[0]["by_group"], "pair_reduces": am[0]["pair_reduces"]},
+            "launches_stats_per_rank": sum(s["launches"]["vq_nearest_stats"] for s in res[0]["steps"]),
+            "ae_ms": [[s["ms"] for s in r["steps"]] for r in res]}
+
+
+def phase_group(card, am_path, batch_np, reference, dp_train, am_res):
+    return {"serving": phase_group_serving(card, am_path),
+            "tensor_parallel": phase_tensor_parallel(card, batch_np, reference, dp_train, am_res)}
+
+
 def _device_rows(prof):
     """[{name, count, device_ms}] of a profile's kernels, the longest first."""
     from torch.autograd import DeviceType
@@ -6240,6 +6847,7 @@ def main(argv=None):
         t0 = time.perf_counter()
         out = fn(*args, **kwargs)
         spent[phase] = round(spent.get(phase, 0.0) + time.perf_counter() - t0, 1)
+        log(f"[time] phase {phase} {spent[phase]}s, {time.perf_counter() - t_start:.1f}s since the start")
         return out
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -6257,14 +6865,20 @@ def main(argv=None):
     profile = profile_call(predict, "[5]", "predict") if args.out else None
     del predict
     train_res, train_ref = timed("6", phase_training, env["nvidia_smi"], with_profile=bool(args.out))
-    step_res = timed("7", phase_step_card_vs_cpu)
     backend = BACKEND
     log(f"[8] {WORLD} ranks share cuda:0; collectives over backend {backend}")
-    shard_res = timed("8", phase_sharded_kernels, backend, env["nvidia_smi"])
     batch_np = _training_batch()[0]
-    nccl_res = timed("9", phase_nccl, batch_np)
-    dp_train = timed("10", phase_dp_training, backend, batch_np, train_ref, env["nvidia_smi"])
-    dp_infer = timed("11", phase_dp_inference, backend, tts_ref)
+    ranks = timed("8-11 ranks", phase_two_ranks, backend, batch_np, train_ref, tts_ref)
+    # phase 9's process runs beside phase 7 and the holds of phases 8, 10 and 11, which time nothing
+    nccl = _Beside(phase_nccl, batch_np)
+    step_res = timed("7", phase_step_card_vs_cpu)
+    shard_res = timed("8", phase_sharded_kernels, ranks["sharded"], backend, env["nvidia_smi"])
+    dp_train = timed("10", phase_dp_training, ranks["train"], backend, train_ref, env["nvidia_smi"])
+    dp_infer = timed("11", phase_dp_inference, ranks["predict"], backend, tts_ref)
+    del ranks
+    nccl_res = nccl.result()
+    spent["9"] = round(nccl.seconds, 1)
+    log(f"[time] phase 9 {spent['9']}s beside phases 7, 8, 10 and 11, {time.perf_counter() - t_start:.1f}s since the start")
     am_res = timed("12", phase_am_training, env["nvidia_smi"], with_profile=bool(args.out))
     am_cpu = timed("12", phase_am_step_card_vs_cpu)
     am_cli = timed("12", phase_am_entry_point, env["nvidia_smi"])
@@ -6282,7 +6896,9 @@ def main(argv=None):
     fx = timed("21", phase_feed_and_export, env["nvidia_smi"], tts_ref["am_path"], tts_ref)
     fx_feed, fx_exp = fx["feed"], fx["export"]
     ob = timed("22", phase_orbax, env["nvidia_smi"], tts_ref["am_path"])
+    grp = timed("23", phase_group, env["nvidia_smi"], tts_ref["am_path"], batch_np, train_ref, dp_train, am_res)
     ob_tr, ob_sv = ob["training"], ob["serving"]
+    grp_tp = grp["tensor_parallel"]
     bf_vq, bf_am, bf_inf = bf16["vqgan"], bf16["am"], bf16["inference"]
     o_i8, o_tr, o_tts = opts["int8_bf16"], opts["training"], opts["legacy_tts"]
     lj_as, lj_tr, lj_tools, lj_daemon = lj["analysis_synthesis"], lj["training"], lj["tools"], lj["daemon"]
@@ -6427,6 +7043,12 @@ def main(argv=None):
             # the ISTFT and LJSpeech recipes' quantizers call this function too, with no group
             "launches_istft": ist_tr["launches_per_step"]["vq_nearest_stats"],
             "launches_ljspeech": lj_tr["launches_per_step"]["vq_nearest_stats"],
+            # phase 23 (b): tensor parallelism, data 2 x model 2 on 4 ranks of the one card: the sums
+            # reduced over the data group only; launches per rank over 2 warmup + 2 GAN steps, the last
+            # step's two calls on every rank held against plain on their inputs (8 rows a rank)
+            "launches_tensor_parallel": grp_tp["launches_stats_per_rank"],
+            "tensor_parallel": [{k: r[k] for k in ("N", "valid", "bound_ms", "sums_max_abs_err", "index_ties")}
+                                for r in grp_tp["stats"]],
         },
         {
             "name": "vq_nearest_sharded", "route": "cuda", "source": "msmctts_tpu_torch/csrc/vq_nearest.cu",
@@ -6450,6 +7072,15 @@ def main(argv=None):
             "launches_qat": launches_qat("vq_nearest"),
             "launches_ljspeech": {"analysis_synthesis_batch": lj_as["launches"]["vq_nearest"],
                                   "predict": lj_tools["synthesize_launches"]["vq_nearest"]},
+            # phase 11 over the group, per rank of 2: --int8 predict of phase 5's batch and phase 13's
+            # streamed batch, every launch held against plain on the rank's inputs; phase 23 (b): the AM
+            # teacher's snaps per rank of the tensor-parallel step
+            "launches_group": {"int8_predict_batch": dp_infer["int8"]["launches"]["vq_nearest"],
+                               "streamed_batch": dp_infer["stream"]["launches"]["vq_nearest"],
+                               "engine_served_batches": {k: v if k == "batches" else v["vq_nearest"]
+                                                         for k, v in dp_infer["engine"]["launches"].items()},
+                               "tensor_parallel_am_step": 2},
+            "group": {"int8_predict": dp_infer["int8"]["snaps"], "streamed_batch": dp_infer["stream"]["snaps"]},
         },
         {
             "name": "fused_resblock_layer", "route": "cuda", "source": "msmctts_tpu_torch/csrc/resblock.cu",
@@ -6509,6 +7140,13 @@ def main(argv=None):
             # phase 22: the 36 layers of infer -m <snapshot>'s batch of 4, held against plain on their inputs
             "launches_orbax": {"infer_snapshot_batch": ob_sv["launches"]["fused_resblock_layer"]},
             "orbax": {"max_abs_err": ob_sv["resblock_max_abs_err"]},
+            # phase 11: 36 per window per rank of phase 13's streamed batch over the group (2 rows a rank),
+            # held against plain at the window's 36 layers of 2 rows; none under --int8
+            "launches_group": {"streamed_batch": dp_infer["stream"]["launches"]["fused_resblock_layer"],
+                               "int8_predict_batch": dp_infer["int8"]["launches"]["fused_resblock_layer"],
+                               "engine_served_batches": {k: v if k == "batches" else v["fused_resblock_layer"]
+                                                         for k, v in dp_infer["engine"]["launches"].items()}},
+            "group_window": {k: dp_infer["stream"]["window"][k] for k in ("ms", "plain_ms", "bound_ms", "max_abs_err", "shapes")},
             "tolerance": {**RB_TOL, "max_abs": RB_MAX_ABS},
             "shapes": f"per decode: the 36 CSMSC MRF layers at B={B}, {FRAMES} frames; bound_ms counts the kernel's operations, "
                       "three TF32 tensor-core products per fp32 product at 495 TFLOP/s; bound_fp32_ms the same products as "
@@ -6517,7 +7155,7 @@ def main(argv=None):
     ]
     vq_bound_by = {r["bound"][1] for r in vq_res["rows"] if "bound" in r}
     kernels[0]["bound_by"] = "bytes" if vq_bound_by == {"bytes"} else "operations"
-    log(env["nvidia_smi"])
+    print(env["nvidia_smi"], flush=True)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
@@ -6528,7 +7166,7 @@ def main(argv=None):
                        "dp_inference": dp_infer, "am_training": am_res, "am_step_card_vs_cpu": am_cpu,
                        "am_entry_point": am_cli, "serving": serving, "qs_tts": qs, "istft": istft, "int8": int8,
                        "quality_tools": tools, "ljspeech": lj, "bf16": bf16, "options": opts, "feed_export": fx, "orbax": ob,
-                       "phase_s": spent, "wall_s": time.perf_counter() - t_start}, f, indent=1)
+                       "group": grp, "phase_s": spent, "wall_s": time.perf_counter() - t_start}, f, indent=1)
     log(f"[end] seconds per phase {json.dumps(spent)}")
     log(f"[end] wall {time.perf_counter() - t_start:.1f}s on {env['nvidia_smi']}")
     print(json.dumps({"kernels": kernels}))

@@ -36,6 +36,7 @@ import torch.nn.functional as F
 from msmctts_tpu_torch.ops.convs import WNConv1d, WNConv2d, WNConvTranspose1d, fold_weight_norm
 from msmctts_tpu_torch.ops.resblock import LRELU_SLOPE, fused_resblock_layer, prepare_taps
 from msmctts_tpu_torch.ops.stft import istft_real_imag, mel_filterbank_htk, stft_real_imag
+from msmctts_tpu_torch.parallel.sharding import copy_to_model, reduce_from_model
 from msmctts_tpu_torch.registry import register_network
 
 DISC_LRELU = 0.2
@@ -109,7 +110,13 @@ class ResBlock1(nn.Module):
     ``prepare_taps``); both are refreshed after every load and on every
     switch to eval.
     ``forward_ncl`` takes [B, C, T] and runs the same layers as two live
-    weight-normalised convs each, for the training graph."""
+    weight-normalised convs each, for the training graph; under tensor
+    parallelism (``parallel/sharding.py``) each pair holds its rank's
+    channels, ``conv1_i`` column-parallel and ``conv2_i`` row-parallel, with
+    one all-reduce per pair. A split block refuses ``eval()``: the fused
+    kernel folds gathered weights only."""
+
+    tp = None  # the model group while its pairs are split
 
     def __init__(self, channels: int, kernel_size: int = 3, dilations: Sequence[int] = (1, 3, 5)):
         super().__init__()
@@ -139,14 +146,34 @@ class ResBlock1(nn.Module):
             setattr(self, f"prepared_{i}", prepare_taps(taps1, taps2) if taps1.shape[1] % 8 == 0 else None)
 
     def train(self, mode: bool = True):
+        if not mode and self.tp is not None:
+            raise RuntimeError("eval() of an MRF block split over a model group: gather its weights first")
         super().train(mode)
         if not mode:
             self.fold()
         return self
 
+    def tp_layout(self, n_model: int):
+        roles = {}
+        for i in range(len(self.dilations)):
+            roles.update({f"convs1.{i}.weight_v": 0, f"convs1.{i}.weight_g": 0, f"convs1.{i}.bias": 0,
+                          f"convs2.{i}.weight_v": 1})
+        return roles, None
+
+    def set_model_group(self, group):
+        self.tp = group
+        for c2 in self.convs2:
+            c2.norm_group = group
+
     def forward_ncl(self, x):
+        tp = self.tp
         for c1, c2 in zip(self.convs1, self.convs2):
-            x = x + c2(leaky_relu(c1(leaky_relu(x, LRELU_SLOPE)), LRELU_SLOPE))
+            h = leaky_relu(c1(copy_to_model(leaky_relu(x, LRELU_SLOPE), tp)), LRELU_SLOPE)
+            if tp is None:
+                x = x + c2(h)
+            else:
+                y = F.conv1d(h, c2.kernel().to(h.dtype), None, padding=c2.padding, dilation=c2.dilation)
+                x = x + (reduce_from_model(y, tp) + c2.bias.to(y.dtype)[:, None])
         return x
 
     def forward(self, x):

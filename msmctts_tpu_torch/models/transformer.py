@@ -16,6 +16,15 @@ uniform softmax); positions clip to ``max_seq_len``; the length regulator
 maps frame t to the count of phone ends <= t, clamped to Lt - 1, and rounds
 durations half to even (``torch.round``). Attention is plain matmul and
 softmax, as the JAX package leaves it to XLA.
+
+Under tensor parallelism (``parallel/sharding.py``) ``MultiHeadAttention``
+holds its rank's heads of the fused ``linear`` (column-parallel, whole
+heads) and their input columns of ``fc`` (row-parallel), and ``ConvFFN``
+its rank's channels of ``w_1`` and ``w_2``: each block enters through
+``copy_to_model`` and leaves through one all-reduce, with the row-parallel
+bias added after it. The attention dropout draws for every head of the
+global batch and keeps its rank's rows and heads, so the noise is what
+one rank draws.
 """
 
 from __future__ import annotations
@@ -29,7 +38,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from msmctts_tpu_torch.ops.dropout import Dropout
+from msmctts_tpu_torch.parallel.mesh import rank, world
 from msmctts_tpu_torch.parallel.precision import Conv1d, LayerNorm, Linear
+from msmctts_tpu_torch.parallel.sharding import copy_to_model, row_parallel
 
 LAYERNORM_EPS = 1e-5
 NEG_INF = -1e9
@@ -61,6 +72,8 @@ def _same_padding(kernel_size: int):
 class MultiHeadAttention(nn.Module):
     """Fused-QKV self-attention with key-padding mask + residual + LN."""
 
+    tp = None  # the model group while its heads are split (parallel/sharding.py)
+
     def __init__(self, n_head: int, d_model: int, d_k: int, d_v: int,
                  dropout: float = 0.1, attn_dropout: float = 0.1):
         super().__init__()
@@ -71,9 +84,19 @@ class MultiHeadAttention(nn.Module):
         self.attn_dropout = Dropout(attn_dropout)
         self.dropout = Dropout(dropout)
 
+    def tp_layout(self, n_model: int):
+        """Its parameters' split dims, and why it stays whole (or None)."""
+        why = None if self.n_head % n_model == 0 else f"{self.n_head} heads do not split over {n_model} ranks"
+        return {"linear.weight": 0, "linear.bias": 0, "fc.weight": 1}, why
+
+    def set_model_group(self, group):
+        self.tp = group
+
     def forward(self, x, key_pad):
         B, T, _ = x.shape
-        qkv = self.linear(x).view(B, T, self.n_head, 2 * self.d_k + self.d_v)
+        tp = self.tp
+        n_head = self.n_head // world(tp)
+        qkv = self.linear(copy_to_model(x, tp)).view(B, T, n_head, 2 * self.d_k + self.d_v)
         q = qkv[..., : self.d_k]
         k = qkv[..., self.d_k : 2 * self.d_k]
         v = qkv[..., 2 * self.d_k :]
@@ -81,14 +104,18 @@ class MultiHeadAttention(nn.Module):
         # fp32 (msmctts_tpu/models/transformer.py:72-73); so does this cast
         attn = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * (1.0 / np.sqrt(self.d_k))
         attn = attn.masked_fill(key_pad[:, None, None, :], NEG_INF)
-        attn = self.attn_dropout(torch.softmax(attn, dim=-1))
+        heads = None if tp is None else (rank(tp) * n_head, self.n_head)
+        attn = self.attn_dropout(torch.softmax(attn, dim=-1), heads=heads)
         # einsum promotes its operands in JAX (transformer.py:77)
-        out = torch.einsum("bhqk,bkhd->bqhd", attn, v.to(attn.dtype)).reshape(B, T, self.n_head * self.d_v)
-        return self.layer_norm(self.dropout(self.fc(out)) + x)
+        out = torch.einsum("bhqk,bkhd->bqhd", attn, v.to(attn.dtype)).reshape(B, T, n_head * self.d_v)
+        y = self.fc(out) if tp is None else row_parallel(self.fc, out, tp)
+        return self.layer_norm(self.dropout(y) + x)
 
 
 class ConvFFN(nn.Module):
     """conv1d(k) -> relu -> conv1d(k) -> dropout -> residual -> LN."""
+
+    tp = None  # the model group while its inner channels are split
 
     def __init__(self, d_model: int, d_inner: int, kernel_size: int = 3, dropout: float = 0.1):
         super().__init__()
@@ -98,9 +125,18 @@ class ConvFFN(nn.Module):
         self.w_2 = Conv1d(d_inner, d_model, kernel_size, padding=pad)
         self.layer_norm = LayerNorm(d_model, eps=LAYERNORM_EPS)
 
+    def tp_layout(self, n_model: int):
+        return {"w_1.weight": 0, "w_1.bias": 0, "w_2.weight": 1}, None
+
+    def set_model_group(self, group):
+        self.tp = group
+
     def forward(self, x):
-        h = self.w_2(F.relu(self.w_1(x.transpose(1, 2)))).transpose(1, 2)
-        return self.layer_norm(self.dropout(h) + x)
+        if self.tp is None:
+            h = self.w_2(F.relu(self.w_1(x.transpose(1, 2))))
+        else:
+            h = row_parallel(self.w_2, F.relu(self.w_1(copy_to_model(x, self.tp).transpose(1, 2))), self.tp)
+        return self.layer_norm(self.dropout(h.transpose(1, 2)) + x)
 
 
 class FFTBlock(nn.Module):

@@ -27,6 +27,13 @@ dtype ``weight_v`` and ``weight_g`` hold and cast to the input's dtype, and
 the bias to the output's (``msmctts_tpu/ops/convs.py:31-34,89,97,137,145``);
 ``Conv1x1`` is a ``flax.linen.Dense`` there, so input, weight and bias take
 their promoted dtype.
+
+A row-parallel conv of tensor parallelism (``parallel/sharding.py``) holds
+its rank's input channels of ``weight_v``; with ``norm_group`` set, its
+per-output-channel norm in training is taken over every shard (the squared
+norm all-reduced over the group in the graph, with its gradient) and its
+replicated ``g`` gets the gradient summed over the shards. Folding a shard
+for eval is refused.
 """
 
 from __future__ import annotations
@@ -34,6 +41,8 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from msmctts_tpu_torch.parallel.sharding import copy_to_model, sum_over_model
 
 
 def _to(t, dtype):
@@ -52,6 +61,7 @@ class _Folded(nn.Module):
     """A weight-norm pair: live in training, folded for eval."""
 
     hifigan_init = False
+    norm_group = None  # the model group while its input channels are split
 
     def _init_pair(self, shape, bias_size, bias: bool, hifigan_init: bool):
         self.hifigan_init = hifigan_init
@@ -68,6 +78,8 @@ class _Folded(nn.Module):
 
     @torch.no_grad()
     def fold(self):
+        if self.norm_group is not None:
+            raise RuntimeError("a weight-norm conv split over its input channels folds only when gathered")
         self.weight = fold_weight_norm(self.weight_v, self.weight_g)
 
     def train(self, mode: bool = True):
@@ -78,6 +90,10 @@ class _Folded(nn.Module):
 
     def kernel(self):
         """The dense kernel of this forward: in the graph when training."""
+        if self.training and self.norm_group is not None:
+            v = self.weight_v.float()
+            sq = sum_over_model(torch.sum(v * v, dim=tuple(range(1, v.dim())), keepdim=True), self.norm_group)
+            return v / torch.clamp(torch.sqrt(sq), min=1e-12) * copy_to_model(self.weight_g.float(), self.norm_group)
         if self.training:
             return fold_weight_norm(self.weight_v, self.weight_g)
         return self.weight

@@ -13,7 +13,10 @@ here every rank's generator holds the same state, every rank draws the mask
 of the *global* batch (``world`` times its own rows; the batch is the
 leading dimension at every call site) and keeps its own block of rows. W
 ranks then apply the mask one rank would, and the generator's state stays
-one state for the whole run.
+one state for the whole run. Under tensor parallelism the ranks of one
+``model`` group hold the same rows and the same generator state, so their
+draws on replicated activations are equal; the attention dropout over a
+rank's heads (``heads``) draws for every head and keeps its own.
 """
 
 from __future__ import annotations
@@ -34,7 +37,9 @@ class Dropout(nn.Module):
         self.generator: Optional[torch.Generator] = None
         self.shard: Tuple[int, int] = (0, 1)  # (rank, world) of the batch rows this process holds
 
-    def forward(self, x):
+    def forward(self, x, heads: Optional[Tuple[int, int]] = None):
+        """``heads`` = (first, all): ``x``'s dim 1 holds heads
+        [first, first + x.shape[1]) of ``all``, and the mask is drawn for all."""
         if not self.training or self.rate <= 0.0:
             return x
         if self.generator is None:
@@ -42,8 +47,12 @@ class Dropout(nn.Module):
         keep = 1.0 - self.rate
         rank, world = self.shard
         B = x.shape[0]
-        mask = torch.empty((B * world, *x.shape[1:]), dtype=x.dtype, device=x.device).bernoulli_(keep, generator=self.generator)
-        return x * mask[rank * B : (rank + 1) * B] / keep
+        shape = (B * world, *x.shape[1:]) if heads is None else (B * world, heads[1], *x.shape[2:])
+        mask = torch.empty(shape, dtype=x.dtype, device=x.device).bernoulli_(keep, generator=self.generator)
+        mask = mask[rank * B : (rank + 1) * B]
+        if heads is not None:
+            mask = mask[:, heads[0] : heads[0] + x.shape[1]]
+        return x * mask / keep
 
     def extra_repr(self):
         return f"rate={self.rate}"

@@ -22,16 +22,25 @@ is the caller's explicit choice:
 Host-side flags (:func:`agree_any`) travel over gloo on CPU tensors in
 every case, so agreeing on one never waits for the device.
 
-Every collective that runs is counted, by kind and bytes, in
-:data:`COLLECTIVES`; a path that must not communicate (the inference snap)
-is tested by that count staying 0.
+Every collective that runs is counted, calls and bytes, in
+:data:`COLLECTIVES` by the name of the group it ran over (``world``, or the
+``data`` / ``model`` subgroups of ``parallel/sharding.py``) and its kind; a
+path that must not communicate (the inference snap) is tested by that count
+staying 0.
+
+Serving over a group (``serving.BatchingEngine(group=...)``) adds host-side
+messages: :func:`broadcast_object` sends rank 0's control header and padded
+numpy batch to every rank, :func:`all_gather_objects` brings every rank's
+status back, both over gloo on the host; :func:`all_reduce_max` is the
+max-reduce.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import datetime
-from typing import Iterable, List, Optional
+import pickle
+from typing import Any, Iterable, List, Optional
 
 import numpy as np
 import torch
@@ -39,23 +48,34 @@ import torch.distributed as dist
 
 BACKENDS = ("nccl", "gloo")
 
-# collectives run by this process since the last reset: {kind: [calls, bytes]}
-COLLECTIVES = {"all_reduce": [0, 0], "broadcast": [0, 0], "all_gather": [0, 0]}
+# collectives run by this process since the last reset:
+# {(group name, kind): [calls, bytes]}
+COLLECTIVES: dict = {}
+KINDS = ("all_reduce", "broadcast", "all_gather")
 
 
 def reset_collective_counts():
-    for v in COLLECTIVES.values():
-        v[0] = v[1] = 0
+    COLLECTIVES.clear()
 
 
-def collective_counts() -> dict:
-    """{kind: {"calls": n, "bytes": payload bytes}} since the last reset."""
-    return {k: {"calls": v[0], "bytes": v[1]} for k, v in COLLECTIVES.items()}
+def collective_counts(by_group: bool = False) -> dict:
+    """{kind: {"calls": n, "bytes": payload bytes}} since the last reset,
+    summed over groups (every kind present); with ``by_group`` keyed
+    "<group name> <kind>" instead, only the kinds that ran."""
+    if by_group:
+        return {f"{g} {k}": {"calls": v[0], "bytes": v[1]} for (g, k), v in sorted(COLLECTIVES.items())}
+    out = {k: {"calls": 0, "bytes": 0} for k in KINDS}
+    for (_, k), (calls, nbytes) in COLLECTIVES.items():
+        out[k]["calls"] += calls
+        out[k]["bytes"] += nbytes
+    return out
 
 
-def _count(kind: str, t: torch.Tensor):
-    COLLECTIVES[kind][0] += 1
-    COLLECTIVES[kind][1] += t.numel() * t.element_size()
+def _count(kind: str, t, group: Optional["Group"] = None):
+    nbytes = t if isinstance(t, int) else t.numel() * t.element_size()
+    entry = COLLECTIVES.setdefault((group.name if group is not None else "world", kind), [0, 0])
+    entry[0] += 1
+    entry[1] += nbytes
 
 
 @dataclasses.dataclass
@@ -67,6 +87,12 @@ class Group:
     world: int
     pg: Optional[dist.ProcessGroup]  # carries tensor collectives
     control: Optional[dist.ProcessGroup]  # gloo, carries host-side flags
+    name: str = "world"  # "data" / "model" for the subgroups of parallel/sharding.py
+    ranks: Optional[List[int]] = None  # global ranks of the members, in group order (None: 0..world-1)
+
+    def global_rank(self, r: int) -> int:
+        """The global rank of this group's member ``r``."""
+        return r if self.ranks is None else self.ranks[r]
 
 
 def world(group: Optional[Group]) -> int:
@@ -97,6 +123,15 @@ def init_distributed(backend: str, rank: int, world: int, init_method: str,
     return Group(backend, rank, world, pg, control)
 
 
+def new_control_group(group: Optional[Group], timeout_s: float) -> Optional[dist.ProcessGroup]:
+    """A gloo group of the same ranks with its own ``timeout_s``: the
+    serving followers wait on it for rank 0's next header, as long as the
+    daemon stays idle. Every rank calls it at the same point."""
+    if world(group) == 1:
+        return None
+    return dist.new_group(ranks=group.ranks, backend="gloo", timeout=datetime.timedelta(seconds=timeout_s))
+
+
 def shutdown(group: Optional[Group]):
     if group is not None and dist.is_initialized():
         dist.destroy_process_group()
@@ -109,8 +144,18 @@ def all_reduce_sum(t: torch.Tensor, group: Optional[Group]) -> torch.Tensor:
     """Sum of ``t`` over ranks, in place; ``t`` itself without a group."""
     if world(group) == 1:
         return t
-    _count("all_reduce", t)
+    _count("all_reduce", t, group)
     dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group.pg)
+    return t
+
+
+def all_reduce_max(t: torch.Tensor, group: Optional[Group]) -> torch.Tensor:
+    """Elementwise max of ``t`` over ranks, in place; ``t`` itself without
+    a group."""
+    if world(group) == 1:
+        return t
+    _count("all_reduce", t, group)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group.pg)
     return t
 
 
@@ -118,9 +163,46 @@ def broadcast(t: torch.Tensor, group: Optional[Group], src: int = 0) -> torch.Te
     """Rank ``src``'s ``t`` on every rank, in place."""
     if world(group) == 1:
         return t
-    _count("broadcast", t)
-    dist.broadcast(t, src=src, group=group.pg)
+    _count("broadcast", t, group)
+    dist.broadcast(t, src=group.global_rank(src), group=group.pg)
     return t
+
+
+def _to_bytes(obj: Any) -> torch.Tensor:
+    return torch.frombuffer(bytearray(pickle.dumps(obj, protocol=pickle.HIGHEST_PROTOCOL)), dtype=torch.uint8)
+
+
+def broadcast_object(obj: Any, group: Optional[Group], src: int = 0, control=None) -> Any:
+    """Rank ``src``'s picklable ``obj`` (a control header, a padded numpy
+    batch, a state tree) on every rank, over gloo on the host (``control``,
+    by default the group's): its length, then its pickled bytes. Other
+    ranks pass anything; it is ignored."""
+    if world(group) == 1:
+        return obj
+    pg, root = control or group.control, group.global_rank(src)
+    payload = _to_bytes(obj) if group.rank == src else None
+    n = torch.tensor([0 if payload is None else payload.numel()], dtype=torch.int64)
+    dist.broadcast(n, src=root, group=pg)
+    if payload is None:
+        payload = torch.empty(int(n.item()), dtype=torch.uint8)
+    dist.broadcast(payload, src=root, group=pg)
+    _count("broadcast", payload, group)
+    return pickle.loads(payload.numpy().tobytes())
+
+
+def all_gather_objects(obj: Any, group: Optional[Group]) -> List[Any]:
+    """Every rank's picklable ``obj``, in rank order, over gloo on the host:
+    the lengths, then the pickled bytes padded to the longest."""
+    if world(group) == 1:
+        return [obj]
+    payload = _to_bytes(obj)
+    sizes = [torch.zeros(1, dtype=torch.int64) for _ in range(group.world)]
+    dist.all_gather(sizes, torch.tensor([payload.numel()], dtype=torch.int64), group=group.control)
+    longest = max(int(n.item()) for n in sizes)
+    parts = [torch.empty(longest, dtype=torch.uint8) for _ in range(group.world)]
+    dist.all_gather(parts, torch.nn.functional.pad(payload, (0, longest - payload.numel())), group=group.control)
+    _count("all_gather", payload, group)
+    return [pickle.loads(p[: int(n.item())].numpy().tobytes()) for p, n in zip(parts, sizes)]
 
 
 def all_gather_rows(t: torch.Tensor, group: Optional[Group]) -> torch.Tensor:
@@ -128,7 +210,7 @@ def all_gather_rows(t: torch.Tensor, group: Optional[Group]) -> torch.Tensor:
     order."""
     if world(group) == 1:
         return t
-    _count("all_gather", t)
+    _count("all_gather", t, group)
     src = t.detach().contiguous()
     parts = [torch.empty_like(src) for _ in range(group.world)]
     dist.all_gather(parts, src, group=group.pg)
@@ -166,7 +248,7 @@ def agree_any(flag: bool, group: Optional[Group]) -> bool:
     if world(group) == 1:
         return bool(flag)
     t = torch.tensor([1.0 if flag else 0.0])
-    _count("all_reduce", t)
+    _count("all_reduce", t, group)
     dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group.control)
     return bool(t.item() > 0)
 

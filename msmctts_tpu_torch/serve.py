@@ -30,6 +30,16 @@ size, text buckets, frame count and decoder are the export's, streaming and
 ``/reload`` are refused. It runs on ``cuda`` unless ``--device cpu`` is given;
 without a GPU it refuses to run. It prints ``serving on http://host:port``
 with the bound port once ready, so ``--port 0`` works.
+
+``--mesh-devices N`` serves one model data-parallel from N ranks (the JAX
+package's mesh, ``serve.py:76-79``; N = 0 or -1: every local card), started
+through ``parallel/launch.run_ranks``, one process a rank: rank 0 serves
+HTTP and holds the engine's queue, the others follow it
+(``serving.BatchingEngine(group=...)``); ``--batch-size`` must divide by N.
+``--devices`` (CUDA indices, one per rank) and ``--backend`` are the
+launch options of ``train_dist``: ``--devices 0,0 --backend gloo`` runs two
+ranks on one card, ``--device cpu`` N ranks on the CPU. A follower's
+failure fails its batch within ``GROUP_TIMEOUT_S`` seconds.
 """
 
 from __future__ import annotations
@@ -37,6 +47,7 @@ from __future__ import annotations
 import argparse
 import base64
 import json
+import signal
 import struct
 import threading
 import time
@@ -47,18 +58,17 @@ import numpy as np
 
 from msmctts_tpu_torch.config import Config
 from msmctts_tpu_torch.ops.cuda_build import build_count
+from msmctts_tpu_torch.parallel import mesh
+from msmctts_tpu_torch.parallel.launch import rank_devices, run_ranks
 from msmctts_tpu_torch.serving import BatchingEngine
 from msmctts_tpu_torch.tasks import build_task
 from msmctts_tpu_torch.utils.checkpoint import load_checkpoint
 
-# options of the JAX package's daemon that the port does not have yet, and
-# the ROADMAP item that brings each
-NOT_PORTED = {
-    "--mesh-devices": "serving over an inference group is not ported (ROADMAP A12c); use --mesh-devices 1",
-}
+# --mesh-devices: seconds before a collective that a rank never joins fails
+GROUP_TIMEOUT_S = 600.0
 
 
-def build_engine(args) -> BatchingEngine:
+def build_engine(args, group=None) -> BatchingEngine:
     if args.artifact:
         from msmctts_tpu_torch.export import ExportedTTS
 
@@ -88,6 +98,7 @@ def build_engine(args) -> BatchingEngine:
         max_frames=args.max_frames,
         max_queue=args.max_queue,
         stream_chunk_frames=args.stream_chunk_frames,
+        group=group,
     )
 
 
@@ -275,7 +286,10 @@ def main(argv=None):
     p.add_argument("--int8", action="store_true",
                    help="int8 post-training-quantized HiFi-GAN decoder, calibrated on warmup's first batch")
     p.add_argument("--mesh-devices", type=int, default=1, metavar="N",
-                   help="only 1 (ROADMAP A12c: serving over an inference group)")
+                   help="serve from N ranks, one process each (0 / -1: every local card); rank 0 serves HTTP")
+    p.add_argument("--devices", default=None, help="with --mesh-devices: CUDA indices, one per rank (0,0 shares card 0)")
+    p.add_argument("--backend", default=None, help="with --mesh-devices: nccl | gloo (default: nccl, gloo on "
+                                                    "the CPU or where ranks share a card)")
     p.add_argument("--sample-rate", type=int, default=None)
     p.add_argument("--max-queue", type=int, default=256)
     p.add_argument("--stream-chunk-frames", type=int, default=64,
@@ -286,8 +300,8 @@ def main(argv=None):
                    help="text lengths to warm (default: the engine's one padded text length; a longer "
                         "length warms its multiple of it)")
     args = p.parse_args(argv)
-    if args.mesh_devices != 1:
-        p.error(NOT_PORTED["--mesh-devices"])
+    if args.mesh_devices != 1 and args.artifact:
+        p.error("--artifact serves from one process: drop --mesh-devices")
     if args.artifact:
         fixed = [flag for flag, on in (("-m/--model", args.model), ("--int8", args.int8),
                                        ("--static-frames", args.static_frames)) if on]
@@ -297,21 +311,50 @@ def main(argv=None):
         p.error("one of -m/--model or --artifact is required")
     if args.warmup_streaming and args.no_warmup_streaming:
         p.error("--warmup-streaming conflicts with --no-warmup-streaming")
+    if args.mesh_devices != 1:
+        try:
+            devices, backend = rank_devices(args.mesh_devices, args.device, args.devices, args.backend)
+        except ValueError as e:
+            p.error(str(e))
+        if args.batch_size % len(devices):
+            p.error(f"--batch-size {args.batch_size} does not divide the {len(devices)} ranks")
+        signal.signal(signal.SIGTERM, _interrupt)  # run_ranks kills the ranks on the way out
+        codes = run_ranks(_serve_rank, len(devices), backend, devices, args, timeout_s=float("inf"),
+                          group_timeout_s=GROUP_TIMEOUT_S)
+        return max(codes)
+    return serve(args)
+
+
+def _interrupt(signum, frame):
+    raise KeyboardInterrupt
+
+
+def _serve_rank(group, device, args) -> int:
+    args.device = str(device)
+    return serve(args, group)
+
+
+def serve(args, group=None) -> int:
+    """Build the engine and serve (rank 0, or the one process), or follow
+    rank 0 (the other ranks of ``group``)."""
     include_streaming = (
         True if args.warmup_streaming
         else False if args.no_warmup_streaming
         else None  # auto: warm streaming whenever the task can stream
     )
-
-    if args.warmup_only:
-        engine = build_engine(args)
-        secs = engine.warmup(args.warmup_lengths, include_streaming=include_streaming)
-        print(json.dumps({"warmup_s": round(secs, 3), "streaming_warmed": engine._streaming_warm,
-                          "shapes": len(engine._warm_shapes), "device": str(engine.task.device),
-                          "frame_margin": engine.frame_margin}), flush=True)
+    engine = build_engine(args, group)
+    if mesh.rank(group) != 0:
+        engine.follow()
         return 0
 
-    engine = build_engine(args)
+    if args.warmup_only:
+        secs = engine.warmup(args.warmup_lengths, include_streaming=include_streaming)
+        engine.stop()  # the followers leave their loops
+        print(json.dumps({"warmup_s": round(secs, 3), "streaming_warmed": engine._streaming_warm,
+                          "shapes": len(engine._warm_shapes), "device": str(engine.task.device),
+                          "frame_margin": engine.frame_margin, "ranks": mesh.world(group)}), flush=True)
+        return 0
+
     ready = threading.Event()
     server = ThreadingHTTPServer((args.host, args.port), make_handler(engine, ready, args.request_timeout))
 
@@ -326,12 +369,14 @@ def main(argv=None):
         except Exception as e:  # a daemon that cannot warm up exits non-zero
             failed.append(e)
             traceback.print_exc()
+            engine.stop()  # the followers leave their loops
             server.shutdown()
             return
         if warmup is not None:
             print(f"warmup: ran {len(engine._warm_shapes)} serving shapes in {engine.warmup_s:.3f}s on "
                   f"{engine.task.device} (streaming={'warm' if engine._streaming_warm else 'off'}, "
-                  f"frame margin {engine.frame_margin}, kernel builds {build_count()})",
+                  f"frame margin {engine.frame_margin}, ranks {mesh.world(group)}, "
+                  f"kernel builds {build_count()})",
                   flush=True)
         ready.set()
         print(f"serving on http://{args.host}:{server.server_port}", flush=True)

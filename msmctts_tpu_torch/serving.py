@@ -47,11 +47,30 @@ bucket that holds it and rides only with requests padded alike, warmup runs
 every bucket, and streaming and ``reload`` are refused (an artifact is one
 monolithic decode whose weights are part of its programs).
 
+Over an inference group (``group``, a ``parallel.mesh.Group``; the JAX
+package's ``mesh``, ``msmctts_tpu/serving.py:168-198``) every rank builds
+the engine on its task, which then runs data-parallel
+(``MSMCTTS.use_mesh``): ``batch_size`` must divide by the group's size.
+Rank 0 holds the queue and the worker thread; the other ranks run
+:meth:`BatchingEngine.follow`. For every device operation (a batch, a
+streamed batch, warmup, a weight swap, stop) rank 0's worker broadcasts a
+header with the padded batch (``mesh.broadcast_object``, over a gloo group
+of its own on which followers may wait as long as the daemon idles),
+every rank makes the same task calls, and a batch ends with every rank's
+status and counters gathered to rank 0 (``mesh.all_gather_objects``). Every
+collective is issued by rank 0's worker thread: ``reload`` from an HTTP
+thread is queued for the worker. A failure on any rank fails that batch on
+rank 0 (a follower's within the group's timeout) and leaves the engine
+broken: the ranks may stand at different collectives, so every later
+request fails at once, and ``stop`` still ends the followers.
+
 ``/stats`` reports, in place of the JAX package's ``xla_compiles``,
 ``cold_shapes`` (shapes the task first ran after ``warmup()`` ended, from
 ``MSMCTTS.shapes``) and ``kernel_builds`` (nvcc builds in this process
 since ``warmup()`` ended, from ``ops/cuda_build.build_count``). A warmed
-server reports 0 for both under any traffic within its buckets.
+server reports 0 for both under any traffic within its buckets. Over a
+group both are summed over the ranks, and ``ranks`` lists each rank's, as
+the followers reported them at their last batch's end.
 """
 
 from __future__ import annotations
@@ -69,6 +88,7 @@ import numpy as np
 
 from msmctts_tpu_torch.data.datasets import FRAME_BUCKETS, TEXT_BUCKETS, bucket_length
 from msmctts_tpu_torch.ops.cuda_build import build_count
+from msmctts_tpu_torch.parallel import mesh
 
 __all__ = ["BatchingEngine", "ServingStats", "parse_phone_string"]
 
@@ -141,6 +161,19 @@ class _Request:
         self.chunk_q: Optional[queue.Queue] = queue.Queue() if stream else None
 
 
+class _Reload:
+    """A weight swap over a group, queued for the worker so that its
+    collectives run on the worker's thread."""
+
+    __slots__ = ("state", "done", "error")
+    stream = False
+
+    def __init__(self, state: dict):
+        self.state = state
+        self.done = threading.Event()
+        self.error: Optional[BaseException] = None
+
+
 def _fail(req: _Request, error: BaseException) -> None:
     """Deliver ``error`` to a waiting request (and its stream)."""
     req.error = error
@@ -172,6 +205,10 @@ class BatchingEngine:
     text_buckets: padded text lengths in place of ``text_length`` (an
         exported artifact's): a request pads to the smallest that holds it;
         a longer one is refused.
+    group: a ``parallel.mesh.Group`` to serve from all its ranks (see the
+        module docstring); every rank builds the engine, rank 0 serves and
+        the others call :meth:`follow`. ``batch_size`` must divide by its
+        size.
     """
 
     def __init__(
@@ -185,9 +222,24 @@ class BatchingEngine:
         max_queue: int = 256,
         stream_chunk_frames: int = 64,
         text_buckets: Optional[Sequence[int]] = None,
+        group=None,
     ):
         if batch_size < 1:
             raise ValueError("batch_size must be >= 1")
+        W = mesh.world(group)
+        if batch_size % W:
+            raise ValueError(f"batch_size {batch_size} does not divide the {W}-rank inference group")
+        self.group = group if W > 1 else None
+        self.rank = mesh.rank(group)
+        if self.group is not None:
+            if getattr(task, "exported", False):
+                raise ValueError("an exported artifact serves from one process")
+            task.use_mesh(group)
+            # followers wait here for rank 0's next header however long it idles
+            self._channel = mesh.new_control_group(group, timeout_s=10 * 365 * 86400.0)
+        self._broken: Optional[str] = None  # why the group can no longer serve
+        self._released = False  # rank 0 has sent the followers "stop"
+        self._rank_counters: dict = {}  # rank -> (cold_shapes, kernel_builds) at its last batch's end
         self.max_frames = min(int(max_frames), FRAME_BUCKETS[-1])
         # an exported artifact (export.ExportedTTS) is fixed programs: no
         # networks to read, no frame buckets, streaming or reload
@@ -259,6 +311,7 @@ class BatchingEngine:
 
     def stop(self, timeout: float = 30.0) -> None:
         if self._thread is None:
+            self._release_followers()  # a group that only warmed up (serve --warmup-only)
             return
         self._stopping = True
         self._fail_queued()  # also makes room for the wake-up below
@@ -287,21 +340,38 @@ class BatchingEngine:
         a task without a margin, an exported artifact among them)."""
         return int(getattr(self.task, "frame_margin", 0))
 
-    def cold_shapes(self) -> int:
-        """Shapes the task first ran after ``warmup()`` ended (all of them
-        when no warmup ran)."""
+    def _own_cold_shapes(self) -> int:
         return len(getattr(self.task, "shapes", set()) - self._warm_shapes)
 
-    def kernel_builds(self) -> int:
-        """nvcc builds in this process since ``warmup()`` ended (all of them
-        when no warmup ran)."""
+    def _own_kernel_builds(self) -> int:
         return build_count() - self._warm_builds
 
+    def _counters(self) -> dict:
+        """rank -> (cold_shapes, kernel_builds): this process's now, the
+        followers' as they reported them."""
+        return {**self._rank_counters, self.rank: (self._own_cold_shapes(), self._own_kernel_builds())}
+
+    def cold_shapes(self) -> int:
+        """Shapes the task first ran after ``warmup()`` ended (all of them
+        when no warmup ran), summed over the group's ranks."""
+        return sum(c for c, _ in self._counters().values())
+
+    def kernel_builds(self) -> int:
+        """nvcc builds since ``warmup()`` ended (all of them when no warmup
+        ran), summed over the group's ranks."""
+        return sum(b for _, b in self._counters().values())
+
     def snapshot(self) -> dict:
-        """``/stats``: the counters, ``cold_shapes`` and ``kernel_builds``."""
+        """``/stats``: the counters, ``cold_shapes`` and ``kernel_builds``
+        (and each rank's, over a group)."""
         with self._lock:
-            return self.stats.snapshot(self.sample_rate, cold_shapes=self.cold_shapes(),
+            snap = self.stats.snapshot(self.sample_rate, cold_shapes=self.cold_shapes(),
                                        kernel_builds=self.kernel_builds())
+            if self.group is not None:
+                snap["ranks"] = [{"rank": r, "cold_shapes": c, "kernel_builds": b}
+                                 for r, (c, b) in sorted(self._counters().items())]
+                snap["group_failed"] = self._broken
+            return snap
 
     def warmup(
         self,
@@ -331,6 +401,10 @@ class BatchingEngine:
         seconds spent. Run it before accepting traffic, on the thread that
         will serve: ``start(warmup=...)``.
         """
+        self._announce("warmup", {"text_lengths": text_lengths, "include_streaming": include_streaming})
+        return self._on_group(lambda: self._warmup(text_lengths, include_streaming))
+
+    def _warmup(self, text_lengths, include_streaming) -> float:
         stream = include_streaming
         if stream is None:
             stream = self.can_stream
@@ -427,8 +501,79 @@ class BatchingEngine:
         if self.exported:
             raise RuntimeError("hot reload needs the checkpoint-backed task path; "
                                "exported artifacts are immutable")
+        if self.group is not None and self._thread is not None:
+            # the swap's broadcast must run on the worker's thread
+            swap = _Reload(state)
+            self._queue.put(swap)
+            swap.done.wait()
+            if swap.error is not None:
+                raise swap.error
+            return
+        self._reload(state)
+
+    def _reload(self, state: dict) -> None:
         with self._model_lock:
-            self.task.load_variables(state)
+            self._announce("reload", state)
+            self._on_group(lambda: self.task.load_variables(state))
+
+    # -- the group -----------------------------------------------------
+
+    def _announce(self, kind: str, payload=None) -> None:
+        """Rank 0: send the next device operation's header (and its batch)
+        to the followers. Raises once the group has failed."""
+        if self.group is None or self.rank != 0:
+            return
+        if self._broken is not None:
+            raise RuntimeError(f"the inference group failed earlier: {self._broken}")
+        mesh.broadcast_object((kind, payload), self.group, control=self._channel)
+
+    def _on_group(self, fn):
+        """Run this rank's share of a device operation, then gather every
+        rank's status and counters; a failure anywhere fails the operation
+        (on rank 0) and breaks the group."""
+        if self.group is None:
+            return fn()
+        try:
+            result = fn()
+        except BaseException as e:
+            self._broken = self._broken or f"rank {self.rank}: {type(e).__name__}: {e}"
+            raise
+        status = mesh.all_gather_objects((self._own_cold_shapes(), self._own_kernel_builds()), self.group)
+        with self._lock:
+            self._rank_counters = dict(enumerate(status))
+        return result
+
+    def _release_followers(self) -> None:
+        """Rank 0: end the followers' loops (once)."""
+        if self.group is not None and self.rank == 0 and not self._released:
+            self._released = True
+            mesh.broadcast_object(("stop", None), self.group, control=self._channel)
+
+    def follow(self) -> None:
+        """A follower's loop (ranks other than 0): receive each header from
+        rank 0 and make the same task calls, until ``stop``. After a
+        failure it only waits for ``stop``."""
+        if self.group is None or self.rank == 0:
+            raise RuntimeError("follow() runs on the followers of an inference group")
+        while True:
+            kind, payload = mesh.broadcast_object(None, self.group, control=self._channel)
+            if kind == "stop":
+                return
+            if self._broken is not None:
+                continue
+            try:
+                if kind == "warmup":
+                    self._on_group(lambda: self._warmup(**payload))
+                elif kind == "reload":
+                    self._on_group(lambda: self.task.load_variables(payload))
+                elif kind == "predict":
+                    self._on_group(lambda: self.task.infer_step(payload))
+                elif kind == "stream":
+                    self._on_group(lambda: self._drain_stream(payload))
+                else:
+                    raise RuntimeError(f"unknown header {kind!r}")
+            except Exception:  # recorded in _broken; rank 0 fails the batch
+                continue
 
     # -- request path --------------------------------------------------
 
@@ -528,12 +673,13 @@ class BatchingEngine:
         is reached. A request padded otherwise (longer than the engine's
         text length) waits, in arrival order, for a later batch."""
         first = self._held.pop(0) if self._held else self._queue.get()
-        if first is None:
-            return None
+        if first is None or isinstance(first, _Reload):
+            return first
         Lt, held = self._text_length(first.text.shape[0]), []
         reqs = [first]
         for r in self._held:
-            joins = len(reqs) < self.batch_size and self._text_length(r.text.shape[0]) == Lt
+            joins = (len(reqs) < self.batch_size and not isinstance(r, _Reload)
+                     and self._text_length(r.text.shape[0]) == Lt)
             (reqs if joins else held).append(r)
         self._held = held
         deadline = time.time() + self.window_ms / 1000.0
@@ -547,6 +693,9 @@ class BatchingEngine:
                 break
             if nxt is None:
                 self._queue.put(None)  # re-post the stop sentinel
+                break
+            if isinstance(nxt, _Reload):  # runs after this batch
+                self._held.append(nxt)
                 break
             (reqs if self._text_length(nxt.text.shape[0]) == Lt else self._held).append(nxt)
         return reqs
@@ -571,10 +720,12 @@ class BatchingEngine:
         batch = self.batch_of([r.text for r in reqs])
         t0 = time.time()
         if any(r.stream for r in reqs):
-            audio = self._run_streaming(reqs, batch)
+            self._announce("stream", batch)
+            audio = self._on_group(lambda: self._run_streaming(reqs, batch))
             busy = time.time() - t0
         else:
-            out = self.task.infer_step(batch)
+            self._announce("predict", batch)
+            out = self._on_group(lambda: self.task.infer_step(batch))
             busy = time.time() - t0
             audio = 0.0
             for i, r in enumerate(reqs):
@@ -627,6 +778,13 @@ class BatchingEngine:
                 reqs = self._gather()
                 if reqs is None:
                     return
+                if isinstance(reqs, _Reload):
+                    try:
+                        self._reload(reqs.state)
+                    except Exception as e:
+                        reqs.error = e
+                    reqs.done.set()
+                    continue
                 try:
                     with self._model_lock:
                         self._run_batch(reqs)
@@ -639,3 +797,4 @@ class BatchingEngine:
             held, self._held = self._held, []
             for r in held:
                 _fail(r, RuntimeError("engine stopped"))
+            self._release_followers()

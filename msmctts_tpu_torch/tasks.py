@@ -25,7 +25,12 @@ package's ``use_mesh``): every rank calls them with the same global batch,
 computes its contiguous block of rows with its replica of the weights
 (every snap through ``ops/vq.vq_nearest_sharded``, which communicates
 nothing) and the outputs are gathered in rank order, so every rank returns
-the whole batch's result.
+the whole batch's result. ``predict_stream`` gathers each chunk in rank
+order, so every rank yields the global batch's chunks; the int8 decoder
+calibrates on the features of the global batch, gathered to every rank
+(its per-tensor scales at site k + 1 depend on how site k was quantized
+over the whole batch, so a max over the ranks' own calibrations is not the
+same), and every rank then holds the same scales and SmoothQuant fold.
 
 ``predict_stream`` is the streaming surface (``msmctts_tpu/tasks.py:666-707``):
 the same two phases up to the decoder's input features
@@ -338,11 +343,19 @@ class MSMCTTS(BaseTask):
             name = ae.decoder_config.get("_name", "HifiGANGenerator")
             if name != "HifiGANGenerator":
                 raise NotImplementedError(f"int8 PTQ kernels cover the HifiGANGenerator decoder only, not {name}")
-            if mesh.world(self._group) > 1:
-                raise NotImplementedError("the int8 decoder over an inference group is not ported (ROADMAP A12c)")
             self._int8_state = Int8Decoder(ae.decoder, ae.decoder_config, dtype=self.compute_dtype,
                                            smooth_alpha=self.int8_smooth_alpha, float_sites=self.int8_float_sites)
         return self._int8_state
+
+    def _calibrate_int8(self, feats):
+        """Calibrate the int8 decoder on the first batch's decoder inputs: the
+        global batch's, gathered to every rank under a group (the JAX
+        package calibrates on the globally sharded array,
+        ``msmctts_tpu/tasks.py:409-410, 734-738``)."""
+        i8 = self._int8()
+        if i8.scales is None:
+            i8.calibrate(mesh.all_gather_rows(feats, self._group))
+        return i8
 
     def _decode(self, feats):
         """Decoder input features [B, T, C] -> waveform [B, T * ratio]: the
@@ -350,10 +363,7 @@ class MSMCTTS(BaseTask):
         it decodes."""
         if not self.int8_decoder:
             return self.networks["autoencoder"].decoder(feats)[..., 0]
-        i8 = self._int8()
-        if i8.scales is None:
-            i8.calibrate(feats)
-        return i8.apply(feats)[..., 0].float()
+        return self._calibrate_int8(feats).apply(feats)[..., 0].float()
 
     @torch.inference_mode()
     def analysis_synthesis(self, batch: dict) -> dict:
@@ -521,9 +531,10 @@ class MSMCTTS(BaseTask):
         every utterance is covered: the padded tail of the frame bucket is
         never decoded. Each step of the generator runs under its own
         ``torch.inference_mode()`` (``StreamingDecoder.stream`` takes it per
-        step), in whichever thread consumes it."""
-        if mesh.world(self._group) > 1:
-            raise NotImplementedError("streaming over an inference group is not ported (ROADMAP A12c)")
+        step), in whichever thread consumes it. Under a group each rank
+        decodes the windows of its own rows and every chunk is gathered in
+        rank order, so every rank yields the global batch's chunks (and
+        must drain them: each is a collective)."""
         ae = self.networks.get("autoencoder")
         if ae is not None and not isinstance(ae, MSMCVQGAN):
             raise NotImplementedError(
@@ -532,8 +543,8 @@ class MSMCTTS(BaseTask):
             )
         sd = self._streaming_decoder(chunk_frames)
         p1, _, feats = self.predict_features(batch)
-        if self.int8_decoder and self._int8().scales is None:
-            self._int8().calibrate(feats)
+        if self.int8_decoder:
+            self._calibrate_int8(feats)
         self.shapes.add(("stream8" if self.int8_decoder else "stream", chunk_frames, p1["Lt"], p1["max_frames"]))
         total = self._totals(p1)
         wav_length = total * sd.hop
@@ -541,13 +552,15 @@ class MSMCTTS(BaseTask):
             "mel_length": total,
             "wav_length": wav_length,
             "hop": sd.hop,
-            "duration": p1["durations"].cpu().numpy(),
+            "duration": self._gather(p1["durations"]),
         }
 
         def chunks():
             need = int(wav_length.max())
             produced = 0
             for chunk in sd.stream(feats):
+                if mesh.world(self._group) > 1:
+                    chunk = self._gather(torch.as_tensor(chunk, device=self.device))
                 yield chunk
                 produced += chunk.shape[1]
                 if produced >= need:

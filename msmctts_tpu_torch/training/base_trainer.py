@@ -69,12 +69,26 @@ inside the window writes what it traced.
 
 ``precision: bfloat16`` (``parallel/precision.py``): the optimizers keep
 the fp32 masters, and each trainer runs its forward passes on bf16 casts of
-them where the JAX trainer casts (``compute_dtype``). The ``model`` axis of
-a ``mesh:`` node (tensor parallelism) is not ported.
+them where the JAX trainer casts (``compute_dtype``).
+
+Tensor parallelism (``mesh: {data: N, model: M}`` with M > 1; the JAX
+trainer's ``model`` mesh axis, ``parallel/sharding.py``): the run's W ranks
+must be N x M (N -1: W / M). ``self.group`` is then the ``data`` group:
+everything that handles rows (the loader's shard, loss shares, the codebook
+statistics, global-batch draws, the gradient sum) runs over it, and
+``self.rank`` / ``self.world`` are the data rank and size; ``self.tp`` is
+the ``model`` group, ``self.world_group`` the whole run, which agrees on
+signals, meets at barriers and saves (global rank 0). The trainable
+networks are split after the resume ladder (:meth:`shard`, also at a
+step's start) by the JAX package's rules; a checkpoint is gathered first
+(:meth:`full_state`) and is the JAX layout, which one rank and the JAX
+package load; a resume gathers, loads and splits again. ``evaluate()``
+runs on the gathered weights.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import signal
 import time
@@ -87,7 +101,7 @@ from msmctts_tpu_torch.config import component_kwargs
 from msmctts_tpu_torch.data.loader import DataLoader
 from msmctts_tpu_torch.data.wire import DevicePrefetcher, decode_batch
 from msmctts_tpu_torch.ops.dropout import bind_generator
-from msmctts_tpu_torch.parallel import mesh
+from msmctts_tpu_torch.parallel import mesh, sharding
 from msmctts_tpu_torch.parallel.precision import compute_dtype
 from msmctts_tpu_torch.registry import get_dataset
 from msmctts_tpu_torch.training.optim import Optimizer
@@ -129,14 +143,20 @@ def metrics_to_host(metrics: dict) -> Dict[str, float]:
 
 
 def check_mesh_config(config, world: int):
-    """The config's ``mesh: {data: N, model: M}`` node against the run: N
-    (-1 or absent = any) is the number of ranks to expect."""
+    """The config's ``mesh: {data: N, model: M}`` node against the run's
+    ``world`` ranks -> (N, M): N (-1 or absent = the rest) x M must be the
+    world."""
     node = dict(config.get("mesh") or {})
-    if int(node.get("model", 1) or 1) > 1:
-        raise NotImplementedError("mesh.model > 1 (tensor parallelism) is not ported (ROADMAP A11b)")
+    n_model = int(node.get("model", 1) or 1)
     n_data = int(node.get("data", -1) or -1)
-    if n_data != -1 and n_data != world:
+    if n_model == 1 and n_data != -1 and n_data != world:
         raise ValueError(f"the config asks for mesh.data = {n_data} but the run has {world} rank(s)")
+    if n_data == -1:
+        n_data = world // n_model
+    if n_data * n_model != world:
+        raise ValueError(f"the config's mesh data {n_data} x model {n_model} needs {n_data * n_model} ranks; "
+                         f"the run has {world}")
+    return n_data, n_model
 
 
 def _torch_optimizer_state(state: dict) -> dict:
@@ -162,9 +182,15 @@ class BaseTrainer:
             raise ValueError(f"checkpoint_backend {self.checkpoint_backend!r}: pickle or orbax")
         self.config = config
         self.task = task
-        self.group = group
+        self.world_group = group
+        self.global_rank = mesh.rank(group)
+        n_data, n_model = check_mesh_config(config, mesh.world(group))
+        self.tp = None  # the model group of tensor parallelism
+        self._plan = None  # what shard() splits (parallel/sharding.Plan), made at its first call
+        if n_model > 1:
+            group, self.tp = sharding.make_group_2d(group, n_data, n_model)
+        self.group = group  # the data group: rows
         self.rank, self.world = mesh.rank(group), mesh.world(group)
-        check_mesh_config(config, self.world)
         self.device = task.device
         # bf16 compute over the fp32 masters the optimizers hold (parallel/precision.py)
         self.compute_dtype = compute_dtype(config)
@@ -201,6 +227,54 @@ class BaseTrainer:
         for opt in self.optimizers.values():
             opt.count = iteration
 
+    def global_metrics(self, metrics: dict, shared) -> dict:
+        """The step's metrics as every rank reports them: the ``shared`` ones
+        (loss shares) summed over the data group; under tensor parallelism
+        all of them model rank 0's (a card does not reproduce a replicated
+        forward bit for bit in another process)."""
+        if mesh.world(self.group) > 1:
+            total = mesh.all_reduce_sum(torch.stack([metrics[k].float().reshape(()) for k in shared]), self.group)
+            metrics.update(zip(shared, total.unbind()))
+        if self.tp is not None:
+            names = sorted(metrics)
+            values = mesh.broadcast(torch.stack([metrics[k].float().reshape(()) for k in names]), self.tp)
+            metrics.update(zip(names, values.unbind()))
+        return metrics
+
+    # ------------------------------------------------------ tensor parallelism
+    def _trainable(self):
+        """The networks an optimizer steps: the ones split."""
+        stepped = {id(p) for opt in self.optimizers.values() for p in opt.params}
+        return [m for m in self.task.networks.values() if any(id(p) in stepped for p in m.parameters())]
+
+    def shard(self):
+        """Keep this rank's shard of the trainable networks and their
+        moments (no-op without a model group, or when split already)."""
+        if self.tp is None or getattr(self, "_sharded", False):
+            return
+        if self._plan is None:
+            self._plan = sharding.make_plan(self._trainable(), self.state_tree, self.tp.world)
+        sharding.split_(self._plan, self.tp, self.optimizers.values())
+        self._sharded = True
+
+    def unshard(self):
+        """Gather the split parameters and moments whole on every rank."""
+        if getattr(self, "_sharded", False):
+            sharding.gather_(self._plan, self.tp, self.optimizers.values())
+            self._sharded = False
+
+    @contextlib.contextmanager
+    def full_state(self):
+        """The whole state on every rank for the block (every rank enters
+        it), split again after."""
+        was = getattr(self, "_sharded", False)
+        self.unshard()
+        try:
+            yield
+        finally:
+            if was:
+                self.shard()
+
     # ----------------------------------------------------------------- state
     def init_state(self):
         """Fresh seeded weights for every trainable network
@@ -210,7 +284,9 @@ class BaseTrainer:
             self.task.networks[name].train()
 
     def attempt_resume(self):
-        """The resume ladder of the JAX package's trainer."""
+        """The resume ladder of the JAX package's trainer (on the whole
+        state; :meth:`shard` splits it after)."""
+        self.unshard()
         self.init_state()
         latest = find_latest_checkpoint(self.save_dir) if self.config.get("resume_training", True) else None
         restore = self.config.get("restore_checkpoint_path") or None
@@ -225,9 +301,10 @@ class BaseTrainer:
             self.load(path)
         elif pretrain:
             self.load_state_tree(load_checkpoint(pretrain)["state"])  # weights only
-        mesh.replicate_state(self.task.networks.values(), self.group)
+        mesh.replicate_state(self.task.networks.values(), self.world_group)
 
     def load(self, path: str):
+        self.unshard()
         ckpt = load_checkpoint(path)
         state = ckpt["state"]
         self.load_state_tree(state)
@@ -251,10 +328,13 @@ class BaseTrainer:
 
     def save(self) -> Optional[str]:
         """Write ``model_<iteration>``; under a group rank 0 alone does (the
-        state is replicated)."""
+        state is replicated; split parameters are gathered by every rank
+        first)."""
         self._last_saved_iteration = self.iteration
-        if self.rank != 0:
-            return None
+        with self.full_state():
+            return self._save() if self.global_rank == 0 else None
+
+    def _save(self) -> str:
         path = os.path.join(self.save_dir, f"model_{self.iteration}")
         state = self.checkpoint_state()
         cfg = self.config.to_dict() if hasattr(self.config, "to_dict") else dict(self.config)
@@ -283,7 +363,7 @@ class BaseTrainer:
             torch.cuda.synchronize(self.device)
         profiler.stop()
         os.makedirs(profile_dir, exist_ok=True)
-        path = os.path.join(profile_dir, f"steps_{first}-{self.iteration}_rank{self.rank}.json")
+        path = os.path.join(profile_dir, f"steps_{first}-{self.iteration}_rank{self.global_rank}.json")
         profiler.export_chrome_trace(path)
         logger.text(f"profiler trace written to {path}")
 
@@ -311,6 +391,7 @@ class BaseTrainer:
         )
         batches = iter(loader)
         self.attempt_resume()
+        self.shard()
         # A worker thread wire-encodes each batch (int16 PCM; data/wire.py)
         # and copies it to the device on its own stream while the step
         # before it runs; the steps decode it (decode_batch) first.
@@ -321,7 +402,7 @@ class BaseTrainer:
             depth=int(dl_cfg.get("device_prefetch", 2)),
         )
 
-        logger = Logger(self.save_dir, rank=self.rank)
+        logger = Logger(self.save_dir, rank=self.global_rank)
         logger.log_config(self.config.to_dict() if hasattr(self.config, "to_dict") else dict(self.config))
         stop_at = min(
             self.training_steps,
@@ -343,7 +424,7 @@ class BaseTrainer:
         self._last_saved_iteration = None
         profiler = None
         try:
-            stop = mesh.agree_any(bool(preempted), self.group)
+            stop = mesh.agree_any(bool(preempted), self.world_group)
             while self.iteration < stop_at and not stop:
                 self.iteration += 1
                 if profile_dir and self.iteration == profile_start:
@@ -360,19 +441,20 @@ class BaseTrainer:
                     logger.text(f"step {self.iteration} " + " ".join(f"{k}={v:.4f}" for k, v in host.items()))
                     t0 = time.time()
                 if self.eval_interval and self.iteration % self.eval_interval == 0:
-                    try:
-                        self.evaluate(decode_batch(batch), logger, self.iteration)
-                    except Exception as e:  # evaluation must never stop training
-                        logger.text(f"evaluate() failed at {self.iteration}: {e}")
+                    with self.full_state():  # eval() folds whole weights only
+                        try:
+                            self.evaluate(decode_batch(batch), logger, self.iteration)
+                        except Exception as e:  # evaluation must never stop training
+                            logger.text(f"evaluate() failed at {self.iteration}: {e}")
                 if self.iteration % self.iters_per_checkpoint == 0:
                     self.save()
-                stop = mesh.agree_any(bool(preempted), self.group)
+                stop = mesh.agree_any(bool(preempted), self.world_group)
             if stop:
                 what = f"signal {preempted[0]} received" if preempted else "another rank was signalled"
                 logger.text(f"{what} - checkpointing at iteration {self.iteration} and exiting")
             if self._last_saved_iteration != self.iteration:
                 self.save()  # final / preemption snapshot
-            mesh.barrier(self.group)  # the checkpoint is on disk when any rank returns
+            mesh.barrier(self.world_group)  # the checkpoint is on disk when any rank returns
         finally:
             if profiler is not None:  # the run stopped inside the window
                 self._stop_profiler(profiler, profile_dir, profile_start, logger)

@@ -59,7 +59,7 @@ import torch
 
 from msmctts_tpu_torch.data.wire import decode_batch
 from msmctts_tpu_torch.models.msmc_vqgan import crop_windows
-from msmctts_tpu_torch.parallel.mesh import all_reduce_sum, world
+from msmctts_tpu_torch.parallel.mesh import all_reduce_sum
 from msmctts_tpu_torch.parallel.precision import cast_floats, functional
 from msmctts_tpu_torch.registry import register_trainer
 from msmctts_tpu_torch.training.losses import (
@@ -98,7 +98,7 @@ class EmbVQGANTrainer(VQGANTrainer):
         if self.prosody is not None:
             self.pr_opt = build_optimizer(
                 self.prosody.named_parameters(), optimizer_config_for(config, "prosody_estimator"),
-                config.get("lr_scheduler"), None, group=group,
+                config.get("lr_scheduler"), None, group=self.group,
             )
             self.optimizers["prosody_estimator"] = self.pr_opt
 
@@ -250,6 +250,7 @@ class EmbVQGANTrainer(VQGANTrainer):
         (tests compare two stacks whose random streams differ); by default
         they are drawn from the trainer's generator. Returns 0-d metric
         tensors, detached: the global values."""
+        self.shard()  # split over the model group (a no-op without one)
         batch = decode_batch(batch)  # the wire format (data/wire.py); a plain batch passes as it is
         for module in (self.ae, self.disc, self.prosody):
             if module is not None:
@@ -257,11 +258,7 @@ class EmbVQGANTrainer(VQGANTrainer):
         decode = iteration > self.frame_loss_supervised_step
         gan = decode and iteration > self.stft_loss_supervised_step
         metrics = {k: torch.as_tensor(v).detach() for k, v in self._emb_step(batch, decode, gan, windows).items()}
-        if world(self.group) > 1:  # every term is a share: one sum gives the global values
-            names = sorted(metrics)
-            total = all_reduce_sum(torch.stack([metrics[k].float().reshape(()) for k in names]), self.group)
-            metrics.update(zip(names, total.unbind()))
-        return metrics
+        return self.global_metrics(metrics, sorted(metrics))  # every term is a share
 
 
 @register_trainer("NASynEmbFSTrainer")

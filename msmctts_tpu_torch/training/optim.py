@@ -26,6 +26,15 @@ zero fill (every rank then reduces the same tensors) and before the clip
 by hand, not with ``DistributedDataParallel``: the GAN step runs two
 backwards, toggles ``requires_grad`` on the discriminator and leaves the
 waveform decoder without a gradient during warmup.
+
+Under tensor parallelism ``group`` is the ``data`` group (the gradients are
+summed over it only) and ``tp`` the ``model`` group, set while the
+parameters are split (``parallel/sharding.split_``): the replicated
+leaves' gradients are model rank 0's on every model rank (one broadcast;
+they are equal in exact arithmetic, but a card's backward is not
+bit-reproducible, and the replicated state must stay bit-equal), and the
+clip's global norm sums the squares of the split leaves over ``tp`` and
+counts the replicated ones once, so it is one rank's norm.
 """
 
 from __future__ import annotations
@@ -36,7 +45,7 @@ from typing import Iterable, Optional, Tuple
 
 import torch
 
-from msmctts_tpu_torch.parallel.mesh import all_reduce_sum, world
+from msmctts_tpu_torch.parallel.mesh import all_reduce_sum, broadcast, world
 
 
 def make_lr_schedule(base_lr: float, cfg: Optional[dict]):
@@ -59,6 +68,12 @@ def make_lr_schedule(base_lr: float, cfg: Optional[dict]):
     return schedule
 
 
+def _over(grads, collective):
+    """Run ``collective`` on one flat buffer of ``grads`` and copy it back."""
+    flat = collective(torch.cat([g.reshape(-1) for g in grads]))
+    torch._foreach_copy_(grads, [c.view_as(g) for c, g in zip(flat.split([g.numel() for g in grads]), grads)])
+
+
 def global_norm(grads: Iterable[torch.Tensor]) -> torch.Tensor:
     """L2 norm over all tensors, from one multi-tensor pass."""
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(grads))))
@@ -72,6 +87,7 @@ class Optimizer:
     def __init__(self, named_params, opt, schedule, grad_clip: Optional[float], freeze_patterns, group=None):
         self.opt = opt
         self.group = group
+        self.tp = None  # the model group while the parameters are split
         self.schedule = schedule
         self.grad_clip = float(grad_clip) if grad_clip is not None and grad_clip > 0 else None
         self.count = 0
@@ -90,9 +106,14 @@ class Optimizer:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self.params]
         if world(self.group) > 1 and grads:
-            flat = all_reduce_sum(torch.cat([g.reshape(-1) for g in grads]), self.group)
-            torch._foreach_copy_(grads, [c.view_as(g) for c, g in zip(flat.split([g.numel() for g in grads]), grads)])
-        norm = global_norm(grads) if grads else None
+            _over(grads, lambda flat: all_reduce_sum(flat, self.group))
+        if world(self.tp) > 1:
+            # the replicated leaves' gradients are one value in exact arithmetic on every model rank,
+            # but the card's backward (atomics in weight gradients) differs run to run: model rank 0's
+            whole = [g for p, g in zip(self.params, grads) if getattr(p, "tp_dim", None) is None]
+            if whole:
+                _over(whole, lambda flat: broadcast(flat, self.tp))
+        norm = self._norm(grads) if grads else None
         if self.grad_clip is not None and grads:
             scale = self.grad_clip / torch.clamp(norm, min=self.grad_clip)
             torch._foreach_mul_(grads, scale)
@@ -104,6 +125,14 @@ class Optimizer:
         self.opt.step()
         self.count += 1
         return norm
+
+    def _norm(self, grads) -> torch.Tensor:
+        split = [g for p, g in zip(self.params, grads) if getattr(p, "tp_dim", None) is not None]
+        if world(self.tp) == 1 or not split:
+            return global_norm(grads)
+        whole = [g for p, g in zip(self.params, grads) if getattr(p, "tp_dim", None) is None]
+        squares = lambda gs: torch.square(global_norm(gs)) if gs else grads[0].new_zeros(())
+        return torch.sqrt(squares(whole) + all_reduce_sum(squares(split).reshape(1), self.tp)[0])
 
     def zero_grad(self):
         self.opt.zero_grad(set_to_none=True)

@@ -44,7 +44,6 @@ from __future__ import annotations
 import torch
 
 from msmctts_tpu_torch.data.wire import decode_batch
-from msmctts_tpu_torch.parallel.mesh import all_reduce_sum, world
 from msmctts_tpu_torch.parallel.precision import cast_floats, functional
 from msmctts_tpu_torch.registry import register_trainer
 from msmctts_tpu_torch.tasks import load_frozen_autoencoder
@@ -80,7 +79,7 @@ class PredictorTrainer(BaseTrainer):
         self.ae = None  # the frozen teacher, see frozen_autoencoder
         self.opt = build_optimizer(
             self.predictor.named_parameters(), optimizer_config_for(config, "predictor"),
-            config.get("lr_scheduler"), grad_clip_thresh, freeze_patterns=config.get("freeze"), group=group,
+            config.get("lr_scheduler"), grad_clip_thresh, freeze_patterns=config.get("freeze"), group=self.group,
         )
         self.optimizers = {"predictor": self.opt}
 
@@ -112,6 +111,7 @@ class PredictorTrainer(BaseTrainer):
         """One step on a device batch {'text', 'text_length', 'dur', 'mel',
         'mel_length'} (under a group, this rank's rows). Returns 0-d metric
         tensors, detached: the global values."""
+        self.shard()  # split over the model group (a no-op without one)
         batch = decode_batch(batch)  # the wire format (data/wire.py); a plain batch passes as it is
         with torch.no_grad():  # the teacher's quantizer states
             q = self.teacher_states(batch)
@@ -129,8 +129,4 @@ class PredictorTrainer(BaseTrainer):
         total.backward()
         metrics["grad_norm"] = self.opt.step()  # of the summed gradients: global already
         metrics = {k: torch.as_tensor(v).detach() for k, v in metrics.items()}
-        if world(self.group) > 1:  # the loss terms are shares: one sum gives the global values
-            shared = sorted(k for k in metrics if k != "grad_norm")
-            summed = all_reduce_sum(torch.stack([metrics[k].float().reshape(()) for k in shared]), self.group)
-            metrics.update(zip(shared, summed.unbind()))
-        return metrics
+        return self.global_metrics(metrics, sorted(k for k in metrics if k != "grad_norm"))  # the loss shares

@@ -55,7 +55,7 @@ import torch
 
 from msmctts_tpu_torch.data.wire import decode_batch
 from msmctts_tpu_torch.models.msmc_vqgan import crop_windows
-from msmctts_tpu_torch.parallel.mesh import all_reduce_sum, world
+from msmctts_tpu_torch.parallel.mesh import all_reduce_sum
 from msmctts_tpu_torch.parallel.precision import cast_floats, functional
 from msmctts_tpu_torch.registry import register_trainer
 from msmctts_tpu_torch.training.base_trainer import BaseTrainer
@@ -128,12 +128,12 @@ class VQGANTrainer(BaseTrainer):
         # the clip and the freeze patterns are the autoencoder's only
         self.ae_opt = build_optimizer(
             self.ae.named_parameters(), optimizer_config_for(config, "autoencoder"), lr_cfg,
-            grad_clip_thresh, freeze_patterns=config.get("freeze"), group=group,
+            grad_clip_thresh, freeze_patterns=config.get("freeze"), group=self.group,
         )
         self.d_opt = build_optimizer(
-            self.disc.named_parameters(), optimizer_config_for(config, "discriminator"), lr_cfg, None, group=group
+            self.disc.named_parameters(), optimizer_config_for(config, "discriminator"), lr_cfg, None, group=self.group
         )
-        self.ae.set_group(group)
+        self.ae.set_group(self.group)
         self.optimizers = {"autoencoder": self.ae_opt, "discriminator": self.d_opt}
 
     # ----------------------------------------------------------------- state
@@ -302,6 +302,7 @@ class VQGANTrainer(BaseTrainer):
         random streams differ); by default they come from the trainer's
         generator. Under a group, ``batch`` and ``starts`` hold this rank's
         rows. Returns 0-d metric tensors, detached: the global values."""
+        self.shard()  # split over the model group (a no-op without one)
         batch = decode_batch(batch)  # the wire format (data/wire.py); a plain batch passes as it is
         self.ae.train()
         self.disc.train()
@@ -310,8 +311,4 @@ class VQGANTrainer(BaseTrainer):
         else:
             metrics = self._gan_step(batch, starts)
         metrics = {k: torch.as_tensor(v).detach() for k, v in metrics.items()}
-        if world(self.group) > 1:  # the loss terms are shares: one sum gives the global values
-            shared = sorted(k for k in metrics if not k.startswith("codebook_perplexity"))
-            total = all_reduce_sum(torch.stack([metrics[k].float().reshape(()) for k in shared]), self.group)
-            metrics.update(zip(shared, total.unbind()))
-        return metrics
+        return self.global_metrics(metrics, sorted(k for k in metrics if not k.startswith("codebook_perplexity")))

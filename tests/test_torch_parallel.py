@@ -519,8 +519,11 @@ def test_mesh_node_of_the_config_is_checked(corpus):
     config["mesh"] = {"data": 2}
     with pytest.raises(ValueError, match="mesh.data = 2"):
         workers.build_trainer(config, {})
-    config["mesh"] = {"data": -1, "model": 2}
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+    config["mesh"] = {"data": -1, "model": 2}  # data x model must be the world (tensor parallelism)
+    with pytest.raises(ValueError, match="mesh data 0 x model 2 needs 0 ranks; the run has 1"):
+        workers.build_trainer(config, {})
+    config["mesh"] = {"data": 2, "model": 2}
+    with pytest.raises(ValueError, match="mesh data 2 x model 2 needs 4 ranks; the run has 1"):
         workers.build_trainer(config, {})
     config["mesh"] = {"data": 1, "model": 1}
     assert workers.build_trainer(config, {}).world == 1
