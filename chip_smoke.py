@@ -2393,8 +2393,8 @@ def phase_serving(card, am_path, with_profile=False):
             f"clients in {w['load_s']:.2f}s: blocking latency p50 {w['p50'] * 1e3:.1f} ms, p95 {w['p95'] * 1e3:.1f} ms "
             f"(client clock; engine's p50 / p95 so far {stats['latency_s']['p50'] * 1e3:.1f} / "
             f"{stats['latency_s']['p95'] * 1e3:.1f} ms); streamed first chunk {[round(f * 1e3, 1) for f in first]} ms; "
-            f"{stats['batches']} batches so far, mean size {stats['mean_batch_size']:.2f}, device real-time factor "
-            f"{stats['device_realtime_factor']}")
+            f"{stats['batches']} batches so far, mean size {stats['mean_batch_size']:.2f}, task real-time factor "
+            f"{stats['task_realtime_factor']}")
     if worst > AS_TOL or stream_lsb > 1:
         raise AssertionError(f"served audio vs in-process: {worst}; streamed vs blocking PCM: {stream_lsb} LSB")
     if cuda_build.build_count() != builds_before:
@@ -4550,7 +4550,7 @@ def phase_lj_tools(card, ae_ckpt, seed=1234):
             f"{row['requests_per_s']} req/s, latency p50 / p95 / p99 {row['latency_s']['p50'] * 1e3:.1f} / "
             f"{row['latency_s']['p95'] * 1e3:.1f} / {row['latency_s']['p99'] * 1e3:.1f} ms, {row['client_errors']} "
             f"client errors; server: {w['batches']} batches, mean size {w['mean_batch_size']}, errors {w['errors']}, "
-            f"cold shapes {w['cold_shapes']}, kernel builds {w['kernel_builds']}, device RTF {w['device_realtime_factor']}")
+            f"cold shapes {w['cold_shapes']}, kernel builds {w['kernel_builds']}, task RTF {w['task_realtime_factor']}")
     stream = report["streaming"]
     log(f"[18] load_test streaming, {stream['requests']} sequential: time to first audio p50 / p95 / p99 "
         f"{stream['ttfa_s']['p50'] * 1e3:.1f} / {stream['ttfa_s']['p95'] * 1e3:.1f} / {stream['ttfa_s']['p99'] * 1e3:.1f} ms")

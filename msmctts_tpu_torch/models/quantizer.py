@@ -11,7 +11,9 @@ with ``update``, one ``ops/vq.vq_nearest_stats_sharded`` launch (``csrc/vq_stats
 the indices, the codewords of the *old* codebook and the masked counts and
 sums, and the EMA update (``quantizer.py:184-188``) then runs in plain
 tensor code on the buffers, in place, under ``no_grad``. ``train()`` mode
-is the port's counterpart of flax's mutable ``codebook`` collection.
+is the port's counterpart of flax's mutable ``codebook`` collection. The
+statistics call and the update are the spans ``quantizer.stats`` and
+``quantizer.ema`` (``utils/tracing.py``).
 
 The acoustic model's triplet loss (``compute_triple_loss``) needs every
 distance to the codebook with its gradient: it takes them from the plain
@@ -47,6 +49,7 @@ import torch.nn as nn
 from msmctts_tpu_torch.ops.masking import sequence_mask
 from msmctts_tpu_torch.ops.vq import vq_nearest_sharded, vq_nearest_stats_sharded
 from msmctts_tpu_torch.parallel.mesh import all_reduce_sum, rank, world
+from msmctts_tpu_torch.utils.tracing import span
 
 
 def codebook_distances(x, embed):
@@ -168,10 +171,12 @@ class EMAQuantizer(nn.Module):
             else:
                 mask = sequence_mask(lengths, T, dtype=torch.float32).reshape(B * T)
             xf = x.detach().float().reshape(B * T, self.n_head, self.sub_dim)
-            idx, quant, counts, sums = vq_nearest_stats_sharded(xf, self.embed, mask, self.group)
+            with span("quantizer.stats"):
+                idx, quant, counts, sums = vq_nearest_stats_sharded(xf, self.embed, mask, self.group)
             indices = idx.reshape(B, T, self.n_head)
             quant = quant.reshape(B, T, D)
-            self.ema_update(counts, sums, xf)
+            with span("quantizer.ema"):
+                self.ema_update(counts, sums, xf)
         else:
             quant, indices = self.quantize(x.detach().float())
         # commitment diff in float32 from the fp32 codewords; gradients reach

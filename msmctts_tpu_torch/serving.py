@@ -71,11 +71,20 @@ since ``warmup()`` ended, from ``ops/cuda_build.build_count``). A warmed
 server reports 0 for both under any traffic within its buckets. Over a
 group both are summed over the ranks, and ``ranks`` lists each rank's, as
 the followers reported them at their last batch's end.
+``task_realtime_factor`` is the audio served over the host's wall time in
+the task calls.
+
+The worker records the spans of ``utils/tracing.py``: ``engine.wait`` (an
+empty queue), ``engine.gather`` (the gather window), ``engine.pad``,
+``engine.task`` and ``engine.deliver`` for every batch, which together take
+the worker's whole loop, and ``request`` with its child ``request.queue``
+for every request it serves.
 """
 
 from __future__ import annotations
 
 import bisect
+import itertools
 import math
 import queue
 import random
@@ -89,6 +98,7 @@ import numpy as np
 from msmctts_tpu_torch.data.datasets import FRAME_BUCKETS, TEXT_BUCKETS, bucket_length
 from msmctts_tpu_torch.ops.cuda_build import build_count
 from msmctts_tpu_torch.parallel import mesh
+from msmctts_tpu_torch.utils.tracing import record, span
 
 __all__ = ["BatchingEngine", "ServingStats", "parse_phone_string"]
 
@@ -107,7 +117,9 @@ def parse_phone_string(text: str) -> np.ndarray:
 @dataclass
 class ServingStats:
     """Cumulative counters and a bounded latency reservoir (guarded by the
-    engine's lock; percentiles are approximate under load)."""
+    engine's lock; percentiles are approximate under load). ``busy_seconds``
+    is the host's wall time inside the task calls (the ``engine.task``
+    spans), device time and host time alike."""
 
     requests: int = 0
     batches: int = 0
@@ -137,7 +149,7 @@ class ServingStats:
             "kernel_builds": kernel_builds,
             "mean_batch_size": (self.requests / self.batches) if self.batches else None,
             "audio_seconds": round(self.audio_seconds, 3),
-            "device_realtime_factor": (
+            "task_realtime_factor": (
                 round(self.audio_seconds / self.busy_seconds, 1) if self.busy_seconds > 0 else None
             ),
             "latency_s": {"p50": pct(0.50), "p95": pct(0.95), "p99": pct(0.99)},
@@ -146,15 +158,19 @@ class ServingStats:
         }
 
 
+_request_ids = itertools.count(1)
+
+
 class _Request:
-    __slots__ = ("text", "done", "wav", "error", "t_enqueue", "stream", "chunk_q")
+    __slots__ = ("id", "text", "done", "wav", "error", "t_enqueue", "stream", "chunk_q")
 
     def __init__(self, text: np.ndarray, stream: bool = False):
+        self.id = next(_request_ids)  # the ``request`` attribute of its spans
         self.text = text  # int32 [L, n_streams]
         self.done = threading.Event()
         self.wav: Optional[np.ndarray] = None
         self.error: Optional[BaseException] = None
-        self.t_enqueue = time.time()
+        self.t_enqueue = time.perf_counter()
         self.stream = stream
         # streaming requests receive trimmed wav pieces here, then a None
         # sentinel (or one BaseException)
@@ -264,6 +280,8 @@ class BatchingEngine:
         # Serializes batches against weight swaps (``reload``).
         self._model_lock = threading.Lock()
         self.stats = ServingStats()
+        self._batch_ids = itertools.count(1)  # the ``batch`` attribute of the worker's spans
+        self._batch_id = 0  # the batch the worker gathers or runs (worker thread only)
         self._thread: Optional[threading.Thread] = None
         self._stopping = False
         # warmup() sets these; once _warmed, a streaming request whose
@@ -671,33 +689,41 @@ class BatchingEngine:
         """The next batch: the oldest waiting request, then followers of its
         padded text length, for up to ``window_ms`` or until ``batch_size``
         is reached. A request padded otherwise (longer than the engine's
-        text length) waits, in arrival order, for a later batch."""
-        first = self._held.pop(0) if self._held else self._queue.get()
+        text length) waits, in arrival order, for a later batch. The wait
+        for a first request on an empty queue is the span ``engine.wait``,
+        the rest ``engine.gather``, both of the next batch id."""
+        self._batch_id = next(self._batch_ids)
+        if self._held:
+            first = self._held.pop(0)
+        else:
+            with span("engine.wait", batch=self._batch_id):
+                first = self._queue.get()
         if first is None or isinstance(first, _Reload):
             return first
-        Lt, held = self._text_length(first.text.shape[0]), []
-        reqs = [first]
-        for r in self._held:
-            joins = (len(reqs) < self.batch_size and not isinstance(r, _Reload)
-                     and self._text_length(r.text.shape[0]) == Lt)
-            (reqs if joins else held).append(r)
-        self._held = held
-        deadline = time.time() + self.window_ms / 1000.0
-        while len(reqs) < self.batch_size:
-            remaining = deadline - time.time()
-            if remaining <= 0:
-                break
-            try:
-                nxt = self._queue.get(timeout=remaining)
-            except queue.Empty:
-                break
-            if nxt is None:
-                self._queue.put(None)  # re-post the stop sentinel
-                break
-            if isinstance(nxt, _Reload):  # runs after this batch
-                self._held.append(nxt)
-                break
-            (reqs if self._text_length(nxt.text.shape[0]) == Lt else self._held).append(nxt)
+        with span("engine.gather", batch=self._batch_id):
+            Lt, held = self._text_length(first.text.shape[0]), []
+            reqs = [first]
+            for r in self._held:
+                joins = (len(reqs) < self.batch_size and not isinstance(r, _Reload)
+                         and self._text_length(r.text.shape[0]) == Lt)
+                (reqs if joins else held).append(r)
+            self._held = held
+            deadline = time.time() + self.window_ms / 1000.0
+            while len(reqs) < self.batch_size:
+                remaining = deadline - time.time()
+                if remaining <= 0:
+                    break
+                try:
+                    nxt = self._queue.get(timeout=remaining)
+                except queue.Empty:
+                    break
+                if nxt is None:
+                    self._queue.put(None)  # re-post the stop sentinel
+                    break
+                if isinstance(nxt, _Reload):  # runs after this batch
+                    self._held.append(nxt)
+                    break
+                (reqs if self._text_length(nxt.text.shape[0]) == Lt else self._held).append(nxt)
         return reqs
 
     def batch_of(self, texts: List[np.ndarray]) -> dict:
@@ -717,29 +743,43 @@ class BatchingEngine:
         return {"text": text, "text_length": text_length}
 
     def _run_batch(self, reqs: List[_Request]) -> None:
-        batch = self.batch_of([r.text for r in reqs])
-        t0 = time.time()
-        if any(r.stream for r in reqs):
-            self._announce("stream", batch)
-            audio = self._on_group(lambda: self._run_streaming(reqs, batch))
-            busy = time.time() - t0
-        else:
-            self._announce("predict", batch)
-            out = self._on_group(lambda: self.task.infer_step(batch))
-            busy = time.time() - t0
-            audio = 0.0
-            for i, r in enumerate(reqs):
-                r.wav = np.asarray(out["wav"][i])
-                audio += r.wav.shape[0] / self.sample_rate
-                r.done.set()
-        done = time.time()
-        with self._lock:
-            self.stats.batches += 1
-            self.stats.requests += len(reqs)
-            self.stats.audio_seconds += audio
-            self.stats.busy_seconds += busy
+        """Pad, run and deliver one gathered batch: the spans
+        ``engine.pad``, ``engine.task`` (real ``rows``) and
+        ``engine.deliver`` (``served_frames``, the real rows' frame totals,
+        where the task reports them), each of the ``batch`` id, then for
+        every request ``request`` (enqueue to delivery) and its child
+        ``request.queue`` (enqueue to this batch)."""
+        taken, bid = time.perf_counter(), self._batch_id
+        with span("engine.pad", batch=bid):
+            batch = self.batch_of([r.text for r in reqs])
+        streaming = any(r.stream for r in reqs)
+        with span("engine.task", batch=bid, rows=len(reqs)) as task:
+            if streaming:
+                self._announce("stream", batch)
+                audio = self._on_group(lambda: self._run_streaming(reqs, batch))
+            else:
+                self._announce("predict", batch)
+                out = self._on_group(lambda: self.task.infer_step(batch))
+        with span("engine.deliver", batch=bid) as deliver:
+            if not streaming:
+                audio = 0.0
+                for i, r in enumerate(reqs):
+                    r.wav = np.asarray(out["wav"][i])
+                    audio += r.wav.shape[0] / self.sample_rate
+                    r.done.set()
+                if "mel_length" in out:  # an exported artifact reports waveforms alone
+                    deliver.attrs["served_frames"] = int(np.sum(out["mel_length"][: len(reqs)]))
+            done = time.perf_counter()
+            with self._lock:
+                self.stats.batches += 1
+                self.stats.requests += len(reqs)
+                self.stats.audio_seconds += audio
+                self.stats.busy_seconds += task.t1 - task.t0
+                for r in reqs:
+                    self.stats.record_latency(done - r.t_enqueue)
             for r in reqs:
-                self.stats.record_latency(done - r.t_enqueue)
+                rid = record("request", r.t_enqueue, done, request=r.id, batch=bid)
+                record("request.queue", r.t_enqueue, taken, parent=rid, request=r.id, batch=bid)
 
     def _run_streaming(self, reqs: List[_Request], batch: dict) -> float:
         """Drive ``task.predict_stream`` for a batch that holds streaming

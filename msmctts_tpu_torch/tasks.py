@@ -98,6 +98,7 @@ from msmctts_tpu_torch.registry import get_network, get_task, register_task
 from msmctts_tpu_torch.streaming import StreamingDecoder
 from msmctts_tpu_torch.utils.checkpoint import load_checkpoint
 from msmctts_tpu_torch.utils.device import exact_fp32, resolve_device
+from msmctts_tpu_torch.utils.tracing import span
 from msmctts_tpu_torch.weights import (
     attr_predictor_from_jax,
     emb_autoencoder_from_jax,
@@ -252,9 +253,15 @@ class MSMCTTS(BaseTask):
             raise ValueError(f"batch size {B} does not divide the {W}-rank inference group")
         return mesh.shard_rows({k: np.asarray(v) for k, v in batch.items()}, mesh.rank(self._group), W)
 
-    def _gather(self, t: torch.Tensor) -> np.ndarray:
-        """Every rank's rows of ``t`` in rank order, on the host."""
-        return mesh.all_gather_rows(t, self._group).cpu().numpy()
+    def _gather(self, t: torch.Tensor, what: str) -> np.ndarray:
+        """Every rank's rows of ``t`` in rank order, on the host: the task's
+        one way back from the device, each copy the span ``predict.d2h``
+        (``what`` it copies, its ``bytes``), whose time is the host's wait
+        for the device's work queued before the copy."""
+        with span("predict.d2h", what=what) as s:
+            t = mesh.all_gather_rows(t, self._group)
+            s.attrs["bytes"] = t.numel() * t.element_size()
+            return t.cpu().numpy()
 
     def _tensor(self, x, dtype=None):
         return torch.as_tensor(np.asarray(x), dtype=dtype, device=self.device)
@@ -301,8 +308,8 @@ class MSMCTTS(BaseTask):
             local = self._local_rows({k: batch[k] for k in ("mel", "mel_length")})
             with torch.inference_mode():
                 q = ae.analysis(self._tensor(local["mel"], torch.float32), self._tensor(local["mel_length"], torch.long))
-            out["indices"] = [self._gather(x).astype(np.int32) for x in q["quantizer_indices"]]
-            out["embedding"] = [self._gather(x) for x in q["quantizer_outputs"]]
+            out["indices"] = [self._gather(x, "indices").astype(np.int32) for x in q["quantizer_indices"]]
+            out["embedding"] = [self._gather(x, "embedding") for x in q["quantizer_outputs"]]
         return out
 
     def padding_reach_frames(self) -> int:
@@ -378,7 +385,7 @@ class MSMCTTS(BaseTask):
         local = self._local_rows(batch)
         mel, mel_length = self._tensor(local["mel"], torch.float32), self._tensor(local["mel_length"], torch.long)
         self.shapes.add(("ae8" if self.int8_decoder else "ae", T))
-        wav = self._gather(self._decode(ae.encode_features(mel, mel_length)))
+        wav = self._gather(self._decode(ae.encode_features(mel, mel_length)), "wav")
         ratio = wav.shape[1] // T
         return {
             "wav": [w[: int(l) * ratio] for w, l in zip(wav, batch["mel_length"])],
@@ -400,7 +407,7 @@ class MSMCTTS(BaseTask):
         local = self._local_rows({k: batch[k] for k in ("emb", "emb_length", *opt)})
         kw = {k: self._tensor(local[k], torch.float32) for k in opt}
         out = ae(self._tensor(local["emb"], torch.float32), self._tensor(local["emb_length"], torch.long), **kw)
-        wav = self._gather(out["decoder_outputs"][..., 0])
+        wav = self._gather(out["decoder_outputs"][..., 0], "wav")
         ratio = wav.shape[1] // T
         return {
             "wav": [w[: int(l) * ratio] for w, l in zip(wav, batch["emb_length"])],
@@ -430,6 +437,8 @@ class MSMCTTS(BaseTask):
             given = np.round(np.maximum(given, 0.0)) * mask
             durations = self._tensor(given, torch.float32)
             total = given.sum(axis=1).astype(np.int64)
+            if mesh.world(self._group) > 1:  # one bucket for the whole batch
+                total = self._gather(torch.as_tensor(total, device=self.device), "totals")
             if cap:
                 total = np.minimum(total, cap)
         else:
@@ -441,11 +450,9 @@ class MSMCTTS(BaseTask):
             if self.static_max_frames is not None:
                 total = None  # nothing crosses to the host before the waveform
             else:
-                total = total_dev.cpu().numpy()  # one small D2H
+                total = self._gather(total_dev, "totals")  # the global batch's: one bucket for all of it
                 if cap:
                     total = np.minimum(total, cap)
-        if total is not None and mesh.world(self._group) > 1:  # one bucket for the whole batch
-            total = self._gather(torch.as_tensor(total, device=self.device))
         if total is None:
             max_frames = bucket_length(max(int(self.static_max_frames), lcm), FRAME_BUCKETS)
         else:
@@ -460,7 +467,7 @@ class MSMCTTS(BaseTask):
         from the device in static-frames mode)."""
         total = p1["total"]
         if total is None:
-            total = self._gather(p1["total_dev"])
+            total = self._gather(p1["total_dev"], "totals")
         return np.minimum(total.astype(np.int64), p1["max_frames"])
 
     @torch.inference_mode()
@@ -471,29 +478,39 @@ class MSMCTTS(BaseTask):
         its windows out of it."""
         predictor = self.networks["predictor"]
         ae = self.networks["autoencoder"]
-        p1 = self._predict_phase1(self._local_rows(batch))
-        out = predictor(
-            p1["text"], p1["text_length"], dur=p1["durations"],
-            max_frames=p1["max_frames"], codebooks=extract_codebooks(ae),
-        )
-        return p1, out, ae.synthesis_features(out["feat"], out["feat_length"])
+        with span("predict.durations"):
+            p1 = self._predict_phase1(self._local_rows(batch))
+        with span("predict.features"):
+            out = predictor(
+                p1["text"], p1["text_length"], dur=p1["durations"],
+                max_frames=p1["max_frames"], codebooks=extract_codebooks(ae),
+            )
+            return p1, out, ae.synthesis_features(out["feat"], out["feat_length"])
 
     @torch.inference_mode()
     def predict(self, batch: dict) -> dict:
-        """text -> MSMCR -> waveform (msmc_tts.py:109-127)."""
-        p1, out, feats = self.predict_features(batch)
-        self.shapes.add(("syn8" if self.int8_decoder else "syn", p1["Lt"], p1["max_frames"]))
-        wav = self._gather(self._decode(feats))
-        fine = self._gather(out["feat"][-1])
-        total = self._totals(p1)
-        ratio = wav.shape[1] // fine.shape[1]
-        wav_lengths = (total * ratio).astype(np.int64)
-        return {
-            "wav": [w[:l] for w, l in zip(wav, wav_lengths)],
-            "embedding": [f[: int(t)] for f, t in zip(fine, total)],
-            "duration": self._gather(p1["durations"]),
-            "mel_length": total,
-        }
+        """text -> MSMCR -> waveform (msmc_tts.py:109-127). The span
+        ``predict`` (``rows``, ``text`` length, ``frames`` bucket) holds
+        ``predict.durations``, ``predict.features``, ``predict.decode`` and
+        a ``predict.d2h`` for every copy to the host."""
+        text = np.asarray(batch["text"])
+        with span("predict", rows=int(text.shape[0]), text=int(text.shape[1])) as s:
+            p1, out, feats = self.predict_features(batch)
+            s.attrs["frames"] = p1["max_frames"]
+            self.shapes.add(("syn8" if self.int8_decoder else "syn", p1["Lt"], p1["max_frames"]))
+            with span("predict.decode"):
+                wav = self._decode(feats)
+            wav = self._gather(wav, "wav")
+            fine = self._gather(out["feat"][-1], "embedding")
+            total = self._totals(p1)
+            ratio = wav.shape[1] // fine.shape[1]
+            wav_lengths = (total * ratio).astype(np.int64)
+            return {
+                "wav": [w[:l] for w, l in zip(wav, wav_lengths)],
+                "embedding": [f[: int(t)] for f, t in zip(fine, total)],
+                "duration": self._gather(p1["durations"], "duration"),
+                "mel_length": total,
+            }
 
     def _streaming_decoder(self, chunk_frames: int) -> StreamingDecoder:
         """The cached StreamingDecoder of the autoencoder's HiFi-GAN decoder,
@@ -552,7 +569,7 @@ class MSMCTTS(BaseTask):
             "mel_length": total,
             "wav_length": wav_length,
             "hop": sd.hop,
-            "duration": self._gather(p1["durations"]),
+            "duration": self._gather(p1["durations"], "duration"),
         }
 
         def chunks():
@@ -560,7 +577,7 @@ class MSMCTTS(BaseTask):
             produced = 0
             for chunk in sd.stream(feats):
                 if mesh.world(self._group) > 1:
-                    chunk = self._gather(torch.as_tensor(chunk, device=self.device))
+                    chunk = self._gather(torch.as_tensor(chunk, device=self.device), "wav")
                 yield chunk
                 produced += chunk.shape[1]
                 if produced >= need:

@@ -110,7 +110,7 @@ def diff_stats(before: dict, after: dict) -> dict:
     d["mean_batch_size"] = (d["requests"] / d["batches"]) if d["batches"] else None
     d["audio_seconds"] = round(after["audio_seconds"] - before["audio_seconds"], 3)
     # cumulative, not windowed: the run-wide figures
-    d["device_realtime_factor"] = after.get("device_realtime_factor")
+    d["task_realtime_factor"] = after.get("task_realtime_factor")
     d["server_latency_s"] = after.get("latency_s")
     return d
 

@@ -73,6 +73,7 @@ from msmctts_tpu_torch.training.losses import (
 from msmctts_tpu_torch.training.optim import build_optimizer, optimizer_config_for
 from msmctts_tpu_torch.training.predictor_trainer import PredictorTrainer
 from msmctts_tpu_torch.training.vqgan_trainer import VQGANTrainer, _no_param_grads
+from msmctts_tpu_torch.utils.tracing import span
 from msmctts_tpu_torch.weights import (
     attr_predictor_to_jax,
     emb_autoencoder_to_jax,
@@ -191,8 +192,9 @@ class EmbVQGANTrainer(VQGANTrainer):
         self.ae_opt.zero_grad()
         self.d_opt.zero_grad()
         dt = self.compute_dtype  # every float input but the lengths cast (emb_vqgan_trainer.py:138-141)
-        out = functional(self.ae, dt)(cast_floats(emb, dt), lengths, **cast_floats(kwargs, dt))
-        target_c = cast_floats(target, dt)
+        with span("train.ae_forward"):
+            out = functional(self.ae, dt)(cast_floats(emb, dt), lengths, **cast_floats(kwargs, dt))
+            target_c = cast_floats(target, dt)
         metrics = {}
 
         content = out.get("content_representations")
@@ -203,45 +205,51 @@ class EmbVQGANTrainer(VQGANTrainer):
 
         fake = out["decoder_outputs"][..., 0] if decode else None
         if gan:
-            fs, _, rs, _ = paired_disc_apply(functional(self.disc, dt), fake.detach(), target_c)
-            d_real, d_fake = lsgan_d_loss(rs, fs, self.group, windows=share)
-            d_loss = d_real + d_fake
-            d_loss.backward()
-            self.d_opt.step()
+            with span("train.d_forward"):
+                fs, _, rs, _ = paired_disc_apply(functional(self.disc, dt), fake.detach(), target_c)
+                d_real, d_fake = lsgan_d_loss(rs, fs, self.group, windows=share)
+                d_loss = d_real + d_fake
+            with span("train.d_backward"):
+                d_loss.backward()
+            with span("train.d_optimizer"):
+                self.d_opt.step()
             metrics.update(d_loss=d_loss, d_loss_real=d_real, d_loss_fake=d_fake)
 
         # the generator's loss, against the updated estimator and discriminator
-        g, vq_metrics = quantizer_loss(out["encoder_diffs"], out["encoder_lengths"], out.get("decoder_diffs"),
-                                       lambda_vq=self.lambda_vq, lambda_pr=self.lambda_pr, group=self.group)
-        metrics.update(vq_metrics)
-        if "mel_outputs" in out:
-            metrics["frame_loss"] = frame_loss(out["mel_outputs"], mel, lengths, self.group)
-            g = g + self.lambda_frame * metrics["frame_loss"]
-        if decode:
-            stft_terms = self._stft_loss(fake, target, windows=share)
-            metrics.update(stft_terms)
-            metrics["stft_loss"] = sum(stft_terms.values())
-            g = g + self.lambda_stft * metrics["stft_loss"]
-        if use_prosody:
-            with _no_param_grads(self.prosody):
-                _, pred = self.prosody(content, lengths)
-            metrics["g_prosody_loss"] = frame_loss(pred, prosody_target, lengths, self.group)
-            g = g - PROSODY_SCALE * metrics["g_prosody_loss"]  # the generator maximizes the estimator's error
-        if gan:
-            with _no_param_grads(self.disc):
-                fs, ff, _, rf = paired_disc_apply(functional(self.disc, dt), fake, target_c)
-            adv = lsgan_g_loss(fs, self.group, windows=share)
-            fm = feature_matching_loss(ff, rf, self.group, windows=share)
-            if self.lambda_fm == "auto":  # from the global losses
-                g_fm = all_reduce_sum(torch.stack([g.detach(), fm.detach()]), self.group)
-                lam = g_fm[0] / torch.clamp(g_fm[1], min=1e-12)
-            else:
-                lam = self.lambda_fm
-            g = g + adv + fm * lam
-            metrics.update(fm_loss=fm, adv_loss=adv)
+        with span("train.g_loss"):
+            g, vq_metrics = quantizer_loss(out["encoder_diffs"], out["encoder_lengths"], out.get("decoder_diffs"),
+                                           lambda_vq=self.lambda_vq, lambda_pr=self.lambda_pr, group=self.group)
+            metrics.update(vq_metrics)
+            if "mel_outputs" in out:
+                metrics["frame_loss"] = frame_loss(out["mel_outputs"], mel, lengths, self.group)
+                g = g + self.lambda_frame * metrics["frame_loss"]
+            if decode:
+                stft_terms = self._stft_loss(fake, target, windows=share)
+                metrics.update(stft_terms)
+                metrics["stft_loss"] = sum(stft_terms.values())
+                g = g + self.lambda_stft * metrics["stft_loss"]
+            if use_prosody:
+                with _no_param_grads(self.prosody):
+                    _, pred = self.prosody(content, lengths)
+                metrics["g_prosody_loss"] = frame_loss(pred, prosody_target, lengths, self.group)
+                g = g - PROSODY_SCALE * metrics["g_prosody_loss"]  # the generator maximizes the estimator's error
+            if gan:
+                with span("train.g_disc_forward"), _no_param_grads(self.disc):
+                    fs, ff, _, rf = paired_disc_apply(functional(self.disc, dt), fake, target_c)
+                adv = lsgan_g_loss(fs, self.group, windows=share)
+                fm = feature_matching_loss(ff, rf, self.group, windows=share)
+                if self.lambda_fm == "auto":  # from the global losses
+                    g_fm = all_reduce_sum(torch.stack([g.detach(), fm.detach()]), self.group)
+                    lam = g_fm[0] / torch.clamp(g_fm[1], min=1e-12)
+                else:
+                    lam = self.lambda_fm
+                g = g + adv + fm * lam
+                metrics.update(fm_loss=fm, adv_loss=adv)
         metrics["g_loss"] = g
-        g.backward()
-        self.ae_opt.step()
+        with span("train.g_backward"):
+            g.backward()
+        with span("train.g_optimizer"):
+            self.ae_opt.step()
         return metrics
 
     def train_step(self, batch, iteration, windows=None):
@@ -249,16 +257,20 @@ class EmbVQGANTrainer(VQGANTrainer):
         rank's rows). ``windows`` = (global rows, starts) fixes the windows
         (tests compare two stacks whose random streams differ); by default
         they are drawn from the trainer's generator. Returns 0-d metric
-        tensors, detached: the global values."""
-        self.shard()  # split over the model group (a no-op without one)
-        batch = decode_batch(batch)  # the wire format (data/wire.py); a plain batch passes as it is
-        for module in (self.ae, self.disc, self.prosody):
-            if module is not None:
-                module.train()
-        decode = iteration > self.frame_loss_supervised_step
-        gan = decode and iteration > self.stft_loss_supervised_step
-        metrics = {k: torch.as_tensor(v).detach() for k, v in self._emb_step(batch, decode, gan, windows).items()}
-        return self.global_metrics(metrics, sorted(metrics))  # every term is a share
+        tensors, detached: the global values. The spans are
+        ``VQGANTrainer.train_step``'s."""
+        with span("train.step", iteration=int(iteration)):
+            self.shard()  # split over the model group (a no-op without one)
+            batch = decode_batch(batch)  # the wire format (data/wire.py); a plain batch passes as it is
+            for module in (self.ae, self.disc, self.prosody):
+                if module is not None:
+                    module.train()
+            decode = iteration > self.frame_loss_supervised_step
+            gan = decode and iteration > self.stft_loss_supervised_step
+            metrics = self._emb_step(batch, decode, gan, windows)
+            with span("train.metrics"):
+                metrics = {k: torch.as_tensor(v).detach() for k, v in metrics.items()}
+                return self.global_metrics(metrics, sorted(metrics))  # every term is a share
 
 
 @register_trainer("NASynEmbFSTrainer")

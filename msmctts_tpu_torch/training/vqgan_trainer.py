@@ -70,6 +70,7 @@ from msmctts_tpu_torch.training.losses import (
     quantizer_loss,
 )
 from msmctts_tpu_torch.training.optim import build_optimizer, optimizer_config_for
+from msmctts_tpu_torch.utils.tracing import span
 from msmctts_tpu_torch.weights import train_state_from_jax, train_state_to_jax
 
 
@@ -199,10 +200,14 @@ class VQGANTrainer(BaseTrainer):
         mel, mel_length = batch["mel"], batch["mel_length"]
         self.ae_opt.zero_grad()
         dt = self.compute_dtype
-        out = functional(self.ae, dt)(cast_floats(mel, dt), mel_length, warmup=True)
-        g, metrics = self._base_g_loss(out, mel, mel_length)
-        g.backward()
-        self.ae_opt.step()
+        with span("train.ae_forward"):
+            out = functional(self.ae, dt)(cast_floats(mel, dt), mel_length, warmup=True)
+        with span("train.g_loss"):
+            g, metrics = self._base_g_loss(out, mel, mel_length)
+        with span("train.g_backward"):
+            g.backward()
+        with span("train.g_optimizer"):
+            self.ae_opt.step()
         metrics["g_loss"] = g
         return metrics
 
@@ -229,37 +234,44 @@ class VQGANTrainer(BaseTrainer):
         # one autoencoder forward; its graph waits for the generator loss
         dt = self.compute_dtype
         window = {} if starts is None else dict(window_starts=starts, window_frames=self.frame_lengths)
-        out = functional(self.ae, dt)(cast_floats(mel, dt), mel_length, warmup=False, **window)
-        fake = out["decoder_outputs"][..., 0]
-        target_c = cast_floats(target, dt)  # the discriminator's input; the STFT terms read target
+        with span("train.ae_forward"):
+            out = functional(self.ae, dt)(cast_floats(mel, dt), mel_length, warmup=False, **window)
+            fake = out["decoder_outputs"][..., 0]
+            target_c = cast_floats(target, dt)  # the discriminator's input; the STFT terms read target
 
         # discriminator update on (detached fake, real)
-        fs, _, rs, _ = paired_disc_apply(functional(self.disc, dt), fake.detach(), target_c)
-        d_real, d_fake = lsgan_d_loss(rs, fs, self.group)
-        d_loss = d_real + d_fake
-        d_loss.backward()
-        self.d_opt.step()
+        with span("train.d_forward"):
+            fs, _, rs, _ = paired_disc_apply(functional(self.disc, dt), fake.detach(), target_c)
+            d_real, d_fake = lsgan_d_loss(rs, fs, self.group)
+            d_loss = d_real + d_fake
+        with span("train.d_backward"):
+            d_loss.backward()
+        with span("train.d_optimizer"):
+            self.d_opt.step()
 
         # generator loss against the updated discriminator
-        g, metrics = self._base_g_loss(out, mel, mel_length)
-        stft_terms = self._stft_loss(fake, target)
-        stft_sum = sum(stft_terms.values())
-        metrics.update(stft_terms)
-        metrics["stft_loss"] = stft_sum
-        g = g + self.lambda_stft * stft_sum
-        with _no_param_grads(self.disc):
-            fs, ff, _, rf = paired_disc_apply(functional(self.disc, dt), fake, target_c)
-        adv = lsgan_g_loss(fs, self.group)
-        fm = feature_matching_loss(ff, rf, self.group)
-        if self.lambda_fm == "auto":  # from the global losses
-            g_fm = all_reduce_sum(torch.stack([g.detach(), fm.detach()]), self.group)
-            lam = g_fm[0] / torch.clamp(g_fm[1], min=1e-12)
-        else:
-            lam = self.lambda_fm
-        adv_total = adv + fm * lam
-        g_total = g + adv_total
-        g_total.backward()
-        self.ae_opt.step()
+        with span("train.g_loss"):
+            g, metrics = self._base_g_loss(out, mel, mel_length)
+            stft_terms = self._stft_loss(fake, target)
+            stft_sum = sum(stft_terms.values())
+            metrics.update(stft_terms)
+            metrics["stft_loss"] = stft_sum
+            g = g + self.lambda_stft * stft_sum
+            with span("train.g_disc_forward"), _no_param_grads(self.disc):
+                fs, ff, _, rf = paired_disc_apply(functional(self.disc, dt), fake, target_c)
+            adv = lsgan_g_loss(fs, self.group)
+            fm = feature_matching_loss(ff, rf, self.group)
+            if self.lambda_fm == "auto":  # from the global losses
+                g_fm = all_reduce_sum(torch.stack([g.detach(), fm.detach()]), self.group)
+                lam = g_fm[0] / torch.clamp(g_fm[1], min=1e-12)
+            else:
+                lam = self.lambda_fm
+            adv_total = adv + fm * lam
+            g_total = g + adv_total
+        with span("train.g_backward"):
+            g_total.backward()
+        with span("train.g_optimizer"):
+            self.ae_opt.step()
 
         metrics.update(fm_loss=fm, adv_loss=adv_total, g_loss=g_total,
                        d_loss=d_loss, d_loss_real=d_real, d_loss_fake=d_fake)
@@ -301,14 +313,24 @@ class VQGANTrainer(BaseTrainer):
         ``starts`` [B] fixes the GAN windows (tests compare two stacks whose
         random streams differ); by default they come from the trainer's
         generator. Under a group, ``batch`` and ``starts`` hold this rank's
-        rows. Returns 0-d metric tensors, detached: the global values."""
-        self.shard()  # split over the model group (a no-op without one)
-        batch = decode_batch(batch)  # the wire format (data/wire.py); a plain batch passes as it is
-        self.ae.train()
-        self.disc.train()
-        if iteration <= self.warmup_steps:
-            metrics = self._warmup_step(batch)
-        else:
-            metrics = self._gan_step(batch, starts)
-        metrics = {k: torch.as_tensor(v).detach() for k, v in metrics.items()}
-        return self.global_metrics(metrics, sorted(k for k in metrics if not k.startswith("codebook_perplexity")))
+        rows. Returns 0-d metric tensors, detached: the global values.
+
+        The step is the span ``train.step`` (``iteration``), its phases its
+        children: ``train.ae_forward``, ``train.d_forward``,
+        ``train.d_backward``, ``train.d_optimizer``, ``train.g_loss`` (which
+        holds ``train.g_disc_forward``, the discriminator's pass with its
+        parameters frozen), ``train.g_backward``, ``train.g_optimizer`` and
+        ``train.metrics``; the warmup graph has the generator's alone."""
+        with span("train.step", iteration=int(iteration)):
+            self.shard()  # split over the model group (a no-op without one)
+            batch = decode_batch(batch)  # the wire format (data/wire.py); a plain batch passes as it is
+            self.ae.train()
+            self.disc.train()
+            if iteration <= self.warmup_steps:
+                metrics = self._warmup_step(batch)
+            else:
+                metrics = self._gan_step(batch, starts)
+            with span("train.metrics"):
+                metrics = {k: torch.as_tensor(v).detach() for k, v in metrics.items()}
+                return self.global_metrics(metrics,
+                                           sorted(k for k in metrics if not k.startswith("codebook_perplexity")))

@@ -635,7 +635,7 @@ def test_http_server_end_to_end(port_task):
         status, _, data = request("GET", "/stats")
         stats = json.loads(data)
         assert status == 200 and stats["requests"] >= 4 and stats["latency_s"]["p50"] is not None
-        assert {"cold_shapes", "kernel_builds", "mean_batch_size", "device_realtime_factor", "errors"} <= set(stats)
+        assert {"cold_shapes", "kernel_builds", "mean_batch_size", "task_realtime_factor", "errors"} <= set(stats)
         assert "xla_compiles" not in stats
     finally:
         server.shutdown()

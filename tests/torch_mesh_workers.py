@@ -42,7 +42,7 @@ def int8_rank(group, device, am_path, batch):
     alone = Int8Decoder(ae.decoder, ae.decoder_config, dtype=task.compute_dtype)
     alone.calibrate(feats)  # this rank's rows only
     with torch.inference_mode():
-        alone_wav = task._gather(alone.apply(feats)[..., 0].float())
+        alone_wav = task._gather(alone.apply(feats)[..., 0].float(), "wav")
     return dict(wav=out["wav"], scales=scales, alone_scales=dict(alone.scales), alone_wav=alone_wav)
 
 
