@@ -236,8 +236,18 @@ Phases, each of which raises on failure:
      autoencoder, the seeded AM over it) through ``infer`` in process, its
      wav bit-equal to ``infer`` of the pickles, 4 ``vq_nearest`` and 36
      ``fused_resblock_layer`` launches a batch, each held against plain;
- 23. one JSON line describing each kernel;
- 24. last line: {"ok": true, "device": {...}}.
+ 24. CUDA graphs of the GAN step, at the tiny width of the CPU tests and at
+     the CSMSC recipe's (batch 16, frame bucket 1024, 0.5 s windows, the
+     recipe's dropout), each from one state after one step at the shape
+     (its first sight, eager): the benchmark's 3 checked steps eager,
+     graphed (the capture and two replays) and graphed again after the
+     benchmark's restore (weights loaded in place, each optimizer's state
+     before any update, the generator's state); every
+     dropout mask equal to eager's, the losses, first-gradient norms and
+     changes within the benchmark's train limits, one capture a shape; the
+     graphed and eager step times in turns and the memory peaks;
+ 25. one JSON line describing each kernel;
+ 26. last line: {"ok": true, "device": {...}}.
 
 NCCL refuses two ranks on one device, so the two-rank phases use gloo, which
 moves CUDA tensors through host memory; the log names the backend. Their
@@ -255,6 +265,7 @@ JSON file.
 
 import argparse
 import atexit
+import gc
 import json
 import math
 import os
@@ -6783,6 +6794,249 @@ def phase_group(card, am_path, batch_np, reference, dp_train, am_res):
             "tensor_parallel": phase_tensor_parallel(card, batch_np, reference, dp_train, am_res)}
 
 
+# --------------------------------------------------------------- phase 24
+# the benchmark's train limits (perfbench/workloads/csmsc_ae.gan_step_b16.json)
+GRAPH_LIMITS = {"loss_gap": 1.2e-4, "grad_gap": 7e-4, "change_gap": 4e-3}
+GRAPH_STEPS = 3
+GRAPH_FRAMES = 1024  # the CSMSC cell's frame bucket
+
+
+def _tiny_ae_config():
+    """The CPU tests' tiny autoencoder recipe (``tests/tiny.py``: mel dim 8,
+    frameshift 4, 2 stages of 2 heads, dropout 0.1), GAN steps from the first."""
+    from msmctts_tpu_torch.config import Config
+
+    fft = {"max_seq_len": 64, "n_layers": 1, "n_head": 2, "d_k": 8, "d_v": 8, "d_inner": 32, "dropout": 0.1,
+           "attn_dropout": 0.0}
+    return Config({
+        "task": {"_name": "MSMCTTS", "_mode": "train_autoencoder",
+                 "autoencoder": {"_name": "MSMCVQGAN", "in_dim": 8, "n_model_size": 16, "pred_mel": True,
+                                 "encoder_config": {"downsample_scales": [1, 2], **fft},
+                                 "quantizer_config": {"embedding_sizes": 8, "embedding_dims": 16, "n_heads": 2,
+                                                      "prior_config": {"kernel_size": 3, "dilation_rate": 1,
+                                                                       "n_layers": 1}},
+                                 "frame_decoder_config": dict(fft),
+                                 "decoder_config": {"upsample_rates": [2, 2], "upsample_kernel_sizes": [4, 4],
+                                                    "upsample_initial_channel": 16, "resblock_kernel_sizes": [3],
+                                                    "resblock_dilation_sizes": [[1, 3]]}},
+                 "discriminator": {"_name": "UnivNetDiscriminator",
+                                   "mrd_config": {"hop_lengths": [4, 8], "hidden_channels": [32, 32],
+                                                  "domain": "double", "mel_scale": True, "sample_rate": 1600},
+                                   "mpd_config": {"periods": [2, 3], "channels": 4, "max_channels": 16}}},
+        "trainer": {"_name": "VQGANTrainer", "grad_clip_thresh": 1.0, "warmup_steps": 0, "sample_lengths": 32,
+                    "lambda_vq": 1, "lambda_pr": 0.1, "lambda_frame": 10, "lambda_fm": 2, "lambda_stft": 4.5,
+                    "stft_loss_config": {"fft_size": 64, "hop_size": 16, "win_size": 64, "num_mels": 8}},
+        "optimizer": {"_default": {"_name": "AdamW", "learning_rate": 2e-4, "betas": [0.8, 0.99], "eps": 1e-8,
+                                   "weight_decay": 0.0}},
+        "dataset": {"_name": "MelDataset", "samplerate": 1600, "feature": ["mel", "wav"],
+                    "dimension": [8, 1], "frameshift": [4, 1], "padding_value": [-4, 0]},
+        "seed": 1234, "save_checkpoint_dir": os.path.join(SMOKE_DIR, "ckpt_tiny"),
+    })
+
+
+def _graph_batches(trainer, B, T, lo, hi, seed):
+    """``GRAPH_STEPS`` seeded batches of B rows in frame bucket T (lengths
+    in [lo, hi], padded as the loader pads), each with its window starts."""
+    from msmctts_tpu_torch.data.loader import to_device
+
+    ds = trainer.config.dataset
+    mel = list(ds["feature"]).index("mel")
+    n_mel, shift = ds["dimension"][mel], ds["frameshift"][mel]
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(GRAPH_STEPS):
+        lengths = rng.integers(lo, hi + 1, size=B)
+        batch = to_device(_train_batch(rng, lengths, T, n_mel, shift), "cuda")
+        starts = np.floor(rng.random(B) * np.maximum(lengths - trainer.frame_lengths, 1)).astype(np.int64)
+        out.append((batch, torch.as_tensor(starts, device="cuda")))
+    return out
+
+
+def _graph_turns(trainer, batches, tag, what):
+    """From the trainer's state now, the benchmark's checked steps three
+    times, each after the benchmark's restore (the weights loaded in place,
+    each optimizer's state before any update, the generator's state):
+    eager, graphed (the capture and two replays; one step at the shape, its
+    first sight, goes before the turns) and graphed again (replays alone).
+    Every dropout mask is recorded (``Tensor.bernoulli_``; a captured mask
+    is held, which the graphs' memory includes, and read after each replay
+    of its graph)."""
+    import copy
+
+    from msmctts_tpu_torch.utils import graphs, tracing
+    from perfbench.reference.judge_train import compare, norms, on_host
+
+    nets = {"autoencoder": trainer.ae, "discriminator": trainer.disc}
+    known = ({n: {k: v.detach().clone() for k, v in m.state_dict().items()} for n, m in nets.items()},
+             {n: copy.deepcopy(o.state_dict()) for n, o in trainer.optimizers.items()},
+             trainer.generator.get_state())
+    masks, captured, draw = [], [], torch.Tensor.bernoulli_
+
+    def recorded(self, *args, **kwargs):
+        out = draw(self, *args, **kwargs)
+        masks.append(out)
+        return out
+
+    def turn(graphed):
+        for n, m in nets.items():
+            m.load_state_dict(known[0][n])
+        for n, o in trainer.optimizers.items():
+            o.load_state_dict(copy.deepcopy(known[1][n]))
+        trainer.generator.set_state(known[2])
+        losses, first_grad, step_masks, ms = [], {}, [], []
+        available = graphs.available
+        if not graphed:
+            graphs.available = lambda device: False
+        try:
+            for i, (batch, starts) in enumerate(batches, start=1):
+                n0 = len(masks)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                m = trainer.train_step(batch, i, starts=starts)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                new = masks[n0:]
+                del masks[n0:]
+                if new:  # drawn by this step (eager, or captured: then held), else by the replay of the captured
+                    captured[:] = new
+                step_masks.append([x.bool().cpu() for x in captured])
+                losses.append({k: float(m[k]) for k in ("g_loss", "d_loss")})
+                if i == 1:
+                    grads = {}
+                    for group, opt in trainer.optimizers.items():
+                        beta1 = opt.opt.param_groups[0]["betas"][0]
+                        for name, p in nets[group].named_parameters():
+                            st = opt.opt.state.get(p, {})
+                            if "exp_avg" in st:
+                                grads[f"{group}.{name}"] = st["exp_avg"] / (1.0 - beta1)
+                    first_grad = {"first_grad": norms(grads), "grad": on_host(grads)}
+        finally:
+            graphs.available = available
+        change = on_host({f"{n}.{k}": v - known[0][n][k] for n, m in nets.items() for k, v in m.state_dict().items()
+                          if v.is_floating_point()})
+        return {"losses": losses, **first_grad, "change": change, "masks": step_masks, "ms": ms}
+
+    batch, starts = batches[0]
+    trainer.train_step(batch, 1, starts=starts)  # the shape's first sight: eager
+    torch.Tensor.bernoulli_ = recorded
+    try:
+        tracing.clear()
+        torch.cuda.reset_peak_memory_stats()
+        eager = turn(False)
+        peak_eager = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        held0, reserved0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+        graphed = turn(True)
+        peak_graphed = torch.cuda.max_memory_allocated()
+        mask_bytes = sum(x.numel() * x.element_size() for x in captured)
+        held = torch.cuda.memory_allocated() - held0 - mask_bytes  # the graphs' live tensors, the masks left out
+        reserved = torch.cuda.memory_reserved() - reserved0
+        again = turn(True)
+    finally:
+        torch.Tensor.bernoulli_ = draw
+    captures = [s.attrs for s in tracing.spans() if s.name == "train.capture"]
+    steps = [s.attrs["graphed"] for s in tracing.spans() if s.name == "train.step"]
+    if len(captures) != 1 or steps != [0] * GRAPH_STEPS + [1] * (2 * GRAPH_STEPS):
+        raise AssertionError(f"{tag} {what}: captures {captures}, graphed steps {steps}: one capture per shape, "
+                             f"every graphed turn's step graphed")
+    n_masks = [len(x) for x in eager["masks"]]
+    same_masks = [all(torch.equal(a, b) for a, b in zip(e, g)) and len(e) == len(g)
+                  for e, g in zip(eager["masks"], graphed["masks"])]
+    same_again = [all(torch.equal(a, b) for a, b in zip(e, g)) for e, g in zip(graphed["masks"], again["masks"])]
+    if not (all(same_masks) and all(same_again)):
+        raise AssertionError(f"{tag} {what}: dropout masks differ from eager's (per step {same_masks}, "
+                             f"again {same_again})")
+    vs_eager = compare(graphed, eager)
+    vs_first = compare(again, graphed)
+    bitwise = graphed["losses"] == again["losses"] and all(
+        torch.equal(graphed["change"][k], again["change"][k]) for k in graphed["change"])
+    res = {"masks_per_step": n_masks, "graphed_vs_eager": vs_eager, "again_vs_graphed": vs_first,
+           "again_bitwise": bitwise, "losses": {"eager": eager["losses"], "graphed": graphed["losses"],
+                                                "again": again["losses"]},
+           "step_ms": {"eager": eager["ms"], "graphed": graphed["ms"], "again": again["ms"]},
+           "capture": captures[0], "peak_gb": {"eager": peak_eager / 1e9, "graphed": peak_graphed / 1e9},
+           "held_by_graphs_gb": held / 1e9, "recorded_masks_gb": mask_bytes / 1e9,
+           "reserved_by_capture_gb": reserved / 1e9}
+    log(f"{tag} {what}: {sum(n_masks)} masks in {GRAPH_STEPS} steps equal eager's; graphed vs eager "
+        f"{json.dumps({k: float(f'{v:.3g}') for k, v in vs_eager.items()})}; after the restore vs the first "
+        f"graphed {json.dumps({k: float(f'{v:.3g}') for k, v in vs_first.items()})} (bit-equal: {bitwise}); "
+        f"step ms eager {[round(x, 1) for x in eager['ms']]}, graphed {[round(x, 1) for x in graphed['ms']]}, "
+        f"again {[round(x, 1) for x in again['ms']]}; peak {peak_eager / 1e9:.2f} GB eager, "
+        f"{peak_graphed / 1e9:.2f} GB graphed (with the recorded masks, {mask_bytes / 1e9:.2f} GB); the graphs' "
+        f"tensors {held / 1e9:.2f} GB besides, {reserved / 1e9:.2f} GB more reserved by the capture; capture "
+        f"{captures[0]}")
+    for name, got in (("graphed vs eager", vs_eager), ("again vs graphed", vs_first)):
+        over = {k: v for k, v in got.items() if v > GRAPH_LIMITS[k]}
+        if over:
+            raise AssertionError(f"{tag} {what}: {name} over the benchmark's train limits: {over}")
+    return res
+
+
+def _graph_times(trainer, batch, starts, runs=8):
+    """Median step ms, graphed (replays) and eager, in turns, after the turns
+    above (the trainer moves on: the times alone are read)."""
+    from msmctts_tpu_torch.utils import graphs
+
+    def once(i):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(batch, i, starts=starts)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    available, times = graphs.available, {"graphed": [], "eager": []}
+    try:
+        for turn in range(4):
+            side = "eager" if turn % 2 else "graphed"
+            graphs.available = (lambda device: False) if side == "eager" else available
+            once(100 + turn)  # settle after the switch
+            times[side] += [once(101 + turn) for _ in range(runs // 2)]
+    finally:
+        graphs.available = available
+    return {k: statistics.median(v) for k, v in times.items()}, times
+
+
+def phase_train_graphs(card):
+    """Phase 24: CUDA graphs of the GAN step (``utils/graphs.py``), at the
+    tiny width and at the CSMSC recipe's (batch 16, frame bucket 1024, 0.5 s
+    windows, the recipe's dropout): the benchmark's checked steps eager,
+    graphed and graphed again after its restore, held to the benchmark's
+    train limits and to eager's dropout masks; then step times in turns.
+    The same turns for the other recipes that reach the GAN step (the ISTFT
+    decoder, the quantizer's options with batch norm and restarts, LJSpeech)
+    at batch 4 in frame bucket 256, on seeded weights."""
+    from msmctts_tpu_torch.config import component_kwargs
+    from msmctts_tpu_torch.registry import get_trainer
+    from msmctts_tpu_torch.tasks import build_task
+
+    cfg = _tiny_ae_config()
+    task = build_task(cfg, device="cuda", mode="train")
+    tiny = get_trainer(cfg.trainer["_name"])(cfg, task, **component_kwargs(cfg.trainer))
+    tiny.init_state()
+    tiny_batches = _graph_batches(tiny, 4, 32, 16, 32, seed=24)
+    out = {"tiny": _graph_turns(tiny, tiny_batches, "[24]", "tiny width, B=4, 32 frames")}
+    out["tiny"]["median_ms"], _ = _graph_times(tiny, *tiny_batches[0])
+    del tiny, task
+
+    csmsc = _build_trainer("cuda", warmup_steps=0)
+    batches = _graph_batches(csmsc, TRAIN_B, GRAPH_FRAMES, 120, 800, seed=2024)
+    what = f"CSMSC recipe, B={TRAIN_B}, {GRAPH_FRAMES} frames, windows of {csmsc.sample_lengths} samples"
+    out["csmsc"] = _graph_turns(csmsc, batches, "[24]", what)
+    medians, runs = _graph_times(csmsc, *batches[0])
+    out["csmsc"].update(median_ms=medians, runs_ms=runs)
+    log(f"[24] {what} on {card}: median step {medians['graphed']:.1f} ms graphed, {medians['eager']:.1f} ms eager "
+        f"(runs {json.dumps({k: [round(x, 1) for x in v] for k, v in runs.items()})})")
+    del csmsc, batches
+    for name, path, quantizer in (("istft", ISTFT_YAML, None), ("options", AE_YAML, OPTIONS),
+                                  ("ljspeech", LJ_AE_YAML, None)):
+        cfg = _recipe_config(path, os.path.join(SMOKE_DIR, f"ckpt_graphs_{name}"), warmup_steps=0, quantizer=quantizer)
+        trainer = _seeded_trainer(cfg, "cuda")
+        out[name] = _graph_turns(trainer, _graph_batches(trainer, 4, 256, 64, 256, seed=24), "[24]",
+                                 f"{name} recipe, B=4, 256 frames")
+        del trainer
+    return out
+
+
 def _device_rows(prof):
     """[{name, count, device_ms}] of a profile's kernels, the longest first."""
     from torch.autograd import DeviceType
@@ -6847,6 +7101,7 @@ def main(argv=None):
         t0 = time.perf_counter()
         out = fn(*args, **kwargs)
         spent[phase] = round(spent.get(phase, 0.0) + time.perf_counter() - t0, 1)
+        gc.collect()  # a phase's trainers and their CUDA graphs go before the next phase allocates
         log(f"[time] phase {phase} {spent[phase]}s, {time.perf_counter() - t_start:.1f}s since the start")
         return out
 
@@ -6897,6 +7152,7 @@ def main(argv=None):
     fx_feed, fx_exp = fx["feed"], fx["export"]
     ob = timed("22", phase_orbax, env["nvidia_smi"], tts_ref["am_path"])
     grp = timed("23", phase_group, env["nvidia_smi"], tts_ref["am_path"], batch_np, train_ref, dp_train, am_res)
+    graphs_res = timed("24", phase_train_graphs, env["nvidia_smi"])
     ob_tr, ob_sv = ob["training"], ob["serving"]
     grp_tp = grp["tensor_parallel"]
     bf_vq, bf_am, bf_inf = bf16["vqgan"], bf16["am"], bf16["inference"]
@@ -7166,7 +7422,7 @@ def main(argv=None):
                        "dp_inference": dp_infer, "am_training": am_res, "am_step_card_vs_cpu": am_cpu,
                        "am_entry_point": am_cli, "serving": serving, "qs_tts": qs, "istft": istft, "int8": int8,
                        "quality_tools": tools, "ljspeech": lj, "bf16": bf16, "options": opts, "feed_export": fx, "orbax": ob,
-                       "group": grp, "phase_s": spent, "wall_s": time.perf_counter() - t_start}, f, indent=1)
+                       "group": grp, "train_graphs": graphs_res, "phase_s": spent, "wall_s": time.perf_counter() - t_start}, f, indent=1)
     log(f"[end] seconds per phase {json.dumps(spent)}")
     log(f"[end] wall {time.perf_counter() - t_start:.1f}s on {env['nvidia_smi']}")
     print(json.dumps({"kernels": kernels}))

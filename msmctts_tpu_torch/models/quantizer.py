@@ -13,7 +13,8 @@ sums, and the EMA update (``quantizer.py:184-188``) then runs in plain
 tensor code on the buffers, in place, under ``no_grad``. ``train()`` mode
 is the port's counterpart of flax's mutable ``codebook`` collection. The
 statistics call and the update are the spans ``quantizer.stats`` and
-``quantizer.ema`` (``utils/tracing.py``).
+``quantizer.ema`` (``utils/tracing.py``); where the forward is captured as
+CUDA graphs, both run eagerly between them (``utils/graphs.py``).
 
 The acoustic model's triplet loss (``compute_triple_loss``) needs every
 distance to the codebook with its gradient: it takes them from the plain
@@ -49,6 +50,7 @@ import torch.nn as nn
 from msmctts_tpu_torch.ops.masking import sequence_mask
 from msmctts_tpu_torch.ops.vq import vq_nearest_sharded, vq_nearest_stats_sharded
 from msmctts_tpu_torch.parallel.mesh import all_reduce_sum, rank, world
+from msmctts_tpu_torch.utils.graphs import outside_graphs
 from msmctts_tpu_torch.utils.tracing import span
 
 
@@ -153,6 +155,17 @@ class EMAQuantizer(nn.Module):
         seeds = rows[local.clamp(0, N - 1), heads] * held[..., None]  # [H, K, d]
         return all_reduce_sum(seeds, self.group).transpose(1, 2)
 
+    def _update(self, xf, mask):
+        """The statistics call over rows ``xf`` [N, H, d] and the EMA update
+        -> (indices [N, H], codewords of the codebook before the update
+        [N, H, d]). Both stay eager inside a train step's CUDA graphs
+        (``utils/graphs.outside_graphs``)."""
+        with span("quantizer.stats"):
+            idx, quant, counts, sums = vq_nearest_stats_sharded(xf, self.embed, mask, self.group)
+        with span("quantizer.ema"):
+            self.ema_update(counts, sums, xf)
+        return idx, quant
+
     def forward(self, x, lengths=None, update: bool = True, sort: bool = False):
         """x [B, T, D] -> (quantized (straight-through), diff [B, T, D] fp32,
         indices [B, T, H] int32); ``quantizer.py:112-220``. The codebook
@@ -171,12 +184,9 @@ class EMAQuantizer(nn.Module):
             else:
                 mask = sequence_mask(lengths, T, dtype=torch.float32).reshape(B * T)
             xf = x.detach().float().reshape(B * T, self.n_head, self.sub_dim)
-            with span("quantizer.stats"):
-                idx, quant, counts, sums = vq_nearest_stats_sharded(xf, self.embed, mask, self.group)
+            idx, quant = outside_graphs(self._update, xf, mask)
             indices = idx.reshape(B, T, self.n_head)
             quant = quant.reshape(B, T, D)
-            with span("quantizer.ema"):
-                self.ema_update(counts, sums, xf)
         else:
             quant, indices = self.quantize(x.detach().float())
         # commitment diff in float32 from the fp32 codewords; gradients reach

@@ -258,8 +258,8 @@ class EmbVQGANTrainer(VQGANTrainer):
         (tests compare two stacks whose random streams differ); by default
         they are drawn from the trainer's generator. Returns 0-d metric
         tensors, detached: the global values. The spans are
-        ``VQGANTrainer.train_step``'s."""
-        with span("train.step", iteration=int(iteration)):
+        ``VQGANTrainer.train_step``'s; its steps run eagerly (``graphed`` 0)."""
+        with span("train.step", iteration=int(iteration), graphed=0):
             self.shard()  # split over the model group (a no-op without one)
             batch = decode_batch(batch)  # the wire format (data/wire.py); a plain batch passes as it is
             for module in (self.ae, self.disc, self.prosody):

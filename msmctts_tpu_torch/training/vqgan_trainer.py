@@ -38,6 +38,22 @@ global values, equal on every rank. Per step that is one all-reduce per
 quantizer stage, one per optimizer, one of the metrics and one per masked
 denominator.
 
+CUDA graphs (``utils/graphs.py``): on a card, a GAN step runs the calls of
+the autoencoder and the discriminator (the autoencoder's forward, the
+discriminator's two passes of the update and its two with frozen
+parameters, and their backwards) as graphs, per input shape (rows, frame
+bucket, window). A shape's first step runs eagerly on the capture's side
+stream, which warms it; its second is captured as it runs, in a
+``train.capture`` span; the later ones replay. The losses, the codebook
+statistics with their EMA update and the optimizers stay eager. The graphs
+of the :data:`GRAPHED_SHAPES` shapes captured last stay live, in one
+memory pool. A step runs eagerly without fp32, under a model group (its
+split convs run collectives inside the forward), over a group whose
+backend is not NCCL (gloo's collectives run on the host), in the warmup
+phase and where a hook sits on a module inside the networks (a replay
+would skip its Python); a change of the dropouts' generator or shard
+drops the shape's graphs. ``train.step`` says which ran (``graphed``).
+
 Under ``precision: bfloat16`` (``parallel/precision.py``) the autoencoder's
 forward runs on bf16 casts of its parameters and of ``mel``, and both
 discriminator passes on bf16 casts of the discriminator's parameters and of
@@ -49,12 +65,14 @@ fp32 masters. ``evaluate`` runs the fp32 masters, as the JAX trainer's does.
 from __future__ import annotations
 
 import contextlib
+from collections import OrderedDict
 from typing import Optional
 
 import torch
 
 from msmctts_tpu_torch.data.wire import decode_batch
 from msmctts_tpu_torch.models.msmc_vqgan import crop_windows
+from msmctts_tpu_torch.ops.dropout import Dropout
 from msmctts_tpu_torch.parallel.mesh import all_reduce_sum
 from msmctts_tpu_torch.parallel.precision import cast_floats, functional
 from msmctts_tpu_torch.registry import register_trainer
@@ -70,8 +88,12 @@ from msmctts_tpu_torch.training.losses import (
     quantizer_loss,
 )
 from msmctts_tpu_torch.training.optim import build_optimizer, optimizer_config_for
+from msmctts_tpu_torch.utils import graphs
 from msmctts_tpu_torch.utils.tracing import span
 from msmctts_tpu_torch.weights import train_state_from_jax, train_state_to_jax
+
+
+GRAPHED_SHAPES = 4  # input shapes whose step graphs stay live, the most recently used
 
 
 @contextlib.contextmanager
@@ -136,6 +158,9 @@ class VQGANTrainer(BaseTrainer):
         )
         self.ae.set_group(self.group)
         self.optimizers = {"autoencoder": self.ae_opt, "discriminator": self.d_opt}
+        self._graphs = OrderedDict()  # (rows, frames, window) -> (dropouts' binding, StepGraphs), oldest first
+        self._inner = None  # the modules inside the two networks
+        self._graph_pool = None  # the memory pool of this trainer's graphs
 
     # ----------------------------------------------------------------- state
     def state_tree(self) -> dict:
@@ -277,6 +302,48 @@ class VQGANTrainer(BaseTrainer):
                        d_loss=d_loss, d_loss_real=d_real, d_loss_fake=d_fake)
         return metrics
 
+    # ------------------------------------------------------------ CUDA graphs
+    def _graph_binding(self):
+        """The dropouts' binding (generator, shard) that a GAN step's graphs
+        hold fixed, where the step may run as graphs; else None."""
+        if not (graphs.available(self.device) and self.tp is None
+                and (self.group is None or self.group.backend == "nccl") and self.compute_dtype == torch.float32):
+            return None
+        if self._inner is None:
+            self._inner = [m for net in (self.ae, self.disc) for m in list(net.modules())[1:]]
+        hooks = torch.nn.modules.module
+        if (hooks._global_forward_hooks or hooks._global_forward_pre_hooks or hooks._global_backward_hooks
+                or hooks._global_backward_pre_hooks
+                or any(m._forward_hooks or m._forward_pre_hooks or m._backward_hooks or m._backward_pre_hooks
+                       for m in self._inner)):
+            return None
+        return tuple((id(m.generator), m.shard) for m in self._inner if isinstance(m, Dropout))
+
+    def _graphed_gan_step(self, batch, starts, binding):
+        """The GAN step at a shape's first sight eagerly, on the capture's
+        stream (the warm-up: every plan, workspace and constant the step
+        makes at first use then exists), at its second captured as it runs,
+        later replayed -> (metrics, whether it ran as graphs)."""
+        key = (int(batch["mel"].shape[0]), int(batch["mel"].shape[1]), self.frame_lengths)
+        seen = self._graphs.pop(key, None)
+        if seen is not None and seen[0] == binding and seen[1] is not None:
+            self._graphs[key] = seen  # the most recently used last
+            return seen[1].replay(lambda: self._gan_step(batch, starts)), True
+        if self._graph_pool is None and self.device.type == "cuda":
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        stream = graphs.capture_stream(self.device)
+        if seen is None or seen[0] != binding:  # first sight, or graphs of another binding dropped
+            self._graphs[key] = (binding, None)
+            with graphs.side_stream(stream):
+                return self._gan_step(batch, starts), False
+        with span("train.capture", rows=key[0], frames=key[1], window=key[2]), graphs.side_stream(stream):
+            steps = graphs.StepGraphs((self.ae, self.disc), self._graph_pool, self.generator)
+            metrics = steps.capture(lambda: self._gan_step(batch, starts))
+        self._graphs[key] = (binding, steps)
+        for old in [k for k, (_, g) in self._graphs.items() if g is not None][:-GRAPHED_SHAPES]:
+            del self._graphs[old]
+        return metrics, True
+
     # ------------------------------------------------------------------ api
     def _eval_inputs(self, batch):
         """(positional, keyword) inputs of the autoencoder's forward for the
@@ -320,16 +387,22 @@ class VQGANTrainer(BaseTrainer):
         ``train.d_backward``, ``train.d_optimizer``, ``train.g_loss`` (which
         holds ``train.g_disc_forward``, the discriminator's pass with its
         parameters frozen), ``train.g_backward``, ``train.g_optimizer`` and
-        ``train.metrics``; the warmup graph has the generator's alone."""
-        with span("train.step", iteration=int(iteration)):
+        ``train.metrics``; the warmup graph has the generator's alone.
+        ``graphed`` is 1 where the networks' calls ran as CUDA graphs
+        (captured, inside ``train.capture``, or replayed), else 0."""
+        with span("train.step", iteration=int(iteration)) as step:
             self.shard()  # split over the model group (a no-op without one)
             batch = decode_batch(batch)  # the wire format (data/wire.py); a plain batch passes as it is
             self.ae.train()
             self.disc.train()
+            graphed = False
             if iteration <= self.warmup_steps:
                 metrics = self._warmup_step(batch)
+            elif (binding := self._graph_binding()) is not None:
+                metrics, graphed = self._graphed_gan_step(batch, starts, binding)
             else:
                 metrics = self._gan_step(batch, starts)
+            step.attrs["graphed"] = int(graphed)
             with span("train.metrics"):
                 metrics = {k: torch.as_tensor(v).detach() for k, v in metrics.items()}
                 return self.global_metrics(metrics,
